@@ -1,0 +1,567 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py            # all phases, one GPU
+    python3 chip_smoke.py --quick    # build + kernel checks only
+
+Phases (each prints its seconds):
+
+1. The card (name, count, ``nvidia-smi`` name and power limit); build every
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
+   parallel).
+2. Each kernel against its plain PyTorch version on the card: l2/ip/cos,
+   ragged shapes, ids < 0, all-invalid rows, visited words with bit 31 set
+   and a partial last word, batched and unbatched matrices, and the main
+   path's shapes. Gathers: rtol 1e-5, atol 1e-5, masked ids identical.
+   Matrix: rtol 1e-4, atol 1e-4 (x d for l2): the kernel sums in another
+   order than the library product, and the expanded l2 form's absolute
+   error grows with the squared norms.
+3. Smoke world (n=20_000, d=32) through ``repro_torch.launch.serve``:
+   recall@10 must reach the JAX reference's CPU figure on the same world
+   (``scripts/reference_smoke_recall.py``) less 0.02.
+4. Full-width world (n=1_000_000, d=64; NN-Descent k=20, 15 rounds, GD; 8
+   batches of 64 queries, ef=64, k=10, random entries) through the same
+   entry point, with every kernel launch counted; then all 8 batches again,
+   kernel path and plain path in lock-step from the same graph and entries:
+   ids, n_comps and n_steps must be identical except rows whose first
+   divergence is a float32 near-tie (at most 1% of rows).
+5. Per-kernel times at the main path's shapes, their bounds, the plain
+   versions' times and one library call where there is one. Times are
+   device time from torch.profiler (CUPTI), so a tiny kernel is not billed
+   the host's launch gaps; back-to-back wall per call (CUDA events) is
+   printed beside it. Last, the device-busy share of one served batch.
+
+Prints a ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
+without a GPU, or when the repository's sources are not beside it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# recall@10 of the JAX reference on the smoke world, on the CPU
+# (scripts/reference_smoke_recall.py, seed 0)
+REF_SMOKE_RECALL10 = 0.741406261920929
+RECALL_SLACK = 0.02
+GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
+MATRIX_RTOL, MATRIX_ATOL = 1e-4, 1e-4
+NEAR_TIE_ROWS_MAX = 0.01
+# published H100 SXM peaks: HBM3 bandwidth and dense FP32 rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+METRICS = ("l2", "ip", "cos")
+
+
+def phase(name: str):
+    print(f"\n=== {name}", flush=True)
+    return time.perf_counter()
+
+
+def done(t0: float, name: str) -> None:
+    torch.cuda.synchronize()
+    print(f"[{name}] {time.perf_counter() - t0:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SystemExit(f"FAIL: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, match: str | None = None) -> float:
+    """Mean device milliseconds per ``fn`` call: the summed duration of the
+    kernels (and copies) it ran on the card, read from torch.profiler
+    (CUPTI). ``match`` keeps only kernels whose name contains it. Unlike
+    event timing, this excludes the host's launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (match is None or match in e.key))
+    check(total_us > 0, f"the profiler recorded no device time for {match or fn}")
+    return total_us / 1e3 / reps
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms on the card, what bounds it) at the published peaks."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    both_inf = torch.isinf(a) & torch.isinf(b) & (a == b)
+    diff = torch.where(both_inf, torch.zeros_like(a), (a - b).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+# -- phase 2 -----------------------------------------------------------------
+
+
+def _ids_and_bitmap(rng, Q, R, n, dev):
+    from repro_torch.core import convert
+
+    ids = rng.integers(-1, n, size=(Q, R)).astype(np.int32)
+    if Q > 1:
+        ids[0] = -1                                  # an all-invalid row
+    if Q > 2 and R >= 4:                             # bit 31, the last word
+        ids[1, :4] = [min(31, n - 1), min(63, n - 1), n - 1, ((n - 1) // 32) * 32]
+    visited = rng.integers(0, 2**32, size=(Q, (n + 31) // 32), dtype=np.uint64)
+    visited = visited.astype(np.uint32)
+    visited[:, 0] |= np.uint32(1 << 31)
+    return (convert.tensor(ids, torch.int32, dev),
+            convert.bitmap_from_uint32(visited, dev))
+
+
+def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
+    from repro_torch.kernels import distance_matrix as kdm
+    from repro_torch.kernels import gather_distance as kgd
+    from repro_torch.kernels import ref
+
+    dev = full_base.device
+    rng = np.random.default_rng(1)
+    n_full, d_full = full_base.shape
+    small_base = {(1000, 17): None, (1, 1): None, (70, 8): None}
+    for key in small_base:
+        small_base[key] = torch.randn(key, device=dev)
+    gather_cases = [  # (label, Q, R, base, queries from base rows?)
+        ("hop Q=64 R=20 n=1M d=64", 64, 20, full_base, False),
+        ("nndescent Q=1024 R=240 n=1M d=64", 1024, 240, full_base, True),
+        ("ragged Q=7 R=33 n=1000 d=17", 7, 33, small_base[(1000, 17)], False),
+        ("partial word Q=5 R=40 n=70 d=8", 5, 40, small_base[(70, 8)], False),
+        ("tiny Q=1 R=1 n=1 d=1", 1, 1, small_base[(1, 1)], False),
+    ]
+    for label, Q, R, base, from_base in gather_cases:
+        n, d = base.shape
+        queries = (base[:Q].contiguous() if from_base
+                   else torch.randn((Q, d), device=dev))
+        ids, visited = _ids_and_bitmap(rng, Q, R, n, dev)
+        for metric in METRICS:
+            got = kgd.gather_distance(queries, ids, base, metric)
+            want = ref.gather_distance_ref(queries, ids, base, metric)
+            torch.testing.assert_close(got, want, **GATHER_TOL)
+            gd_, gi_ = kgd.gather_distance_masked(queries, ids, base, visited, metric)
+            wd_, wi_ = ref.gather_distance_masked_ref(queries, ids, base, visited, metric)
+            check(torch.equal(gi_, wi_), f"masked ids differ: {label} {metric}")
+            torch.testing.assert_close(gd_, wd_, **GATHER_TOL)
+            errs["gather_distance"] = max(errs["gather_distance"], max_abs_err(got, want))
+            errs["gather_distance_masked"] = max(errs["gather_distance_masked"],
+                                                 max_abs_err(gd_, wd_))
+        print(f"  gather_distance(_masked) {label}: l2/ip/cos agree "
+              f"(rtol {GATHER_TOL['rtol']}, atol {GATHER_TOL['atol']})")
+
+    gd_ids = torch.randint(0, n_full, (65536, 20), device=dev)
+    matrix_cases = [  # (label, x, y)
+        ("ground truth 512 x 16384 x 64",
+         torch.randn((512, d_full), device=dev), full_base[:16384]),
+        ("GD batch 65536 x 20 x 20 x 64", full_base[gd_ids], full_base[gd_ids]),
+        ("ragged 37 x 101 x 24", torch.randn((37, 24), device=dev),
+         torch.randn((101, 24), device=dev)),
+        ("ragged batch 5 x 7 x 3 x 130", torch.randn((5, 7, 130), device=dev),
+         torch.randn((5, 3, 130), device=dev)),
+        ("tile edges 3 x 33 x 65 x 16", torch.randn((3, 33, 16), device=dev),
+         torch.randn((3, 65, 16), device=dev)),
+        ("tiny 1 x 1 x 1", torch.randn((1, 1), device=dev),
+         torch.randn((1, 1), device=dev)),
+    ]
+    for label, x, y in matrix_cases:
+        d = x.shape[-1]
+        for metric in METRICS:
+            got = kdm.distance_matrix(x, y, metric)
+            want = ref.distance_matrix_ref(x, y, metric)
+            torch.testing.assert_close(
+                got, want, rtol=MATRIX_RTOL,
+                atol=MATRIX_ATOL * (d if metric == "l2" else 1))
+            errs["distance_matrix"] = max(errs["distance_matrix"], max_abs_err(got, want))
+        print(f"  distance_matrix {label}: l2/ip/cos agree (rtol {MATRIX_RTOL}, "
+              f"atol {MATRIX_ATOL} x d for l2)")
+    print(f"  max abs error against the plain versions: {errs}")
+
+
+# -- phase 4: kernel path against plain path, in lock-step -------------------
+
+
+def register_plain_scorer():
+    from repro_torch.core.scorers import register_scorer
+    from repro_torch.kernels import ref
+
+    class _PlainExact:
+        name = "exact-plain"
+        needs_rerank = False
+        needs_base = True
+
+        def score(self, state, queries, base, ids, visited, *, metric, r_tile):
+            return ref.gather_distance_masked_ref(queries, ids, base, visited, metric)
+
+        def scale_comps(self, state, n_comps, d):
+            return n_comps
+
+        def scored_bytes(self, state, n_raw, d):
+            return n_raw * (4 * d)
+
+    register_scorer(_PlainExact)
+
+
+def lockstep(searcher, spec, queries, entries):
+    """Run the beam with the CUDA kernel and with the plain version side by
+    side. Returns (kernel result, plain result, {row: near-tie?} for each
+    row at its first divergence)."""
+    from repro_torch.core import beam_search as bs
+
+    args = (queries, searcher.base, searcher.neighbors)
+    entries = entries.to(torch.int32)
+    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, "exact")
+    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, "exact-plain")
+    max_steps = bs.default_max_steps(spec.ef, spec.expand_width)
+    first: dict[int, bool] = {}
+
+    def record(a, b):
+        diff = ((a.cand_ids != b.cand_ids).any(1) | (a.done != b.done)
+                | (a.n_comps != b.n_comps))
+        for r in torch.nonzero(diff).flatten().tolist():
+            if r in first:
+                continue
+            pos = (a.cand_ids[r] != b.cand_ids[r])
+            if pos.any():  # ids swapped or cut at the list's end
+                tie = bool(torch.isclose(a.cand_dists[r][pos], b.cand_dists[r][pos],
+                                         **GATHER_TOL).all())
+            else:          # only the stop decision differs: best vs worst
+                best = a.cand_dists[r].masked_fill(a.expanded[r], float("inf")).min()
+                tie = bool(torch.isclose(best, a.cand_dists[r, -1], **GATHER_TOL))
+            first[r] = tie
+
+    record(sk, sp)
+    while True:
+        go_k = sk.step < max_steps and not bool(sk.done.all())
+        go_p = sp.step < max_steps and not bool(sp.done.all())
+        if not (go_k or go_p):
+            break
+        if go_k:
+            sk = bs._step(sk, *args, spec.metric, spec.expand_width, 0, "exact")
+        if go_p:
+            sp = bs._step(sp, *args, spec.metric, spec.expand_width, 0, "exact-plain")
+        record(sk, sp)
+    return (bs._finalize(sk, queries, searcher.base, spec.k, "exact", None),
+            bs._finalize(sp, queries, searcher.base, spec.k, "exact-plain", None),
+            first)
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+
+def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
+    from repro_torch.core.nndescent import NNDescentConfig, _score_chunked
+    from repro_torch.kernels import ops, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    s = run.searcher
+    base, nbrs = s.base, s.neighbors
+    n, d = base.shape
+    dev = base.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+
+    # gather_distance_masked at the hop shape: neighbor rows of 64 vertices,
+    # a fresh id set per launch so the gathered rows are not L2-resident
+    Q, R = 64, nbrs.shape[1]
+    q = run.stream[0]
+    sets = [nbrs[torch.randint(0, n, (Q,), generator=gen, device=dev)].contiguous()
+            for _ in range(64)]
+    visited = torch.zeros((Q, (n + 31) // 32), dtype=torch.int32, device=dev)
+    it = iter(range(10**9))
+
+    def hop():
+        return ops.gather_distance_masked(q, sets[next(it) % 64], base, visited)
+
+    def hop_plain():
+        return ref.gather_distance_masked_ref(q, sets[next(it) % 64], base, visited)
+    k_ms = device_ms(hop, reps=640, match="gather_distance_kernel")
+    call_ms = cuda_ms(hop, reps=640)
+    p_ms = device_ms(hop_plain, reps=64)
+    valid = float(torch.stack(sets).ge(0).sum()) / len(sets)
+    hop_bytes = Q * d * 4 + Q * R * 4 + valid * (4 * d + 4) + Q * R * 8
+    b_ms, b_by = bound(hop_bytes, valid * 3 * d)
+    rows.append(dict(name="gather_distance_masked", route="cuda",
+                     source="src/repro_torch/kernels/csrc/gather_distance.cu",
+                     replaces="src/repro/kernels/gather_distance.py:230",
+                     launches=launches["gather_distance_masked"],
+                     max_abs_err=errs["gather_distance_masked"], ms=k_ms,
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"  gather_distance_masked hop Q=64 R={R} d={d}: kernel {k_ms:.4f} ms on "
+          f"the device ({call_ms:.4f} ms a call back to back, host-bound), plain "
+          f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {hop_bytes / 1e6:.3f} MB)")
+
+    # gather_distance over one NN-Descent scoring pass: n x C=240 ids in
+    # 1024-row launches, as the local join issues them (uniform random ids,
+    # ~4% INVALID, stand in for the candidate pool)
+    C = 240
+    pool = torch.randint(-1, n, (n, C), generator=gen, device=dev, dtype=torch.int32)
+    pool[:, ::24] = -1
+    chunk = NNDescentConfig().chunk
+    n_launch = -(-n // chunk)
+    k_ms = device_ms(lambda: _score_chunked(base, pool, "l2", chunk), reps=3,
+                     match="gather_distance_kernel")
+    call_ms = cuda_ms(lambda: _score_chunked(base, pool, "l2", chunk), reps=3, warmup=1)
+
+    def plain_pass():
+        for lo in range(0, n, chunk):
+            ref.gather_distance_ref(base[lo:lo + chunk], pool[lo:lo + chunk], base)
+    p_ms = device_ms(plain_pass, reps=1)
+    n_valid = float(pool.ge(0).sum())
+    # the queries are base rows (base[lo:hi]), so the base is read once;
+    # then the ids in and the distances out
+    pass_bytes = n * d * 4 + 2 * n * C * 4
+    b_ms, b_by = bound(pass_bytes, n_valid * 3 * d)
+    rows.append(dict(name="gather_distance", route="cuda",
+                     source="src/repro_torch/kernels/csrc/gather_distance.cu",
+                     replaces="src/repro/kernels/gather_distance.py:176",
+                     launches=launches["gather_distance"],
+                     max_abs_err=errs["gather_distance"], ms=k_ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"  gather_distance NN-Descent pass n={n} C={C} ({n_launch} launches): "
+          f"kernel {k_ms:.3f} ms on the device ({call_ms:.3f} ms wall), plain "
+          f"{p_ms:.3f} ms, bound {b_ms:.3f} ms "
+          f"({b_by}, {pass_bytes / 1e9:.2f} GB once; rows actually gathered "
+          f"{n_valid * 4 * d / 1e9:.1f} GB)")
+
+    # distance_matrix over the ground-truth scan: 512 queries x 1M in
+    # 16384-row chunks, as exact_search issues them
+    qs = torch.cat(run.stream)
+    gt_chunk = 16384
+    chunks = [base[lo:lo + gt_chunk] for lo in range(0, n, gt_chunk)]
+
+    def scan(fn):
+        return lambda: [fn(c) for c in chunks]
+    k_ms = device_ms(scan(lambda c: ops.distance_matrix(qs, c)), reps=3,
+                     match="distance_matrix_kernel")
+    p_ms = device_ms(scan(lambda c: ref.distance_matrix_ref(qs, c)), reps=3)
+    l_ms = device_ms(scan(lambda c: torch.cdist(qs, c) ** 2), reps=3)
+    nq = qs.shape[0]
+    gt_bytes = nq * d * 4 + n * d * 4 + nq * n * 4
+    b_ms, b_by = bound(gt_bytes, 2.0 * nq * n * d + 3.0 * nq * n)
+    rows.append(dict(name="distance_matrix", route="cuda",
+                     source="src/repro_torch/kernels/csrc/distance_matrix.cu",
+                     replaces="src/repro/kernels/distance_matrix.py:62",
+                     launches=launches["distance_matrix"],
+                     max_abs_err=errs["distance_matrix"], ms=k_ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
+    print(f"  distance_matrix ground truth {nq} x {n} x {d} ({len(chunks)} launches): "
+          f"kernel {k_ms:.3f} ms ({2.0 * nq * n * d / k_ms / 1e9:.1f} TFLOP/s), "
+          f"plain {p_ms:.3f} ms, cdist**2 {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+
+    # distance_matrix at the GD shape: one 65536-vertex block of (20, 20)
+    # matrices over gathered candidate rows (printed, not in the JSON line)
+    L = 20
+    cand = nbrs[:65536].clamp(min=0).long()
+    rows_g = base[cand]
+    k_ms = device_ms(lambda: ops.distance_matrix(rows_g, rows_g), reps=20,
+                     match="distance_matrix_kernel")
+    p_ms = device_ms(lambda: ref.distance_matrix_ref(rows_g, rows_g), reps=20)
+    l_ms = device_ms(lambda: torch.cdist(rows_g, rows_g) ** 2, reps=20)
+    B = rows_g.shape[0]
+    gd_bytes = B * L * d * 4 + B * L * L * 4   # x is y: rows in once, matrices out
+    b_ms2, b_by2 = bound(gd_bytes, 2.0 * B * L * L * d)
+    print(f"  distance_matrix GD block {B} x {L} x {L} x {d}: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, cdist**2 {l_ms:.4f} ms, bound {b_ms2:.4f} ms "
+          f"({b_by2}); a full 1M pass is {n / B:.2f} such blocks")
+    return rows
+
+
+def busy_share(run) -> None:
+    """Device-busy share of one served batch: kernel time on the card
+    (torch.profiler, CUPTI) over the batch's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, seed = run.stream[0], run.seeds[0]
+    run.searcher.search(q, run.spec, seed)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        res = run.searcher.search(q, run.spec, seed)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_card)
+    check(dev_us > 0, "the profiler recorded no device time for a beam batch")
+    steps = int(res.n_steps)
+    print(f"  beam batch under the profiler: {wall_us / 1e3:.2f} ms wall, "
+          f"{dev_us / 1e3:.3f} ms on the device ({dev_us / wall_us:.1%} busy, "
+          f"{1 - dev_us / wall_us:.1%} idle), {steps} steps, "
+          f"{len(on_card)} distinct device ops")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.key[:70]:70s} {e.self_device_time_total:9.1f} us x{e.count}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="phases 1-2 only: build and check the kernels")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {SRC}",
+              file=sys.stderr)
+        return 3
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    t0 = phase("phase 1: card and build")
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = nvidia_smi_line()
+    print(f"card: {kind} (count {count}); nvidia-smi: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    tb = time.perf_counter()
+    secs = _build.build(_build.SOURCES)
+    print(f"built {', '.join(f'{k} ({v:.1f} s)' for k, v in secs.items())} "
+          f"in {time.perf_counter() - tb:.1f} s wall")
+    for name, log in _build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    done(t0, "phase 1")
+
+    t0 = phase("phase 2: kernels against plain versions")
+    n_full, d_full = serve.FULL_WORLD
+    full_base = torch.from_numpy(serve.numpy_world(n_full, d_full, 0)).to(dev)
+    errs = {"gather_distance": 0.0, "gather_distance_masked": 0.0,
+            "distance_matrix": 0.0}
+    check_kernels(full_base, errs)
+    del full_base
+    done(t0, "phase 2")
+    if args.quick:
+        print(smi)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                  "count": count}}))
+        return 0
+
+    t0 = phase("phase 3: smoke world (n=20_000, d=32)")
+    smoke = serve.serve_ann(serve.parser().parse_args(
+        ["--arch", "ann", "--smoke", "--device", "cuda"])).summary
+    floor = REF_SMOKE_RECALL10 - RECALL_SLACK
+    print(f"smoke recall@10 {smoke['recall@10']:.4f} (JAX reference on the CPU "
+          f"{REF_SMOKE_RECALL10:.4f}; floor {floor:.4f}), recall@1 "
+          f"{smoke['recall@1']:.4f}, comps/query {smoke['comps_per_query']:.1f}, "
+          f"qps {smoke['qps']:.1f}")
+    check(smoke["recall@10"] >= floor, "smoke-world recall@10 below the floor")
+    done(t0, "phase 3")
+
+    t0 = phase("phase 4: full-width world (n=1_000_000, d=64)")
+    ops.reset_launch_counts()
+    run = serve.serve_ann(serve.parser().parse_args(["--arch", "ann", "--device", "cuda"]))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    rep = run.build.report
+    print(f"build: rounds {rep.rounds}, converged {rep.converged}, update curve "
+          f"{list(rep.update_curve)}")
+    print(f"build: graph-recall proxy {rep.graph_recall_proxy}, degree "
+          f"min/mean/max {rep.degree['min']}/{rep.degree['mean']}/{rep.degree['max']}, "
+          f"in-degree {rep.in_degree}, dropped reverse {rep.dropped_reverse_edges}, "
+          f"LID {rep.lid}")
+    print(f"build: construct {rep.wall_construct_s:.2f} s, diversify "
+          f"{rep.wall_diversify_s:.2f} s, compress {rep.wall_compress_s:.2f} s, "
+          f"total {rep.wall_total_s:.2f} s; peak memory per stage (GiB) "
+          f"{ {k: round(v / 2**30, 2) for k, v in rep.peak_memory_bytes.items()} }")
+    s = run.summary
+    steps = s["steps_per_batch"]
+    print(f"search: {s['queries']} queries in {s['seconds'] * 1e3:.1f} ms "
+          f"({s['qps']:.1f} qps), recall@1 {s['recall@1']:.4f}, recall@10 "
+          f"{s['recall@10']:.4f}, comps/query {s['comps_per_query']:.1f}, "
+          f"{steps:.1f} steps/batch, {s['seconds'] * 1e3 / len(run.stream) / steps:.3f} "
+          "ms/step")
+    print(f"launches over phase 4: {launches}")
+    check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
+    rec10 = s["recall@10"]
+    check(np.isfinite(rec10) and 0.0 < rec10 <= 1.0, "recall@10 out of range")
+
+    register_plain_scorer()
+    rows_total = rows_diff = near_ties = 0
+    for q, seed, res in zip(run.stream, run.seeds, run.results):
+        entries, _ = run.searcher.seed(q, run.spec, seed)
+        kres, pres, first = lockstep(run.searcher, run.spec, q, entries)
+        check(torch.equal(kres.ids, res.ids) and torch.equal(kres.n_comps, res.n_comps),
+              "the lock-step kernel path differs from the served run")
+        rows_total += q.shape[0]
+        differ = ((kres.ids != pres.ids).any(1) | (kres.n_comps != pres.n_comps))
+        if int(kres.n_steps) != int(pres.n_steps):
+            print(f"  batch seed {seed}: n_steps kernel {int(kres.n_steps)} vs "
+                  f"plain {int(pres.n_steps)}")
+        for r in torch.nonzero(differ).flatten().tolist():
+            rows_diff += 1
+            tie = first.get(r, False)
+            near_ties += tie
+            print(f"  row {r} (batch seed {seed}): ids/comps differ, first divergence "
+                  f"{'is a float32 near-tie' if tie else 'is NOT a near-tie'}: "
+                  f"kernel comps {int(kres.n_comps[r])}, plain {int(pres.n_comps[r])}")
+        check(int(kres.n_steps) == int(pres.n_steps) or differ.any(),
+              "n_steps differ with identical rows")
+    print(f"plain re-run: {rows_total} rows, {rows_diff} differ, {near_ties} "
+          f"traced to near-ties (at most {NEAR_TIE_ROWS_MAX:.0%} allowed)")
+    check(rows_diff == near_ties, "a row differs without a near-tie")
+    check(near_ties <= NEAR_TIE_ROWS_MAX * rows_total, "too many near-tie rows")
+    done(t0, "phase 4")
+
+    t0 = phase("phase 5: per-kernel times at the main path's shapes")
+    rows = time_kernels(run, errs, launches)
+    busy_share(run)
+    done(t0, "phase 5")
+
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                              "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

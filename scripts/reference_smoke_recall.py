@@ -1,0 +1,95 @@
+"""Recall of the JAX reference on the port's smoke world, on the CPU.
+
+Builds the paper's index with ``repro`` (NN-Descent, graph_k=20, 15 rounds,
+GD) over the same numpy world the port's ``launch/serve.py --smoke`` and
+``chip_smoke.py`` use (n=20_000, d=32, seed 0), answers 8 batches of 64
+queries with random entries at ef=64, k=10, and prints the build's rounds,
+update curve and graph-recall proxy, and recall@1, recall@10 and
+comps/query against brute-force ground truth, as one JSON line. With
+``--port`` it also runs the port on the CPU over the same world; ``--n`` and
+``--d`` pick another world of the same kind.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py --port
+
+``chip_smoke.py`` holds the port on the card to this recall@10 less 0.02.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core import bruteforce
+from repro.core.build import BuildSpec, GraphBuilder
+from repro.core.engine import Searcher
+from repro.core.topk import recall_at_k
+from repro_torch.launch.serve import SMOKE_WORLD, numpy_queries, numpy_world
+
+EF, K, BATCH, BATCHES = 64, 10, 64, 8
+
+
+def reference(seed: int, n: int, d: int) -> dict:
+    base = jnp.asarray(numpy_world(n, d, seed))
+    key = jax.random.PRNGKey(seed)
+    t0 = time.perf_counter()
+    result = GraphBuilder(BuildSpec()).build(base, key=key)
+    build_s = time.perf_counter() - t0
+    searcher = Searcher.from_build(base, result, key=key)
+    spec = searcher.spec(ef=EF, k=K)
+    qs = numpy_queries(d, BATCH, BATCHES, seed)
+    ids, comps = [], []
+    for b, q in enumerate(qs):
+        res = searcher.search(jnp.asarray(q), spec,
+                              jax.random.fold_in(key, 1000 + b))
+        ids.append(np.asarray(res.ids))
+        comps.append(np.asarray(res.n_comps))
+    allq = jnp.asarray(np.concatenate(qs))
+    gt = np.asarray(bruteforce.ground_truth(allq, base, K))
+    found = np.concatenate(ids)
+    rep = result.report
+    return {
+        "impl": "repro (JAX, CPU)", "n": n, "d": d, "build_s": build_s,
+        "rounds": rep.rounds, "update_curve": list(rep.update_curve),
+        "graph_recall_proxy": rep.graph_recall_proxy,
+        "degree_mean": rep.degree["mean"],
+        "recall@1": float((found[:, 0] == gt[:, 0]).mean()),
+        "recall@10": float(recall_at_k(jnp.asarray(found), jnp.asarray(gt))),
+        "comps_per_query": float(np.concatenate(comps).mean()),
+    }
+
+
+def port(seed: int, n: int, d: int) -> dict:
+    from repro_torch.launch import serve
+
+    serve.SMOKE_WORLD = (n, d)
+    args = serve.parser().parse_args(["--arch", "ann", "--smoke", "--device", "cpu",
+                                "--seed", str(seed), "--ef", str(EF),
+                                "--topk", str(K), "--batch", str(BATCH),
+                                "--batches", str(BATCHES)])
+    run = serve.serve_ann(args)
+    rep = run.build.report
+    return {"impl": "repro_torch (CPU)", "rounds": rep.rounds,
+            "update_curve": list(rep.update_curve),
+            "graph_recall_proxy": rep.graph_recall_proxy,
+            "degree_mean": rep.degree["mean"], **run.summary}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n", type=int, default=SMOKE_WORLD[0])
+    ap.add_argument("--d", type=int, default=SMOKE_WORLD[1])
+    ap.add_argument("--port", action="store_true",
+                    help="also run the port on the CPU over the same world")
+    args = ap.parse_args()
+    print(json.dumps(reference(args.seed, args.n, args.d)), flush=True)
+    if args.port:
+        print(json.dumps(port(args.seed, args.n, args.d)))
+
+
+if __name__ == "__main__":
+    main()

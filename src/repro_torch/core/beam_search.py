@@ -1,0 +1,286 @@
+"""Batched best-first ("hill-climbing" / ef-) search over a flat graph.
+
+The search every graph method in the paper shares (Sec. III): keep a sorted
+ef-candidate list; repeatedly expand the best unexpanded vertex; stop when
+the best unexpanded candidate is farther than the worst list entry.
+
+Q queries advance in lock-step. Per step each query expands
+``expand_width`` vertices, the (Q, W*R) neighbor gather + scoring is one
+fused kernel call (``ops.gather_distance_masked`` through the scorer), and
+the per-query visited set is a bit-packed (Q, ceil(n/32)) bitmap held as
+int32 words (the reference's uint32 bits; torch has no unsigned shift or
+scatter-add on the CPU). Finished rows are masked, not exited.
+
+The reference's ``lax.while_loop`` is a host loop here: it reads
+``done.all()`` once a step (one device sync a step) and stops when every row
+is done or ``max_steps`` is reached. This slice ports ``term="fixed"``
+without restarts; ``term="stable"``, restarts and filter deny bitmaps come
+with a later slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .scorers import get_scorer
+from .topk import INF, INVALID, topk_smallest
+
+
+class SearchResult(NamedTuple):
+    ids: torch.Tensor        # (Q, k) ascending
+    dists: torch.Tensor      # (Q, k)
+    n_comps: torch.Tensor    # (Q,) distance computations (paper's cost currency)
+    n_steps: torch.Tensor    # () loop iterations executed
+    # bytes of base representation fetched per query (4d per exact score)
+    bytes_touched: torch.Tensor | int = 0
+
+
+class _State(NamedTuple):
+    cand_ids: torch.Tensor    # (Q, ef) sorted ascending by dist
+    cand_dists: torch.Tensor  # (Q, ef)
+    expanded: torch.Tensor    # (Q, ef) bool
+    visited: torch.Tensor     # (Q, W) int32 bitmap words
+    n_comps: torch.Tensor     # (Q,) int32
+    done: torch.Tensor        # (Q,) bool
+    step: int
+
+
+TERMINATION_MODES = ("fixed",)
+
+
+def check_termination(term: str, restarts: int) -> None:
+    """The termination knobs this slice supports; the rest raise."""
+    if term == "stable" or restarts > 0:
+        raise NotImplementedError(
+            "term='stable' and restarts are not ported yet "
+            "(ROADMAP.md, queue A item 8)"
+        )
+    if term not in TERMINATION_MODES:
+        raise ValueError(f"unknown termination mode {term!r}")
+
+
+def default_max_steps(ef: int, expand_width: int = 1) -> int:
+    """Step budget: the beam converges in O(ef) expansions, and expand_width
+    W expands W vertices per step."""
+    return -(-4 * ef // expand_width) + 64
+
+
+def mask_padded_queries(entry_ids: torch.Tensor,
+                        q_valid: torch.Tensor | None) -> torch.Tensor:
+    """Rows with ``q_valid`` False get an all-INVALID entry row: they score
+    zero comparisons, freeze on the first step and return (INVALID, +inf,
+    0 comps) without perturbing real rows. None means all rows are real."""
+    if q_valid is None:
+        return entry_ids
+    return torch.where(q_valid[:, None], entry_ids,
+                       torch.full_like(entry_ids, INVALID))
+
+
+def dedup_rows(ids: torch.Tensor) -> torch.Tensor:
+    """Sort each row and mark repeats INVALID — the dup-free-rows invariant
+    ``_mark_visited``'s scatter-add requires. Order is not preserved."""
+    srt, _ = torch.sort(ids, dim=1)
+    dup = torch.zeros_like(srt, dtype=torch.bool)
+    dup[:, 1:] = srt[:, 1:] == srt[:, :-1]
+    return srt.masked_fill(dup, INVALID)
+
+
+def _is_visited(visited: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Read bits for ids (Q, R) from the int32 bitmap; ids < 0 read False.
+    The shift is arithmetic; bit 0 of the result is still the tested bit."""
+    W = visited.shape[1]
+    safe = ids.clamp(min=0)
+    words = visited.gather(1, torch.clamp(safe >> 5, max=W - 1).long())
+    seen = ((words >> (safe & 31)) & 1) > 0
+    return seen & (ids >= 0)
+
+
+def _mark_visited(visited: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Set bits for ids (Q, R); ids < 0 are ignored. Rows must be dup-free
+    among unvisited entries (adjacency rows and seeds are deduped), so the
+    scatter-add of distinct unset bits is an exact OR. ``1 << 31`` is
+    INT32_MIN in int32, which is the right bit pattern."""
+    valid = ids >= 0
+    word = torch.where(valid, ids >> 5, torch.zeros_like(ids)).long()
+    one = torch.ones_like(ids)
+    bit = torch.where(valid, one << (ids & 31), torch.zeros_like(ids))
+    return visited.scatter_add(1, word, bit)
+
+
+def _init_state(queries, base, neighbors, entry_ids, ef, metric,
+                r_tile: int = 0, scorer: str = "exact", scorer_state=None,
+                tombstones=None) -> _State:
+    Q = queries.shape[0]
+    n = neighbors.shape[0]
+    W = (n + 31) // 32
+    E = entry_ids.shape[1]
+    dev = queries.device
+    # deleted/unallocated ids (tombstones, (W,) int32) seed every row's
+    # visited set, so the mask epilogue drops them everywhere
+    if tombstones is None:
+        init = torch.zeros((Q, W), dtype=torch.int32, device=dev)
+    else:
+        init = tombstones.to(torch.int32).reshape(1, W).expand(Q, W).contiguous()
+    d0, entry_ids = get_scorer(scorer).score(
+        scorer_state, queries, base, entry_ids.contiguous(), init,
+        metric=metric, r_tile=r_tile,
+    )  # (Q, E)
+    visited = _mark_visited(init, entry_ids)
+
+    pad = ef - E
+    cand_d = torch.cat([d0, torch.full((Q, pad), INF, device=dev)], dim=1)
+    cand_i = torch.cat(
+        [entry_ids, torch.full((Q, pad), INVALID, dtype=torch.int32, device=dev)],
+        dim=1,
+    )
+    cand_d, order = torch.sort(cand_d, dim=1, stable=True)
+    cand_i = cand_i.gather(1, order)
+    return _State(
+        cand_ids=cand_i,
+        cand_dists=cand_d,
+        expanded=torch.zeros((Q, ef), dtype=torch.bool, device=dev),
+        visited=visited,
+        n_comps=(entry_ids >= 0).sum(dim=1, dtype=torch.int32),
+        done=torch.zeros((Q,), dtype=torch.bool, device=dev),
+        step=0,
+    )
+
+
+def _step(state: _State, queries, base, neighbors, metric,
+          expand_width: int = 1, r_tile: int = 0, scorer: str = "exact",
+          scorer_state=None) -> _State:
+    Q, ef = state.cand_ids.shape
+    R = neighbors.shape[1]
+    Wd = expand_width
+
+    # 1. best unexpanded candidate(s) per row; ties to the lowest slot
+    masked = state.cand_dists.masked_fill(state.expanded, INF)
+    best_d, j = topk_smallest(masked, Wd)                          # (Q, W)
+    worst = state.cand_dists[:, -1]
+    # termination: nothing expandable, or the best unexpanded is worse than
+    # the full list's worst (cannot improve the ef set)
+    newly_done = (best_d[:, 0] == INF) | (best_d[:, 0] > worst)
+    done = state.done | newly_done
+    active = ~done
+
+    vtx = state.cand_ids.gather(1, j)                              # (Q, W)
+    expandable = (best_d < INF) & active[:, None]
+    expanded = state.expanded.scatter(
+        1, j, state.expanded.gather(1, j) | expandable)
+
+    # 2. gather neighbors; mask padding/inactive
+    nbrs = neighbors[vtx.clamp(min=0).long()].reshape(Q, Wd * R)  # (Q, W*R)
+    keep_nbr = (nbrs >= 0) & expandable.repeat_interleave(R, dim=1)
+    nbrs = torch.where(keep_nbr, nbrs, torch.full_like(nbrs, INVALID))
+    if Wd > 1:  # two expanded vertices may share a neighbor
+        nbrs = dedup_rows(nbrs)
+
+    # 3. score + mask + account + mark visited, through the scorer axis;
+    # the kernel returns (+inf, INVALID) for padding/visited entries
+    nd, nbrs = get_scorer(scorer).score(
+        scorer_state, queries, base, nbrs.contiguous(), state.visited,
+        metric=metric, r_tile=r_tile,
+    )                                                              # (Q, W*R)
+    n_comps = state.n_comps + (nbrs >= 0).sum(dim=1, dtype=torch.int32)
+    visited = _mark_visited(state.visited, nbrs)
+
+    # 4. merge: the ef best of (ef + W*R), stable, ties to the lowest index
+    all_d = torch.cat([state.cand_dists, nd], dim=1)
+    all_i = torch.cat([state.cand_ids, nbrs], dim=1)
+    all_e = torch.cat(
+        [expanded, torch.zeros(nbrs.shape, dtype=torch.bool, device=nbrs.device)],
+        dim=1,
+    )
+    cand_d, order = topk_smallest(all_d, ef)
+    cand_i = all_i.gather(1, order)
+    cand_e = all_e.gather(1, order)
+
+    # frozen rows keep their state, bit for bit
+    frozen = done[:, None]
+    return _State(
+        cand_ids=torch.where(frozen, state.cand_ids, cand_i),
+        cand_dists=torch.where(frozen, state.cand_dists, cand_d),
+        expanded=torch.where(frozen, state.expanded, cand_e),
+        visited=torch.where(frozen, state.visited, visited),
+        n_comps=torch.where(done, state.n_comps, n_comps),
+        done=done,
+        step=state.step + 1,
+    )
+
+
+def _finalize(state: _State, queries, base, k, scorer: str,
+              scorer_state) -> SearchResult:
+    """Loop epilogue for the exact scorer: slice the candidate list."""
+    sc = get_scorer(scorer)
+    if sc.needs_rerank:
+        raise NotImplementedError(
+            "compressed scorers and their exact rerank are not ported yet "
+            "(ROADMAP.md, queue A item 9)"
+        )
+    return SearchResult(
+        ids=state.cand_ids[:, :k],
+        dists=state.cand_dists[:, :k],
+        n_comps=state.n_comps,
+        n_steps=torch.tensor(state.step, dtype=torch.int32),
+        bytes_touched=sc.scored_bytes(scorer_state, state.n_comps, base.shape[1]),
+    )
+
+
+def beam_search(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    neighbors: torch.Tensor,
+    entry_ids: torch.Tensor,
+    ef: int,
+    k: int = 1,
+    metric: str = "l2",
+    max_steps: int | None = None,
+    expand_width: int = 1,
+    r_tile: int = 0,
+    scorer: str = "exact",
+    scorer_state=None,
+    rerank: int = 0,
+    q_valid: torch.Tensor | None = None,
+    term: str = "fixed",
+    stable_steps: int = 8,
+    restarts: int = 0,
+    restart_gate: float = 0.0,
+    restart_keys=None,
+    tombstones: torch.Tensor | None = None,
+    deny: torch.Tensor | None = None,
+) -> SearchResult:
+    """Best-first graph search. entry_ids (Q, E) int32 seeds (E <= ef).
+    expand_width > 1 expands several vertices per step; q_valid (Q,) bool
+    marks real rows (see :func:`mask_padded_queries`); tombstones
+    (ceil(n/32),) int32 words mark deleted ids. ``r_tile`` is accepted for
+    the reference's signature: the CUDA kernel picks its own tile.
+    ``term="stable"``, ``restarts > 0`` and ``deny`` are not ported and
+    raise. ``stable_steps``, ``restart_gate`` and ``restart_keys`` are read
+    only under those, and ``rerank`` only by compressed scorers, so with
+    the ported options they are inert, as in the reference."""
+    check_termination(term, restarts)
+    if deny is not None:
+        raise NotImplementedError(
+            "filter deny bitmaps are not ported yet (ROADMAP.md, queue A item 11)")
+    if expand_width < 1 or entry_ids.shape[1] > ef:
+        raise ValueError(f"need expand_width >= 1 and E <= ef, got "
+                         f"expand_width={expand_width}, E={entry_ids.shape[1]}, ef={ef}")
+    if max_steps is None:
+        max_steps = default_max_steps(ef, expand_width)
+    entry_ids = mask_padded_queries(entry_ids.to(torch.int32), q_valid)
+    state = _init_state(queries, base, neighbors, entry_ids, ef, metric,
+                        r_tile, scorer, scorer_state, tombstones)
+    while state.step < max_steps and not bool(state.done.all()):
+        state = _step(state, queries, base, neighbors, metric, expand_width,
+                      r_tile, scorer, scorer_state)
+    return _finalize(state, queries, base, k, scorer, scorer_state)
+
+
+def random_entries(generator: torch.Generator, n: int, Q: int, E: int) -> torch.Tensor:
+    """E random seeds per query (flat-HNSW start, paper Sec. IV), drawn on
+    the generator's device: a with-replacement draw plus in-row dedup, with
+    collisions left INVALID (the beam needs dup-free rows)."""
+    draw = torch.randint(0, n, (Q, E), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    return dedup_rows(draw)

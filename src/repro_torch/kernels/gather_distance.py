@@ -1,0 +1,116 @@
+"""CUDA wrappers for the fused gather + distance kernels.
+
+Replace the Pallas kernels ``gather_distance`` and ``gather_distance_masked``
+(``src/repro/kernels/gather_distance.py``). The source is
+``csrc/gather_distance.cu``; its header says what bounds the kernel on the
+H100 (bytes: one random 4*d-byte row per scored id) and how its design
+answers that (one warp per id, coalesced row reads, warp-shuffle sums, the
+mask epilogue fused). These wrappers take CUDA tensors only; ``kernels.ops``
+sends CPU tensors to the plain versions in ``kernels.ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+METRIC_CODES = {"l2": 0, "ip": 1, "cos": 2}
+MAX_D = 12288          # the query row is staged in 48 KB of shared memory
+MAX_R_TILES = 65535    # gridDim.y = ceil(R / 32)
+_INT_MAX = 2**31 - 1
+
+# kernel launches by entry point (read and reset by chip_smoke.py)
+LAUNCHES = {"gather_distance": 0, "gather_distance_masked": 0}
+
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = _build.load("gather_distance").gather_distance_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(queries, ids, base, metric, visited=None):
+    if metric not in METRIC_CODES:
+        raise ValueError(f"unknown metric {metric!r}; one of {sorted(METRIC_CODES)}")
+    tensors = {"queries": queries, "ids": ids, "base": base}
+    if visited is not None:
+        tensors["visited"] = visited
+    dev = queries.device
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t, dt in (("queries", queries, torch.float32),
+                        ("base", base, torch.float32),
+                        ("ids", ids, torch.int32)):
+        if t.dtype != dt:
+            raise ValueError(f"{name} must be {dt}, got {t.dtype}")
+    if queries.dim() != 2 or ids.dim() != 2 or base.dim() != 2:
+        raise ValueError("queries (Q, d), ids (Q, R) and base (n, d) must be 2-D")
+    Q, d = queries.shape
+    n = base.shape[0]
+    R = ids.shape[1]
+    if ids.shape[0] != Q or base.shape[1] != d:
+        raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, "
+                         f"ids {tuple(ids.shape)}, base {tuple(base.shape)}")
+    if n < 1 or d > MAX_D or -(-R // 32) > MAX_R_TILES:
+        raise ValueError(f"unsupported shape: n={n} (>= 1), d={d} (<= {MAX_D}), "
+                         f"R={R} (<= {32 * MAX_R_TILES})")
+    if max(Q, R, n, d) > _INT_MAX:
+        raise ValueError("dimension exceeds the kernel's int32 indexing")
+    W = 0
+    if visited is not None:
+        if visited.dtype != torch.int32 or visited.dim() != 2:
+            raise ValueError("visited must be a (Q, ceil(n/32)) int32 bitmap")
+        W = visited.shape[1]
+        if visited.shape[0] != Q or W < 1:
+            raise ValueError(f"visited {tuple(visited.shape)} does not match Q={Q}")
+    return Q, R, n, d, W
+
+
+def _launch(queries, ids, base, visited, out_d, out_i, dims, metric):
+    Q, R, n, d, W = dims
+    stream = torch.cuda.current_stream(queries.device).cuda_stream
+    status = _entry()(
+        queries.data_ptr(), ids.data_ptr(), base.data_ptr(),
+        None if visited is None else visited.data_ptr(),
+        out_d.data_ptr(), None if out_i is None else out_i.data_ptr(),
+        Q, R, n, d, W, METRIC_CODES[metric], int(visited is not None), stream,
+    )
+    _build.check(status, "gather_distance_f32")
+
+
+def gather_distance(queries: torch.Tensor, ids: torch.Tensor,
+                    base: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """queries (Q, d) f32, ids (Q, R) i32, base (n, d) f32 -> (Q, R) f32
+    distances; ids < 0 give +inf."""
+    dims = _check(queries, ids, base, metric)
+    out_d = torch.empty(ids.shape, dtype=torch.float32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        _launch(queries, ids, base, None, out_d, None, dims, metric)
+    LAUNCHES["gather_distance"] += 1
+    return out_d
+
+
+def gather_distance_masked(queries: torch.Tensor, ids: torch.Tensor,
+                           base: torch.Tensor, visited: torch.Tensor,
+                           metric: str = "l2"):
+    """As :func:`gather_distance`, plus the visited (Q, ceil(n/32)) int32
+    bitmap: padding and visited ids come back as (+inf, -1). Returns
+    (dists (Q, R) f32, masked ids (Q, R) i32)."""
+    dims = _check(queries, ids, base, metric, visited)
+    out_d = torch.empty(ids.shape, dtype=torch.float32, device=queries.device)
+    out_i = torch.empty(ids.shape, dtype=torch.int32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        _launch(queries, ids, base, visited, out_d, out_i, dims, metric)
+    LAUNCHES["gather_distance_masked"] += 1
+    return out_d, out_i

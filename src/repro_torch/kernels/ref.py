@@ -1,0 +1,80 @@
+"""Plain PyTorch versions of the ported kernels.
+
+Same formulas as ``repro/kernels/ref.py``: l2 in diff form for the gathers,
+expanded and clamped for the matrix, rsqrt-clamped cos. The CPU path runs
+these; on the card they are the oracle each CUDA kernel is held against.
+They work on any device.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _rsqrt_norm(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.rsqrt(torch.clamp((x * x).sum(-1, keepdim=True), min=1e-12))
+
+
+def distance_matrix_ref(x: torch.Tensor, y: torch.Tensor,
+                        metric: str = "l2") -> torch.Tensor:
+    """(q, d) x (n, d) -> (q, n), or batched (B, q, d) x (B, n, d) ->
+    (B, q, n); fp32 accumulation."""
+    x = x.float()
+    y = y.float()
+    if metric == "cos":
+        return 1.0 - _rsqrt_norm(x) @ _rsqrt_norm(y).transpose(-1, -2)
+    cross = x @ y.transpose(-1, -2)
+    if metric == "ip":
+        return -cross
+    if metric != "l2":
+        raise ValueError(f"unknown metric {metric!r}")
+    xx = (x * x).sum(-1).unsqueeze(-1)
+    yy = (y * y).sum(-1).unsqueeze(-2)
+    return torch.clamp(xx - 2.0 * cross + yy, min=0.0)
+
+
+def _distances_from_rows(queries: torch.Tensor, ids: torch.Tensor,
+                         rows: torch.Tensor, metric: str) -> torch.Tensor:
+    """queries (Q, d) vs gathered rows (Q, R, d) -> (Q, R); ids < 0 -> +inf."""
+    q = queries.float().unsqueeze(1)
+    rows = rows.float()
+    if metric == "ip":
+        d = -(rows * q).sum(-1)
+    elif metric == "cos":
+        d = 1.0 - (_rsqrt_norm(rows) * _rsqrt_norm(q)).sum(-1)
+    elif metric == "l2":
+        diff = rows - q
+        d = (diff * diff).sum(-1)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    return torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
+
+
+def gather_distance_ref(queries: torch.Tensor, ids: torch.Tensor,
+                        base: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """queries (Q, d), ids (Q, R) into base (n, d) -> (Q, R) distances.
+    Padding ids (< 0) give +inf; ids past the base clamp to its last row,
+    as an XLA gather does."""
+    rows = base[ids.clamp(0, base.shape[0] - 1).long()]
+    return _distances_from_rows(queries, ids, rows, metric)
+
+
+def visited_mask_ref(ids: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+    """ids (Q, R) against a bit-packed (Q, ceil(n/32)) int32 visited bitmap
+    -> ids with padding (< 0) and visited entries set to -1.
+
+    The words are int32 holding the reference's uint32 bits. The shift is
+    arithmetic, which still leaves the tested bit in bit 0."""
+    W = visited.shape[1]
+    safe = ids.clamp(min=0)
+    words = visited.gather(1, torch.clamp(safe >> 5, max=W - 1).long())
+    seen = ((words >> (safe & 31)) & 1) > 0
+    return torch.where((ids >= 0) & ~seen, ids, torch.full_like(ids, -1))
+
+
+def gather_distance_masked_ref(queries: torch.Tensor, ids: torch.Tensor,
+                               base: torch.Tensor, visited: torch.Tensor,
+                               metric: str = "l2"):
+    """(dists, masked ids) where padding and visited entries come back as
+    (+inf, -1)."""
+    masked = visited_mask_ref(ids, visited)
+    return gather_distance_ref(queries, masked, base, metric), masked

@@ -4,3 +4,8 @@ import sys
 # smoke tests / benches must see ONE device (dryrun.py sets 512 itself)
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips inside its fixture where none is visible")

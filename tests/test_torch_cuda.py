@@ -1,0 +1,127 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``; each skips inside its fixture where no GPU is visible. This
+file imports neither jax nor repro, so it runs where only the port is
+installed:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import convert
+from repro_torch.kernels import distance_matrix as cuda_dm
+from repro_torch.kernels import gather_distance as cuda_gd
+from repro_torch.kernels import ops, ref
+
+METRICS = ["l2", "ip", "cos"]
+# float32 sums in another order than the plain version's
+GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _world(Q, R, n, d, seed=0):
+    """queries, base, ids with padding (-1), one all-invalid row, ids on bit
+    31 and in the last word, and a random uint32 visited bitmap."""
+    rng = np.random.default_rng(seed + 7 * Q + R + d)
+    queries = rng.standard_normal((Q, d), dtype=np.float32)
+    base = rng.standard_normal((n, d), dtype=np.float32)
+    ids = rng.integers(-1, n, size=(Q, R)).astype(np.int32)
+    if Q > 1:
+        ids[0] = -1
+    if Q > 2 and R >= 3:
+        ids[1, :3] = [min(31, n - 1), n - 1, ((n - 1) // 32) * 32]
+    visited = rng.integers(0, 2**32, size=(Q, (n + 31) // 32), dtype=np.uint64)
+    return queries, base, ids, visited.astype(np.uint32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _c(a, dev, dtype=torch.float32):
+    return convert.tensor(a, dtype, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("Q,R,n,d", [(64, 20, 5000, 64), (7, 33, 1000, 17),
+                                     (3, 240, 300, 64), (1, 1, 1, 1)])
+def test_cuda_gather_kernels_match_plain(cuda, metric, Q, R, n, d):
+    queries, base, ids, visited = _world(Q, R, n, d, seed=4)
+    qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
+    vt = convert.bitmap_from_uint32(visited, cuda)
+    got = cuda_gd.gather_distance(qt, it, bt, metric)
+    want = ref.gather_distance_ref(qt, it, bt, metric)
+    torch.testing.assert_close(got, want, **GATHER_TOL)
+    got_d, got_i = cuda_gd.gather_distance_masked(qt, it, bt, vt, metric)
+    want_d, want_i = ref.gather_distance_masked_ref(qt, it, bt, vt, metric)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", [(1, 512, 16384, 64), (1, 37, 101, 24),
+                                   (1000, 20, 20, 64), (5, 7, 3, 130)])
+def test_cuda_distance_matrix_matches_plain(cuda, metric, shape):
+    B, q, n, d = shape
+    rng = np.random.default_rng(B + q + n + d)
+    x = _c(rng.standard_normal((B, q, d), dtype=np.float32), cuda)
+    y = _c(rng.standard_normal((B, n, d), dtype=np.float32), cuda)
+    got = cuda_dm.distance_matrix(x, y, metric)
+    want = ref.distance_matrix_ref(x, y, metric)
+    # rtol 1e-4: the kernel sums in another order than the library matmul;
+    # the expanded l2 form's absolute error grows with the norms (~d here)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * (d if metric == "l2" else 1))
+    if B == 1:
+        torch.testing.assert_close(cuda_dm.distance_matrix(x[0], y[0], metric),
+                                   got[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
+    queries, base, ids, visited = _world(4, 6, 100, 8)
+    qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
+    vt = convert.bitmap_from_uint32(visited, cuda)
+    ops.reset_launch_counts()
+    ops.gather_distance(qt, it, bt)
+    ops.gather_distance_masked(qt, it, bt, vt)
+    ops.distance_matrix(qt, bt)
+    assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_masked": 1,
+                                   "distance_matrix": 1}
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.distance_matrix(qt.t(), bt.t())
+    with pytest.raises(ValueError, match="int32"):
+        ops.gather_distance(qt, it.long(), bt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+def test_cuda_beam_search_matches_cpu(cuda, metric):
+    """The beam on the card (CUDA kernels) against the same beam on the CPU
+    (plain versions), from the same graph and entries: identical ids,
+    n_comps and n_steps (random data at this size has no float32 near-ties
+    at the list boundaries)."""
+    from repro_torch.core import bruteforce, diversify
+    from repro_torch.core.beam_search import dedup_rows
+
+    rng = np.random.default_rng(8)
+    base = torch.from_numpy(rng.standard_normal((2000, 16), dtype=np.float32))
+    queries = torch.from_numpy(rng.standard_normal((48, 16), dtype=np.float32))
+    nbrs = diversify.add_reverse_edges(bruteforce.exact_knn_graph(base, 12).neighbors, 16)
+    entries = dedup_rows(torch.from_numpy(
+        rng.integers(0, 2000, size=(48, 8)).astype(np.int32)))
+    s_cpu = convert.searcher_from_numpy(base, nbrs, metric=metric, device="cpu")
+    s_gpu = convert.searcher_from_numpy(base, nbrs, metric=metric, device=cuda)
+    spec = s_cpu.spec(ef=32, k=10)
+    want = s_cpu.search(queries, spec, entries=entries)
+    got = s_gpu.search(queries.to(cuda), spec, entries=entries.to(cuda))
+    assert torch.equal(got.ids.cpu(), want.ids)
+    assert torch.equal(got.n_comps.cpu(), want.n_comps)
+    assert int(got.n_steps) == int(want.n_steps)
+    torch.testing.assert_close(got.dists.cpu(), want.dists, **GATHER_TOL)
