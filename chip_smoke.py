@@ -11,25 +11,37 @@ Phases (each prints its seconds):
    parallel).
 2. Each kernel against its plain PyTorch version on the card: l2/ip/cos,
    ragged shapes, ids < 0, all-invalid rows, visited words with bit 31 set
-   and a partial last word, batched and unbatched matrices, and the main
-   path's shapes. Gathers: rtol 1e-5, atol 1e-5, masked ids identical.
-   Matrix: rtol 1e-4, atol 1e-4 (x d for l2): the kernel sums in another
-   order than the library product, and the expanded l2 form's absolute
-   error grows with the squared norms.
-3. Smoke world (n=20_000, d=32) through ``repro_torch.launch.serve``:
-   recall@10 must reach the JAX reference's CPU figure on the same world
-   (``scripts/reference_smoke_recall.py``) less 0.02.
-4. Full-width world (n=1_000_000, d=64; NN-Descent k=20, 15 rounds, GD; 8
-   batches of 64 queries, ef=64, k=10, random entries) through the same
-   entry point, with every kernel launch counted; then all 8 batches again,
-   kernel path and plain path in lock-step from the same graph and entries:
-   ids, n_comps and n_steps must be identical except rows whose first
-   divergence is a float32 near-tie (at most 1% of rows).
+   and a partial last word, batched and unbatched matrices, M = 8 and 16,
+   aligned and offset code tables, and the main path's shapes. Gathers
+   (float and sq8): rtol 1e-5, atol 1e-5, masked ids identical. ADC
+   (gather_adc_masked, pq_adc): bit-identical, as kernel and plain version
+   sum the M entries in the same order. Matrix: rtol 1e-4, atol 1e-4 (x d
+   for l2): the kernel sums in another order than the library product, and
+   the expanded l2 form's absolute error grows with the squared norms.
+3. Smoke world (n=20_000, d=32) through ``repro_torch.launch.serve`` under
+   ``--scorer exact``, ``sq8`` and ``pq``: each recall@10 must reach the
+   JAX reference's CPU figure on the same world
+   (``scripts/reference_smoke_recall.py``) less its slack.
+4. Full-width world (n=1_000_000, d=64; NN-Descent k=20, 15 rounds, GD, PQ
+   M=8 K=256 15 iterations; 8 batches of 64 queries, ef=64, k=10, random
+   entries) through the same entry point under ``--scorer pq``; the same
+   stream and seeds through the same Searcher under ``exact`` and ``sq8``;
+   the PQ baseline ``pq_search`` over the 512 queries (rerank 64). Each path
+   runs with the launch counts set to 0 just before it and read just after.
+   The exact and sq8 rungs share the pq run's build and ground truth, so
+   the exact entry point (``--scorer exact``, which builds with no
+   compress stage) is driven at full width only in pieces, and the build
+   kernels' counts (gather_distance, distance_matrix) come from the pq run.
+   Then every batch again per scorer, kernel path and plain path in
+   lock-step from the same graph, entries and scorer state: ids, n_comps
+   and n_steps must be identical except rows whose first divergence is a
+   float32 near-tie (at most 1% of rows).
 5. Per-kernel times at the main path's shapes, their bounds, the plain
    versions' times and one library call where there is one. Times are
    device time from torch.profiler (CUPTI), so a tiny kernel is not billed
    the host's launch gaps; back-to-back wall per call (CUDA events) is
-   printed beside it. Last, the device-busy share of one served batch.
+   printed beside it. Last, the device-busy share of one served batch
+   under the exact and the pq scorer.
 
 Prints a ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
@@ -51,9 +63,21 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # recall@10 of the JAX reference on the smoke world, on the CPU
-# (scripts/reference_smoke_recall.py, seed 0)
+# (scripts/reference_smoke_recall.py [--scorer sq8|pq], seed 0)
 REF_SMOKE_RECALL10 = 0.741406261920929
+REF_SMOKE_RECALL10_SQ8 = 0.743359386920929
+REF_SMOKE_RECALL10_PQ = 0.6996093988418579
+# exact and sq8: the port's CPU figure sat within 0.006 of the reference's
+# (NN-Descent and the random entries draw from other generators). pq also
+# trains its codebooks from another generator: over seeds 0-2 the port's CPU
+# recall@10 sat 0.004-0.008 below the reference's, so 0.03 is over 3x that.
 RECALL_SLACK = 0.02
+PQ_RECALL_SLACK = 0.03
+SMOKE_FLOORS = {"exact": (REF_SMOKE_RECALL10, RECALL_SLACK),
+                "sq8": (REF_SMOKE_RECALL10_SQ8, RECALL_SLACK),
+                "pq": (REF_SMOKE_RECALL10_PQ, PQ_RECALL_SLACK)}
+SCORERS = ("exact", "sq8", "pq")
+PQ_SEARCH_RERANK = 64
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
 MATRIX_RTOL, MATRIX_ATOL = 1e-4, 1e-4
 NEAR_TIE_ROWS_MAX = 0.01
@@ -214,43 +238,134 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
             errs["distance_matrix"] = max(errs["distance_matrix"], max_abs_err(got, want))
         print(f"  distance_matrix {label}: l2/ip/cos agree (rtol {MATRIX_RTOL}, "
               f"atol {MATRIX_ATOL} x d for l2)")
-    print(f"  max abs error against the plain versions: {errs}")
+
+
+def check_compressed_kernels(full_base: torch.Tensor, errs: dict) -> None:
+    """gather_sq8_masked, gather_adc_masked and pq_adc against their plain
+    versions; each table is also checked at a d- or M-byte offset, which
+    takes the kernels' byte-load path."""
+    from repro_torch.core.scorers import build_sq8
+    from repro_torch.kernels import gather_adc as kga
+    from repro_torch.kernels import gather_sq8 as kgs
+    from repro_torch.kernels import pq_adc as kpa
+    from repro_torch.kernels import ref
+
+    dev = full_base.device
+    rng = np.random.default_rng(2)
+    n_full = full_base.shape[0]
+    sq8_cases = [  # (label, Q, R, base of n + 1 rows: n rows at two offsets)
+        ("hop Q=64 R=20 n=1M d=64", 64, 20, torch.cat([full_base, full_base[:1]])),
+        ("ragged Q=7 R=33 n=1000 d=17", 7, 33, torch.randn((1001, 17), device=dev)),
+        ("partial word Q=5 R=40 n=70 d=8", 5, 40, torch.randn((71, 8), device=dev)),
+        ("tiny Q=1 R=1 n=1 d=1", 1, 1, torch.randn((2, 1), device=dev)),
+    ]
+    for label, Q, R, rows in sq8_cases:
+        codes, scale, mn = build_sq8(rows)
+        n = codes.shape[0] - 1
+        queries = torch.randn((Q, codes.shape[1]), device=dev)
+        ids, visited = _ids_and_bitmap(rng, Q, R, n, dev)
+        for table in (codes[:n], codes[1:]):
+            for metric in METRICS:
+                gd_, gi_ = kgs.gather_sq8_masked(queries, ids, table, scale, mn,
+                                                 visited, metric)
+                wd_, wi_ = ref.gather_sq8_masked_ref(queries, ids, table, scale, mn,
+                                                     visited, metric)
+                check(torch.equal(gi_, wi_), f"sq8 masked ids differ: {label} {metric}")
+                torch.testing.assert_close(gd_, wd_, **GATHER_TOL)
+                errs["gather_sq8_masked"] = max(errs["gather_sq8_masked"],
+                                                max_abs_err(gd_, wd_))
+        print(f"  gather_sq8_masked {label}: l2/ip/cos agree (rtol "
+              f"{GATHER_TOL['rtol']}, atol {GATHER_TOL['atol']}), aligned and offset")
+
+    adc_cases = [  # (label, Q, R, n, M, K)
+        ("hop Q=64 R=20 n=1M M=8 K=256", 64, 20, n_full, 8, 256),
+        ("hop Q=64 R=20 n=1M M=16 K=256", 64, 20, n_full, 16, 256),
+        ("ragged Q=7 R=33 n=1000 M=16 K=16", 7, 33, 1000, 16, 16),
+        ("partial word Q=5 R=40 n=70 M=8 K=256", 5, 40, 70, 8, 256),
+        ("tiny Q=1 R=1 n=1 M=8 K=1", 1, 1, 1, 8, 1),
+    ]
+    for label, Q, R, n, M, K in adc_cases:
+        codes = torch.randint(0, K, (n + 1, M), device=dev, dtype=torch.uint8)
+        luts = torch.randn((Q, M, K), device=dev)
+        ids, visited = _ids_and_bitmap(rng, Q, R, n, dev)
+        for table in (codes[:n], codes[1:]):
+            gd_, gi_ = kga.gather_adc_masked(ids, table, luts, visited)
+            wd_, wi_ = ref.gather_adc_masked_ref(ids, table, luts, visited)
+            check(torch.equal(gi_, wi_), f"ADC masked ids differ: {label}")
+            check(torch.equal(gd_, wd_), f"ADC scores not bit-identical: {label}")
+            errs["gather_adc_masked"] = max(errs["gather_adc_masked"],
+                                            max_abs_err(gd_, wd_))
+        print(f"  gather_adc_masked {label}: bit-identical, aligned and offset")
+
+    pq_cases = [  # (label, Q, n, M, K)
+        ("pq_search chunk Q=64 n=1M M=8 K=256", 64, n_full, 8, 256),
+        ("query groups Q=21 n=9001 M=16 K=256", 21, 9001, 16, 256),
+        ("one LUT n=1000 M=8 K=256", 0, 1000, 8, 256),
+        ("generic M=4 Q=3 n=33 K=16", 3, 33, 4, 16),
+    ]
+    for label, Q, n, M, K in pq_cases:
+        codes = torch.randint(0, K, (n + 1, M), device=dev, dtype=torch.uint8)
+        luts = torch.randn((max(Q, 1), M, K), device=dev)
+        luts = luts if Q else luts[0]
+        for table in (codes[:n], codes[1:]):
+            got = kpa.pq_adc(table, luts)
+            want = ref.pq_adc_ref(table, luts)
+            check(torch.equal(got, want), f"pq_adc not bit-identical: {label}")
+            errs["pq_adc"] = max(errs["pq_adc"], max_abs_err(got, want))
+        print(f"  pq_adc {label}: bit-identical, aligned and offset")
 
 
 # -- phase 4: kernel path against plain path, in lock-step -------------------
 
 
-def register_plain_scorer():
+class _PlainScorer:
+    """A registered scorer's accounting with its plain version's scoring:
+    "<name>-plain" beside the kernel's "<name>"."""
+
+    def __init__(self, name: str, score_fn):
+        from repro_torch.core.scorers import get_scorer
+
+        self.kernel = get_scorer(name)
+        self.name = f"{name}-plain"
+        self.needs_rerank = self.kernel.needs_rerank
+        self.needs_base = self.kernel.needs_base
+        self.score_fn = score_fn
+
+    def score(self, state, queries, base, ids, visited, *, metric, r_tile):
+        return self.score_fn(state, queries, base, ids, visited, metric)
+
+    def scale_comps(self, state, n_comps, d):
+        return self.kernel.scale_comps(state, n_comps, d)
+
+    def scored_bytes(self, state, n_raw, d):
+        return self.kernel.scored_bytes(state, n_raw, d)
+
+
+def register_plain_scorers():
     from repro_torch.core.scorers import register_scorer
     from repro_torch.kernels import ref
 
-    class _PlainExact:
-        name = "exact-plain"
-        needs_rerank = False
-        needs_base = True
-
-        def score(self, state, queries, base, ids, visited, *, metric, r_tile):
-            return ref.gather_distance_masked_ref(queries, ids, base, visited, metric)
-
-        def scale_comps(self, state, n_comps, d):
-            return n_comps
-
-        def scored_bytes(self, state, n_raw, d):
-            return n_raw * (4 * d)
-
-    register_scorer(_PlainExact)
+    plain = {
+        "exact": lambda st, q, b, i, v, m: ref.gather_distance_masked_ref(q, i, b, v, m),
+        "sq8": lambda st, q, b, i, v, m: ref.gather_sq8_masked_ref(q, i, *st, v, m),
+        "pq": lambda st, q, b, i, v, m: ref.gather_adc_masked_ref(i, *st, v),
+    }
+    for name, fn in plain.items():
+        register_scorer(_PlainScorer(name, fn))
 
 
-def lockstep(searcher, spec, queries, entries):
-    """Run the beam with the CUDA kernel and with the plain version side by
-    side. Returns (kernel result, plain result, {row: near-tie?} for each
-    row at its first divergence)."""
+def lockstep(searcher, spec, queries, entries, state):
+    """Run the beam with the CUDA kernel (scorer ``spec.scorer``) and with
+    the plain version side by side, from the same entries and scorer state.
+    Returns (kernel result, plain result, {row: near-tie?} for each row at
+    its first divergence)."""
     from repro_torch.core import beam_search as bs
 
     args = (queries, searcher.base, searcher.neighbors)
     entries = entries.to(torch.int32)
-    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, "exact")
-    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, "exact-plain")
+    kernel, plain = spec.scorer, f"{spec.scorer}-plain"
+    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, kernel, state)
+    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, plain, state)
     max_steps = bs.default_max_steps(spec.ef, spec.expand_width)
     first: dict[int, bool] = {}
 
@@ -276,13 +391,46 @@ def lockstep(searcher, spec, queries, entries):
         if not (go_k or go_p):
             break
         if go_k:
-            sk = bs._step(sk, *args, spec.metric, spec.expand_width, 0, "exact")
+            sk = bs._step(sk, *args, spec.metric, spec.expand_width, 0, kernel, state)
         if go_p:
-            sp = bs._step(sp, *args, spec.metric, spec.expand_width, 0, "exact-plain")
+            sp = bs._step(sp, *args, spec.metric, spec.expand_width, 0, plain, state)
         record(sk, sp)
-    return (bs._finalize(sk, queries, searcher.base, spec.k, "exact", None),
-            bs._finalize(sp, queries, searcher.base, spec.k, "exact-plain", None),
+    tail = (spec.k, spec.metric, 0)
+    return (bs._finalize(sk, queries, searcher.base, *tail, kernel, state, spec.rerank),
+            bs._finalize(sp, queries, searcher.base, *tail, plain, state, spec.rerank),
             first)
+
+
+def lockstep_rung(searcher, spec, stream, seeds, served) -> None:
+    """Every served batch of one scorer again, kernel and plain path in
+    lock-step; checks the kernel path against the served run and counts
+    the rows where the two paths differ."""
+    rows_total = rows_diff = near_ties = 0
+    for q, seed, res in zip(stream, seeds, served):
+        entries, _ = searcher.seed(q, spec, seed)
+        state = searcher.scorer_state(q, spec)
+        kres, pres, first = lockstep(searcher, spec, q, entries, state)
+        check(torch.equal(kres.ids, res.ids) and torch.equal(kres.n_comps, res.n_comps),
+              f"the lock-step kernel path differs from the served run ({spec.scorer})")
+        rows_total += q.shape[0]
+        differ = ((kres.ids != pres.ids).any(1) | (kres.n_comps != pres.n_comps))
+        if int(kres.n_steps) != int(pres.n_steps):
+            print(f"  {spec.scorer} batch seed {seed}: n_steps kernel "
+                  f"{int(kres.n_steps)} vs plain {int(pres.n_steps)}")
+        for r in torch.nonzero(differ).flatten().tolist():
+            rows_diff += 1
+            tie = first.get(r, False)
+            near_ties += tie
+            print(f"  {spec.scorer} row {r} (batch seed {seed}): ids/comps differ, "
+                  f"first divergence {'is a float32 near-tie' if tie else 'is NOT a near-tie'}"
+                  f": kernel comps {int(kres.n_comps[r])}, plain {int(pres.n_comps[r])}")
+        check(int(kres.n_steps) == int(pres.n_steps) or differ.any(),
+              f"n_steps differ with identical rows ({spec.scorer})")
+    print(f"plain re-run ({spec.scorer}): {rows_total} rows, {rows_diff} differ, "
+          f"{near_ties} traced to near-ties (at most {NEAR_TIE_ROWS_MAX:.0%} allowed)")
+    check(rows_diff == near_ties, f"a row differs without a near-tie ({spec.scorer})")
+    check(near_ties <= NEAR_TIE_ROWS_MAX * rows_total,
+          f"too many near-tie rows ({spec.scorer})")
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -407,17 +555,114 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
     return rows
 
 
-def busy_share(run) -> None:
-    """Device-busy share of one served batch: kernel time on the card
-    (torch.profiler, CUPTI) over the batch's wall time."""
+def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
+    """gather_sq8_masked and gather_adc_masked at one hop, pq_adc over one
+    pq_search pass. No single PyTorch call computes any of the three, so
+    ``library_ms`` is null."""
+    from repro_torch.baselines.pq import build_adc_luts
+    from repro_torch.kernels import ops, ref
+
+    s = run.searcher
+    nbrs = s.neighbors
+    n, d = s.base.shape
+    dev = s.base.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+
+    # the hops: neighbor rows of 64 vertices, a fresh id set per launch
+    Q, R = 64, nbrs.shape[1]
+    q = run.stream[0]
+    sets = [nbrs[torch.randint(0, n, (Q,), generator=gen, device=dev)].contiguous()
+            for _ in range(64)]
+    valid = float(torch.stack(sets).ge(0).sum()) / len(sets)
+    visited = torch.zeros((Q, (n + 31) // 32), dtype=torch.int32, device=dev)
+    it = iter(range(10**9))
+    sq = tuple(s.sq8_index())
+    idx = s.pq_index(run.spec)
+    M, K = idx.M, idx.K
+    luts = build_adc_luts(q, idx.codebooks).contiguous()
+
+    def lut_entries(ids):  # distinct (query, m, code) entries a hop reads
+        ok = ids >= 0
+        rows = torch.arange(Q, device=dev).unsqueeze(1).expand_as(ids)[ok]
+        codes = idx.codes[ids[ok].long()].long()
+        keys = (rows.unsqueeze(1) * M + torch.arange(M, device=dev)) * K + codes
+        return torch.unique(keys).numel()
+    entries = sum(lut_entries(ids) for ids in sets) / len(sets)
+    hops = [  # name, kernel, plain, match, bytes, flops, replaces, source
+        ("gather_sq8_masked",
+         lambda ids: ops.gather_sq8_masked(q, ids, *sq, visited),
+         lambda ids: ref.gather_sq8_masked_ref(q, ids, *sq, visited),
+         "gather_sq8_kernel",
+         # queries, scale + mn, ids in; one d-byte row and one visited word
+         # per valid id; dists and ids out
+         Q * d * 4 + 2 * d * 4 + Q * R * 4 + valid * (d + 4) + Q * R * 8,
+         valid * 4 * d, "src/repro/kernels/gather_sq8.py:116", "gather_sq8.cu"),
+        ("gather_adc_masked",
+         lambda ids: ops.gather_adc_masked(ids, idx.codes, luts, visited),
+         lambda ids: ref.gather_adc_masked_ref(ids, idx.codes, luts, visited),
+         "gather_adc_kernel",
+         # ids in; one M-byte row and one visited word per valid id; the
+         # distinct LUT entries those rows index, 4 B each (not whole LUTs:
+         # a hop reads at most 160 of a query's 2,048); dists and ids out
+         Q * R * 4 + valid * (M + 4) + entries * 4 + Q * R * 8,
+         valid * M, "src/repro/kernels/gather_adc.py:119", "gather_adc.cu"),
+    ]
+    for name, kern, plain, match, nbytes, flops, replaces, src in hops:
+        k_ms = device_ms(lambda: kern(sets[next(it) % 64]), reps=640, match=match)
+        call_ms = cuda_ms(lambda: kern(sets[next(it) % 64]), reps=640)
+        p_ms = device_ms(lambda: plain(sets[next(it) % 64]), reps=64)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(name=name, route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{src}",
+                         replaces=replaces, launches=launches[name],
+                         max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        print(f"  {name} hop Q={Q} R={R} d={d} M={M}: kernel {k_ms:.4f} ms on the "
+              f"device ({call_ms:.4f} ms a call back to back, host-bound), plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
+    print(f"  gather_adc_masked hop reads {entries:.1f} distinct LUT entries of "
+          f"{Q * M * K}: {entries * 4 / 1e3:.2f} KB at 4 B each, "
+          f"{entries * 32 / 1e3:.2f} KB at 32-byte sectors (bound counts 4 B)")
+
+    # pq_adc over one pq_search pass: 512 queries in 64-row launches
+    qs = torch.cat(run.stream)
+    all_luts = build_adc_luts(qs, idx.codebooks).contiguous()
+    chunks = [all_luts[lo:lo + 64] for lo in range(0, qs.shape[0], 64)]
+    k_ms = device_ms(lambda: [ops.pq_adc(idx.codes, c) for c in chunks], reps=3,
+                     match="pq_adc_kernel")
+    call_ms = cuda_ms(lambda: [ops.pq_adc(idx.codes, c) for c in chunks], reps=3)
+    p_ms = device_ms(lambda: [ref.pq_adc_ref(idx.codes, c) for c in chunks], reps=1)
+    nq = qs.shape[0]
+    pass_bytes = n * M + nq * M * K * 4 + nq * n * 4   # codes, LUTs in; scores out
+    b_ms, b_by = bound(pass_bytes, nq * n * M)
+    rows.append(dict(name="pq_adc", route="cuda",
+                     source="src/repro_torch/kernels/csrc/pq_adc.cu",
+                     replaces="src/repro/kernels/pq_adc.py:41",
+                     launches=launches["pq_adc"], max_abs_err=errs["pq_adc"],
+                     ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None))
+    print(f"  pq_adc pq_search pass {nq} x {n} x M={M} ({len(chunks)} launches): "
+          f"kernel {k_ms:.3f} ms on the device ({call_ms:.3f} ms wall, "
+          f"{nq * n * 4 / k_ms / 1e9:.2f} TB/s of scores), plain {p_ms:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}, {pass_bytes / 1e9:.3f} GB once)")
+    print("  library_ms is null for gather_sq8_masked, gather_adc_masked and "
+          "pq_adc: no single PyTorch call computes a masked uint8 gather, an "
+          "ADC lookup-sum or a batched ADC scan")
+    return rows
+
+
+def busy_share(run, spec) -> None:
+    """Device-busy share of one served batch under ``spec``: kernel time on
+    the card (torch.profiler, CUPTI) over the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     q, seed = run.stream[0], run.seeds[0]
-    run.searcher.search(q, run.spec, seed)
+    run.searcher.search(q, spec, seed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        res = run.searcher.search(q, run.spec, seed)
+        res = run.searcher.search(q, spec, seed)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     on_card = [e for e in prof.key_averages()
@@ -425,7 +670,7 @@ def busy_share(run) -> None:
     dev_us = sum(e.self_device_time_total for e in on_card)
     check(dev_us > 0, "the profiler recorded no device time for a beam batch")
     steps = int(res.n_steps)
-    print(f"  beam batch under the profiler: {wall_us / 1e3:.2f} ms wall, "
+    print(f"  {spec.scorer} beam batch under the profiler: {wall_us / 1e3:.2f} ms wall, "
           f"{dev_us / 1e3:.3f} ms on the device ({dev_us / wall_us:.1%} busy, "
           f"{1 - dev_us / wall_us:.1%} idle), {steps} steps, "
           f"{len(on_card)} distinct device ops")
@@ -474,9 +719,10 @@ def main(argv=None) -> int:
     t0 = phase("phase 2: kernels against plain versions")
     n_full, d_full = serve.FULL_WORLD
     full_base = torch.from_numpy(serve.numpy_world(n_full, d_full, 0)).to(dev)
-    errs = {"gather_distance": 0.0, "gather_distance_masked": 0.0,
-            "distance_matrix": 0.0}
+    errs = {name: 0.0 for name in ops.launch_counts()}
     check_kernels(full_base, errs)
+    check_compressed_kernels(full_base, errs)
+    print(f"  max abs error against the plain versions: {errs}")
     del full_base
     done(t0, "phase 2")
     if args.quick:
@@ -485,75 +731,118 @@ def main(argv=None) -> int:
                                                   "count": count}}))
         return 0
 
-    t0 = phase("phase 3: smoke world (n=20_000, d=32)")
-    smoke = serve.serve_ann(serve.parser().parse_args(
-        ["--arch", "ann", "--smoke", "--device", "cuda"])).summary
-    floor = REF_SMOKE_RECALL10 - RECALL_SLACK
-    print(f"smoke recall@10 {smoke['recall@10']:.4f} (JAX reference on the CPU "
-          f"{REF_SMOKE_RECALL10:.4f}; floor {floor:.4f}), recall@1 "
-          f"{smoke['recall@1']:.4f}, comps/query {smoke['comps_per_query']:.1f}, "
-          f"qps {smoke['qps']:.1f}")
-    check(smoke["recall@10"] >= floor, "smoke-world recall@10 below the floor")
+    t0 = phase("phase 3: smoke world (n=20_000, d=32), exact / sq8 / pq")
+    for scorer in SCORERS:
+        smoke = serve.serve_ann(serve.parser().parse_args(
+            ["--arch", "ann", "--smoke", "--device", "cuda", "--scorer", scorer])).summary
+        ref10, slack = SMOKE_FLOORS[scorer]
+        print(f"smoke {scorer}: recall@10 {smoke['recall@10']:.4f} (JAX reference on "
+              f"the CPU {ref10:.4f}; floor {ref10 - slack:.4f}), recall@1 "
+              f"{smoke['recall@1']:.4f}, comps/query {smoke['comps_per_query']:.1f}, "
+              f"bytes/query {smoke['bytes_per_query']:.0f}, qps {smoke['qps']:.1f}")
+        check(smoke["recall@10"] >= ref10 - slack,
+              f"smoke-world recall@10 below the floor under --scorer {scorer}")
     done(t0, "phase 3")
 
     t0 = phase("phase 4: full-width world (n=1_000_000, d=64)")
+    launches = {}
     ops.reset_launch_counts()
-    run = serve.serve_ann(serve.parser().parse_args(["--arch", "ann", "--device", "cuda"]))
+    run = serve.serve_ann(serve.parser().parse_args(
+        ["--arch", "ann", "--device", "cuda", "--scorer", "pq"]))
     torch.cuda.synchronize()
-    launches = ops.launch_counts()
+    launches["pq"] = ops.launch_counts()
     rep = run.build.report
     print(f"build: rounds {rep.rounds}, converged {rep.converged}, update curve "
           f"{list(rep.update_curve)}")
     print(f"build: graph-recall proxy {rep.graph_recall_proxy}, degree "
           f"min/mean/max {rep.degree['min']}/{rep.degree['mean']}/{rep.degree['max']}, "
           f"in-degree {rep.in_degree}, dropped reverse {rep.dropped_reverse_edges}, "
-          f"LID {rep.lid}")
+          f"LID {rep.lid}, index memory {rep.memory_bytes / 2**20:.1f} MiB")
     print(f"build: construct {rep.wall_construct_s:.2f} s, diversify "
-          f"{rep.wall_diversify_s:.2f} s, compress {rep.wall_compress_s:.2f} s, "
-          f"total {rep.wall_total_s:.2f} s; peak memory per stage (GiB) "
+          f"{rep.wall_diversify_s:.2f} s, compress (PQ M=8 K=256, 15 iterations) "
+          f"{rep.wall_compress_s:.2f} s, total {rep.wall_total_s:.2f} s; peak "
+          f"memory per stage (GiB) "
           f"{ {k: round(v / 2**30, 2) for k, v in rep.peak_memory_bytes.items()} }")
-    s = run.summary
-    steps = s["steps_per_batch"]
-    print(f"search: {s['queries']} queries in {s['seconds'] * 1e3:.1f} ms "
-          f"({s['qps']:.1f} qps), recall@1 {s['recall@1']:.4f}, recall@10 "
-          f"{s['recall@10']:.4f}, comps/query {s['comps_per_query']:.1f}, "
-          f"{steps:.1f} steps/batch, {s['seconds'] * 1e3 / len(run.stream) / steps:.3f} "
-          "ms/step")
-    print(f"launches over phase 4: {launches}")
-    check(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
-    rec10 = s["recall@10"]
-    check(np.isfinite(rec10) and 0.0 < rec10 <= 1.0, "recall@10 out of range")
+    check("compress" in rep.peak_memory_bytes and run.searcher.pq is not None,
+          "the compress stage left no PQ table")
 
-    register_plain_scorer()
-    rows_total = rows_diff = near_ties = 0
-    for q, seed, res in zip(run.stream, run.seeds, run.results):
-        entries, _ = run.searcher.seed(q, run.spec, seed)
-        kres, pres, first = lockstep(run.searcher, run.spec, q, entries)
-        check(torch.equal(kres.ids, res.ids) and torch.equal(kres.n_comps, res.n_comps),
-              "the lock-step kernel path differs from the served run")
-        rows_total += q.shape[0]
-        differ = ((kres.ids != pres.ids).any(1) | (kres.n_comps != pres.n_comps))
-        if int(kres.n_steps) != int(pres.n_steps):
-            print(f"  batch seed {seed}: n_steps kernel {int(kres.n_steps)} vs "
-                  f"plain {int(pres.n_steps)}")
-        for r in torch.nonzero(differ).flatten().tolist():
-            rows_diff += 1
-            tie = first.get(r, False)
-            near_ties += tie
-            print(f"  row {r} (batch seed {seed}): ids/comps differ, first divergence "
-                  f"{'is a float32 near-tie' if tie else 'is NOT a near-tie'}: "
-                  f"kernel comps {int(kres.n_comps[r])}, plain {int(pres.n_comps[r])}")
-        check(int(kres.n_steps) == int(pres.n_steps) or differ.any(),
-              "n_steps differ with identical rows")
-    print(f"plain re-run: {rows_total} rows, {rows_diff} differ, {near_ties} "
-          f"traced to near-ties (at most {NEAR_TIE_ROWS_MAX:.0%} allowed)")
-    check(rows_diff == near_ties, "a row differs without a near-tie")
-    check(near_ties <= NEAR_TIE_ROWS_MAX * rows_total, "too many near-tie rows")
+    d = run.searcher.base.shape[1]
+    warm = torch.from_numpy(serve.numpy_queries(d, run.stream[0].shape[0], 1, 99)[0]).to(dev)
+    specs = {sc: run.spec._replace(scorer=sc) for sc in SCORERS}
+    summaries, served = {"pq": run.summary}, {"pq": run.results}
+    for scorer in ("exact", "sq8"):
+        ops.reset_launch_counts()
+        run.searcher.search(warm, specs[scorer], serve.batch_seed(0, -1))
+        results, dt = serve.serve_batches(run.searcher, specs[scorer], run.stream,
+                                          run.seeds)
+        launches[scorer] = ops.launch_counts()
+        nq = sum(q.shape[0] for q in run.stream)
+        summaries[scorer] = {"queries": nq, "seconds": dt, "qps": nq / dt,
+                             **serve.summarize(results, run.ground_truth, run.spec.k)}
+        served[scorer] = results
+    for scorer in SCORERS:
+        sm = summaries[scorer]
+        steps = sm["steps_per_batch"]
+        print(f"search {scorer}: {sm['queries']} queries in {sm['seconds'] * 1e3:.1f} ms "
+              f"({sm['qps']:.1f} qps), recall@1 {sm['recall@1']:.4f}, recall@10 "
+              f"{sm['recall@10']:.4f}, comps/query {sm['comps_per_query']:.1f}, "
+              f"bytes/query {sm['bytes_per_query']:.0f}, {steps:.1f} steps/batch, "
+              f"{sm['seconds'] * 1e3 / len(run.stream) / steps:.3f} ms/step")
+        rec10 = sm["recall@10"]
+        check(np.isfinite(rec10) and 0.0 < rec10 <= 1.0, f"recall@10 out of range ({scorer})")
+
+    from repro_torch.baselines.pq import pq_search
+    from repro_torch.core.scorers import get_scorer
+    from repro_torch.core.topk import recall_at_k
+
+    per_score = {sc: int(get_scorer(sc).scored_bytes(
+        run.searcher.scorer_state(run.stream[0], specs[sc]), 1, d)) for sc in SCORERS}
+    print(f"bytes per traversal score: {per_score}")
+    check(per_score["exact"] > per_score["sq8"] > per_score["pq"],
+          "bytes per traversal score do not fall exact > sq8 > pq")
+    check(summaries["exact"]["bytes_per_query"] > summaries["sq8"]["bytes_per_query"]
+          > summaries["pq"]["bytes_per_query"], "bytes/query do not fall exact > sq8 > pq")
+
+    qs = torch.cat(run.stream)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    _, pq_ids, pq_comps = pq_search(qs, run.searcher.base, run.searcher.pq,
+                                    k=run.spec.k, rerank=PQ_SEARCH_RERANK)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t
+    launches["pq_search"] = ops.launch_counts()
+    gt = run.ground_truth
+    pq_r1 = float((pq_ids[:, 0] == gt[:, 0]).float().mean())
+    pq_r10 = recall_at_k(pq_ids, gt)
+    print(f"pq_search (rerank {PQ_SEARCH_RERANK}): {qs.shape[0]} queries in "
+          f"{pq_s * 1e3:.1f} ms ({qs.shape[0] / pq_s:.1f} qps), recall@1 {pq_r1:.4f}, "
+          f"recall@10 {pq_r10:.4f}, comps/query {float(pq_comps.float().mean()):.1f}")
+    check(0.0 < pq_r10 <= 1.0, "pq_search recall@10 out of range")
+
+    for path, kernels in (("pq", ("gather_distance", "distance_matrix", "gather_adc_masked")),
+                          ("exact", ("gather_distance_masked",)),
+                          ("sq8", ("gather_sq8_masked", "gather_distance")),
+                          ("pq_search", ("pq_adc", "gather_distance"))):
+        print(f"launches over the {path} path: {launches[path]}")
+        check(all(launches[path][k] > 0 for k in kernels),
+              f"a kernel of the {path} path never launched")
+    # each kernel's count from the path it belongs to (the pq serve run
+    # holds the build: NN-Descent, GD, PQ, and the ground truth)
+    kernel_launches = {**launches["pq"],
+                       "gather_distance_masked": launches["exact"]["gather_distance_masked"],
+                       "gather_sq8_masked": launches["sq8"]["gather_sq8_masked"],
+                       "pq_adc": launches["pq_search"]["pq_adc"]}
+
+    register_plain_scorers()
+    for scorer in SCORERS:
+        lockstep_rung(run.searcher, specs[scorer], run.stream, run.seeds, served[scorer])
     done(t0, "phase 4")
 
     t0 = phase("phase 5: per-kernel times at the main path's shapes")
-    rows = time_kernels(run, errs, launches)
-    busy_share(run)
+    rows = time_kernels(run, errs, kernel_launches)
+    rows += time_compressed_kernels(run, errs, kernel_launches)
+    busy_share(run, specs["exact"])
+    busy_share(run, specs["pq"])
     done(t0, "phase 5")
 
     print(json.dumps({"kernels": rows}))

@@ -1,17 +1,20 @@
 """Recall of the JAX reference on the port's smoke world, on the CPU.
 
 Builds the paper's index with ``repro`` (NN-Descent, graph_k=20, 15 rounds,
-GD) over the same numpy world the port's ``launch/serve.py --smoke`` and
-``chip_smoke.py`` use (n=20_000, d=32, seed 0), answers 8 batches of 64
-queries with random entries at ef=64, k=10, and prints the build's rounds,
-update curve and graph-recall proxy, and recall@1, recall@10 and
-comps/query against brute-force ground truth, as one JSON line. With
-``--port`` it also runs the port on the CPU over the same world; ``--n`` and
-``--d`` pick another world of the same kind.
+GD; plus PQ codes, M=8, K=256, under ``--scorer pq``) over the same numpy
+world the port's ``launch/serve.py --smoke`` and ``chip_smoke.py`` use
+(n=20_000, d=32, seed 0), answers 8 batches of 64 queries with random
+entries at ef=64, k=10 under ``--scorer`` (exact, sq8 or pq; rerank all
+ef), and prints the build's rounds, update curve and graph-recall proxy,
+and recall@1, recall@10, comps/query and bytes/query against brute-force
+ground truth, as one JSON line. With ``--port`` it also runs the port on the
+CPU over the same world; ``--n``, ``--d`` and ``--seed`` pick another world
+of the same kind.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py --port
+    JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py --port [--scorer sq8|pq]
 
-``chip_smoke.py`` holds the port on the card to this recall@10 less 0.02.
+``chip_smoke.py`` holds the port on the card to these recall@10 figures
+less a slack (its constants ``REF_SMOKE_RECALL10*``).
 """
 from __future__ import annotations
 
@@ -32,44 +35,48 @@ from repro_torch.launch.serve import SMOKE_WORLD, numpy_queries, numpy_world
 EF, K, BATCH, BATCHES = 64, 10, 64, 8
 
 
-def reference(seed: int, n: int, d: int) -> dict:
+def reference(seed: int, n: int, d: int, scorer: str = "exact") -> dict:
     base = jnp.asarray(numpy_world(n, d, seed))
     key = jax.random.PRNGKey(seed)
     t0 = time.perf_counter()
-    result = GraphBuilder(BuildSpec()).build(base, key=key)
+    compress = "pq" if scorer == "pq" else "none"
+    result = GraphBuilder(BuildSpec(compress=compress)).build(base, key=key)
     build_s = time.perf_counter() - t0
     searcher = Searcher.from_build(base, result, key=key)
-    spec = searcher.spec(ef=EF, k=K)
+    spec = searcher.spec(ef=EF, k=K, scorer=scorer)
     qs = numpy_queries(d, BATCH, BATCHES, seed)
-    ids, comps = [], []
+    ids, comps, nbytes = [], [], []
     for b, q in enumerate(qs):
         res = searcher.search(jnp.asarray(q), spec,
                               jax.random.fold_in(key, 1000 + b))
         ids.append(np.asarray(res.ids))
         comps.append(np.asarray(res.n_comps))
+        nbytes.append(np.asarray(res.bytes_touched))
     allq = jnp.asarray(np.concatenate(qs))
     gt = np.asarray(bruteforce.ground_truth(allq, base, K))
     found = np.concatenate(ids)
     rep = result.report
     return {
-        "impl": "repro (JAX, CPU)", "n": n, "d": d, "build_s": build_s,
+        "impl": "repro (JAX, CPU)", "n": n, "d": d, "seed": seed,
+        "scorer": scorer, "build_s": build_s,
         "rounds": rep.rounds, "update_curve": list(rep.update_curve),
         "graph_recall_proxy": rep.graph_recall_proxy,
         "degree_mean": rep.degree["mean"],
         "recall@1": float((found[:, 0] == gt[:, 0]).mean()),
         "recall@10": float(recall_at_k(jnp.asarray(found), jnp.asarray(gt))),
         "comps_per_query": float(np.concatenate(comps).mean()),
+        "bytes_per_query": float(np.concatenate(nbytes).mean()),
     }
 
 
-def port(seed: int, n: int, d: int) -> dict:
+def port(seed: int, n: int, d: int, scorer: str = "exact") -> dict:
     from repro_torch.launch import serve
 
     serve.SMOKE_WORLD = (n, d)
     args = serve.parser().parse_args(["--arch", "ann", "--smoke", "--device", "cpu",
                                 "--seed", str(seed), "--ef", str(EF),
                                 "--topk", str(K), "--batch", str(BATCH),
-                                "--batches", str(BATCHES)])
+                                "--batches", str(BATCHES), "--scorer", scorer])
     run = serve.serve_ann(args)
     rep = run.build.report
     return {"impl": "repro_torch (CPU)", "rounds": rep.rounds,
@@ -83,12 +90,13 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=SMOKE_WORLD[0])
     ap.add_argument("--d", type=int, default=SMOKE_WORLD[1])
+    ap.add_argument("--scorer", default="exact", choices=["exact", "sq8", "pq"])
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU over the same world")
     args = ap.parse_args()
-    print(json.dumps(reference(args.seed, args.n, args.d)), flush=True)
+    print(json.dumps(reference(args.seed, args.n, args.d, args.scorer)), flush=True)
     if args.port:
-        print(json.dumps(port(args.seed, args.n, args.d)))
+        print(json.dumps(port(args.seed, args.n, args.d, args.scorer)))
 
 
 if __name__ == "__main__":

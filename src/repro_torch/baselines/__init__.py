@@ -1,0 +1,2 @@
+"""Baselines the paper compares graph search with; this package ports the
+product-quantization baseline (``pq``)."""

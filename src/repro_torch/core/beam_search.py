@@ -13,9 +13,10 @@ scatter-add on the CPU). Finished rows are masked, not exited.
 
 The reference's ``lax.while_loop`` is a host loop here: it reads
 ``done.all()`` once a step (one device sync a step) and stops when every row
-is done or ``max_steps`` is reached. This slice ports ``term="fixed"``
-without restarts; ``term="stable"``, restarts and filter deny bitmaps come
-with a later slice.
+is done or ``max_steps`` is reached. Compressed scorers (``sq8``, ``pq``)
+finish with an exact rerank of the best survivors (``_finalize``). The port
+has ``term="fixed"`` without restarts; ``term="stable"``, restarts and
+filter deny bitmaps come with a later slice.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ class SearchResult(NamedTuple):
     dists: torch.Tensor      # (Q, k)
     n_comps: torch.Tensor    # (Q,) distance computations (paper's cost currency)
     n_steps: torch.Tensor    # () loop iterations executed
-    # bytes of base representation fetched per query (4d per exact score)
+    # bytes of base representation fetched per query: the scorer's scored
+    # bytes (4d exact / d sq8 / M pq per vertex) plus 4d per reranked row
     bytes_touched: torch.Tensor | int = 0
 
 
@@ -209,21 +211,42 @@ def _step(state: _State, queries, base, neighbors, metric,
     )
 
 
-def _finalize(state: _State, queries, base, k, scorer: str,
-              scorer_state) -> SearchResult:
-    """Loop epilogue for the exact scorer: slice the candidate list."""
+def rerank_slice(ef: int, k: int, rerank: int) -> int:
+    """How many survivors the exact rerank touches (0 = the whole ef list)."""
+    return ef if rerank <= 0 else max(k, min(rerank, ef))
+
+
+def _finalize(state: _State, queries, base, k, metric, r_tile, scorer: str,
+              scorer_state, rerank: int) -> SearchResult:
+    """Loop epilogue. Exact scorer: slice the candidate list. Compressed
+    scorers: exact-rerank the top ``rerank`` survivors (0 = all ef) and
+    convert the scored-id count into the paper's comparison currency, plus
+    one full comparison per reranked candidate."""
     sc = get_scorer(scorer)
-    if sc.needs_rerank:
-        raise NotImplementedError(
-            "compressed scorers and their exact rerank are not ported yet "
-            "(ROADMAP.md, queue A item 9)"
+    d = base.shape[1]
+    n_steps = torch.tensor(state.step, dtype=torch.int32)
+    if not sc.needs_rerank:
+        return SearchResult(
+            ids=state.cand_ids[:, :k],
+            dists=state.cand_dists[:, :k],
+            n_comps=state.n_comps,
+            n_steps=n_steps,
+            bytes_touched=sc.scored_bytes(scorer_state, state.n_comps, d),
         )
+    from ..kernels import ops
+
+    cand = state.cand_ids[:, :rerank_slice(state.cand_ids.shape[1], k, rerank)]
+    cand = cand.contiguous()                    # ascending by scorer distance
+    exact = ops.gather_distance(queries, cand, base, metric=metric)  # INVALID -> +inf
+    dd, sel = topk_smallest(exact, k)
+    n_cand = (cand >= 0).sum(dim=1, dtype=torch.int32)
     return SearchResult(
-        ids=state.cand_ids[:, :k],
-        dists=state.cand_dists[:, :k],
-        n_comps=state.n_comps,
-        n_steps=torch.tensor(state.step, dtype=torch.int32),
-        bytes_touched=sc.scored_bytes(scorer_state, state.n_comps, base.shape[1]),
+        ids=cand.gather(1, sel),
+        dists=dd,
+        n_comps=sc.scale_comps(scorer_state, state.n_comps, d) + n_cand,
+        n_steps=n_steps,
+        # scored codes during traversal + the float rows the rerank gathered
+        bytes_touched=sc.scored_bytes(scorer_state, state.n_comps, d) + n_cand * (4 * d),
     )
 
 
@@ -257,8 +280,10 @@ def beam_search(
     the reference's signature: the CUDA kernel picks its own tile.
     ``term="stable"``, ``restarts > 0`` and ``deny`` are not ported and
     raise. ``stable_steps``, ``restart_gate`` and ``restart_keys`` are read
-    only under those, and ``rerank`` only by compressed scorers, so with
-    the ported options they are inert, as in the reference."""
+    only under those, so with the ported options they are inert, as in the
+    reference. Compressed scorers (``sq8``, ``pq``) take their per-batch
+    ``scorer_state`` and rerank the best ``rerank`` survivors exactly (0 =
+    the whole ef list); the exact scorer ignores ``rerank``."""
     check_termination(term, restarts)
     if deny is not None:
         raise NotImplementedError(
@@ -274,7 +299,8 @@ def beam_search(
     while state.step < max_steps and not bool(state.done.all()):
         state = _step(state, queries, base, neighbors, metric, expand_width,
                       r_tile, scorer, scorer_state)
-    return _finalize(state, queries, base, k, scorer, scorer_state)
+    return _finalize(state, queries, base, k, metric, r_tile, scorer,
+                     scorer_state, rerank)
 
 
 def random_entries(generator: torch.Generator, n: int, Q: int, E: int) -> torch.Tensor:

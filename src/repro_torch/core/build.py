@@ -2,11 +2,11 @@
 
 The same composable stages as ``repro.core.build``: a construct stage makes
 the raw neighborhood graph, a diversify stage selects its edges, a compress
-stage trains codes for compressed scorers. This slice registers the
+stage trains codes for compressed scorers. The port registers the
 ``nndescent`` and ``exact`` constructs, the ``none`` and ``gd`` diversifiers
-and the ``none`` compressor; the rest (``hnsw``, ``incremental``, ``dpg``,
-``pq``, ``opq``) come with later slices, and naming one raises as an
-unknown stage does.
+and the ``none``, ``pq`` and ``opq`` compressors; the rest (``hnsw``,
+``incremental``, ``dpg``) come with later slices, and naming one raises as
+an unknown stage does.
 
 ``GraphBuilder(spec).build(base, seed)`` runs on ``base``'s device and emits
 a :class:`BuildReport` (rounds, update curve, realized degree distribution,
@@ -219,6 +219,27 @@ def _compress_none(base, spec: BuildSpec, seed):
     return None
 
 
+@register_compressor("pq")
+def _compress_pq(base, spec: BuildSpec, seed):
+    """Train codebooks and encode codes at build time, from the engine's
+    lazy-path seed (``derive_pq_key``), so the attached table equals what a
+    fresh engine with the same seed would train on first use."""
+    from ..baselines.pq import build_pq, derive_pq_key
+
+    return build_pq(base, M=spec.pq_m, K=spec.pq_k, iters=spec.pq_iters,
+                    key=derive_pq_key(seed))
+
+
+@register_compressor("opq")
+def _compress_opq(base, spec: BuildSpec, seed):
+    """OPQ: codebook training alternated with a closed-form orthogonal
+    Procrustes rotation; the engine rotates queries in ``scorer_state``."""
+    from ..baselines.pq import build_opq, derive_opq_key
+
+    return build_opq(base, M=spec.pq_m, K=spec.pq_k, iters=spec.pq_iters,
+                     key=derive_opq_key(seed), opq_iters=spec.opq_iters)
+
+
 # -- report -------------------------------------------------------------------
 
 
@@ -243,7 +264,7 @@ class BuildReport:
     wall_diversify_s: float
     wall_compress_s: float
     wall_total_s: float
-    memory_bytes: int                 # graph + compressed tables
+    memory_bytes: int                 # graph + PQ codebooks and codes
     layers: list = dataclasses.field(default_factory=list)
     in_degree: dict = dataclasses.field(default_factory=dict)
     hub_ids: list = dataclasses.field(default_factory=list)
@@ -266,7 +287,7 @@ class BuildResult(NamedTuple):
 
     graph: KnnGraph
     hierarchy: object | None
-    pq: object | None
+    pq: object | None             # baselines.pq.PQIndex
     report: BuildReport
     hubs: torch.Tensor | None = None  # (n_hubs,) int32, in-degree descending
 
@@ -336,6 +357,11 @@ class GraphBuilder:
         from .lid import lid_mle
 
         spec = self.spec
+        if spec.compress in ("pq", "opq") and base.shape[1] % spec.pq_m:
+            raise ValueError(
+                f"compress={spec.compress!r} needs d % pq_m == 0 "
+                f"(d={base.shape[1]}, pq_m={spec.pq_m})"
+            )
         base = base.float().contiguous()
         clock = _StageClock(base.device)
         peaks: dict[str, int] = {}
@@ -362,6 +388,8 @@ class GraphBuilder:
         dropped = (dstats["dropped_reverse_edges"]
                    + cres.stats.get("dropped_reverse_edges", 0))
         mem = memory_bytes(graph.neighbors)
+        if pq is not None:
+            mem += memory_bytes((pq.codebooks, pq.codes))
 
         # hubs off the FINAL adjacency: the walk the hubs seeder feeds runs
         # on this graph

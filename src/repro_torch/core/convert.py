@@ -2,9 +2,10 @@
 
 Takes numpy arrays as ``repro`` produces them (``np.asarray(graph.neighbors)``,
 ``.dists``, ``hubs`` through :func:`tensor`, the base, a uint32 visited or
-tombstone bitmap) and returns the port's tensors and ``Searcher``. uint32 bitmap words become
-int32 words bit for bit (torch has no unsigned shift or scatter-add on the
-CPU); :func:`bitmap_to_uint32` goes back.
+tombstone bitmap, the sq8 and PQ tables) and returns the port's tensors,
+tables and ``Searcher``. uint32 bitmap words become int32 words bit for bit
+(torch has no unsigned shift or scatter-add on the CPU);
+:func:`bitmap_to_uint32` goes back.
 """
 from __future__ import annotations
 
@@ -12,14 +13,17 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..baselines.pq import PQIndex
 from .engine import Searcher
 from .graph_index import KnnGraph
+from .scorers import Sq8Index
 
 
 def tensor(a, dtype: torch.dtype, device="cuda") -> torch.Tensor:
     """A copy of a numpy array (or array-like) as a contiguous tensor on
     ``device``."""
-    np_dtype = {torch.float32: np.float32, torch.int32: np.int32}[dtype]
+    np_dtype = {torch.float32: np.float32, torch.int32: np.int32,
+                torch.uint8: np.uint8}[dtype]
     arr = np.array(a, dtype=np_dtype, order="C")
     return torch.from_numpy(arr).to(resolve_device(device))
 
@@ -46,15 +50,34 @@ def graph_from_numpy(neighbors, dists=None, device="cuda") -> KnnGraph:
     return KnnGraph(neighbors=nbrs, dists=d)
 
 
+def sq8_from_numpy(codes, scale, mn, device="cuda") -> Sq8Index:
+    """The reference's ``Sq8Index`` (codes (n, d) uint8, scale and mn (d,)
+    float32, as numpy) -> the port's."""
+    return Sq8Index(codes=tensor(codes, torch.uint8, device),
+                    scale=tensor(scale, torch.float32, device),
+                    mn=tensor(mn, torch.float32, device))
+
+
+def pq_index_from_numpy(codebooks, codes, rotation=None, device="cuda") -> PQIndex:
+    """The reference's ``PQIndex`` (codebooks (M, K, dsub), codes (n, M)
+    uint8, optional OPQ rotation (d, d), as numpy) -> the port's."""
+    cb = tensor(codebooks, torch.float32, device)
+    return PQIndex(codebooks=cb, codes=tensor(codes, torch.uint8, device),
+                   M=cb.shape[0], K=cb.shape[1],
+                   rotation=(None if rotation is None
+                             else tensor(rotation, torch.float32, device)))
+
+
 def searcher_from_numpy(base, neighbors, *, metric: str = "l2",
-                        tombstones=None, rng_seed: int = 0,
+                        tombstones=None, rng_seed: int = 0, pq=None,
                         device="cuda") -> Searcher:
     """A port ``Searcher`` over the reference's base and adjacency (and
-    optionally its uint32 tombstone bitmap)."""
+    optionally its uint32 tombstone bitmap and a port ``PQIndex`` to
+    attach)."""
     return Searcher(
         tensor(base, torch.float32, device),
         tensor(neighbors, torch.int32, device),
-        metric=metric, rng_seed=rng_seed,
+        metric=metric, rng_seed=rng_seed, pq=pq,
         tombstones=(None if tombstones is None
                     else bitmap_from_uint32(tombstones, device)),
     )

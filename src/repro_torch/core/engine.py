@@ -1,10 +1,10 @@
 """Search engine: (entry strategy x graph x beam core).
 
 One beam core (``beam_search``), one flat adjacency, and an entry strategy
-that only decides where the beam starts. This slice ports the ``random``
-entry, the ``exact`` scorer and the device-resident base; any
-other ``entry``, ``scorer``, ``base_placement`` or ``filter`` raises
-``NotImplementedError`` naming the roadmap item that ports it.
+that only decides where the beam starts. The port has the ``random``
+entry, the ``exact``, ``sq8`` and ``pq`` scorers and the device-resident
+base; any other ``entry``, ``scorer``, ``base_placement`` or ``filter``
+raises ``NotImplementedError`` naming the roadmap item that ports it.
 
 Seeding draws from ``torch.Generator``s seeded from ints (the Searcher's
 ``rng_seed``, or a per-call ``seed``), not from ``jax.random`` keys, so
@@ -19,7 +19,7 @@ import torch
 
 from .beam_search import SearchResult, beam_search, random_entries
 from .graph_index import KnnGraph
-from .scorers import SCORERS
+from .scorers import get_scorer
 
 
 class SearchSpec(NamedTuple):
@@ -68,7 +68,7 @@ class Searcher:
     (n, d) float32 and the flat adjacency (n, R) int32, on one device."""
 
     def __init__(self, base: torch.Tensor, neighbors: torch.Tensor, *,
-                 metric: str = "l2", rng_seed: int = 0,
+                 metric: str = "l2", rng_seed: int = 0, pq=None,
                  tombstones: torch.Tensor | None = None):
         if base.device != neighbors.device:
             raise ValueError(f"base on {base.device} but neighbors on "
@@ -80,6 +80,13 @@ class Searcher:
         # (ceil(n/32),) int32 words marking deleted/unallocated ids
         self.tombstones = tombstones
         self.build_report = None
+        # PQ tables backing the "pq" scorer: one attached at build time
+        # (served for any spec with its (M, K)), else trained lazily and
+        # cached per (M, K, iters)
+        self._pq_attached = pq
+        self._pq: dict[tuple, object] = {}
+        # the sq8 scorer's table, quantized once on first use
+        self._sq8 = None
 
     @property
     def device(self) -> torch.device:
@@ -102,7 +109,7 @@ class Searcher:
         if metric is None:
             metric = result.report.spec.metric
         searcher = cls.from_graph(base, result.graph, metric=metric,
-                                  rng_seed=rng_seed)
+                                  rng_seed=rng_seed, pq=result.pq)
         searcher.build_report = result.report
         return searcher
 
@@ -135,10 +142,7 @@ class Searcher:
             raise NotImplementedError(
                 f"entry strategy {spec.entry!r} is not ported yet (ported: "
                 f"{list(ENTRY_STRATEGIES)}; ROADMAP.md, queue A item 8)")
-        if spec.scorer not in SCORERS:
-            raise NotImplementedError(
-                f"scorer {spec.scorer!r} is not ported yet "
-                "(ROADMAP.md, queue A item 9)")
+        get_scorer(spec.scorer)  # an unknown name raises ValueError
         if spec.base_placement != "device":
             raise NotImplementedError(
                 f"base_placement={spec.base_placement!r} is not ported yet "
@@ -146,6 +150,60 @@ class Searcher:
         if spec.filter is not None:
             raise NotImplementedError(
                 "filtered search is not ported yet (ROADMAP.md, queue A item 11)")
+
+    # -- scorers --------------------------------------------------------------
+
+    @property
+    def pq(self):
+        """The PQ table this engine would serve without training: the
+        attached build-time table, else the single lazily trained one, else
+        None."""
+        if self._pq_attached is not None:
+            return self._pq_attached
+        if len(self._pq) == 1:
+            return next(iter(self._pq.values()))
+        return None
+
+    def pq_index(self, spec: SearchSpec):
+        """The (spec.pq_m, spec.pq_k) PQ table: the attached one when it
+        matches, else trained on first use from a seed derived from the
+        searcher's ``rng_seed`` (a rebuilt engine reproduces it)."""
+        from ..baselines.pq import build_pq, derive_pq_key
+
+        a = self._pq_attached
+        if a is not None and (a.M, a.K) == (spec.pq_m, spec.pq_k):
+            return a
+        cache_key = (spec.pq_m, spec.pq_k, spec.pq_iters)
+        if cache_key not in self._pq:
+            self._pq[cache_key] = build_pq(
+                self.base, M=spec.pq_m, K=spec.pq_k, iters=spec.pq_iters,
+                key=derive_pq_key(self.rng_seed))
+        return self._pq[cache_key]
+
+    def sq8_index(self):
+        """The (codes, scale, mn) table backing the ``sq8`` scorer,
+        quantized once per index."""
+        if self._sq8 is None:
+            from .scorers import build_sq8
+
+            self._sq8 = build_sq8(self.base)
+        return self._sq8
+
+    def scorer_state(self, queries, spec: SearchSpec):
+        """Per-batch operand of ``spec.scorer``: None for exact, the sq8
+        table for sq8, and for pq the code table with per-query ADC LUTs
+        (queries rotated first under an OPQ table)."""
+        if spec.scorer == "sq8":
+            idx = self.sq8_index()
+            return (idx.codes, idx.scale, idx.mn)
+        if spec.scorer != "pq":
+            return None
+        from ..baselines.pq import build_adc_luts
+
+        idx = self.pq_index(spec)
+        q = queries if idx.rotation is None else queries @ idx.rotation
+        luts = build_adc_luts(q, idx.codebooks, spec.metric).contiguous()
+        return (idx.codes, luts)
 
     def generator(self, seed: int | None = None) -> torch.Generator:
         """A generator on the index's device seeded with ``seed`` (default:
@@ -182,7 +240,8 @@ class Searcher:
             queries, self.base, self.neighbors, entries,
             ef=spec.ef, k=spec.k, metric=spec.metric,
             max_steps=spec.max_steps, expand_width=spec.expand_width,
-            r_tile=spec.r_tile, scorer=spec.scorer, rerank=spec.rerank,
+            r_tile=spec.r_tile, scorer=spec.scorer,
+            scorer_state=self.scorer_state(queries, spec), rerank=spec.rerank,
             q_valid=q_valid, term=spec.term, stable_steps=spec.stable_steps,
             restarts=spec.restarts, restart_gate=spec.restart_gate,
             tombstones=self.tombstones,
@@ -196,12 +255,18 @@ class Searcher:
                       tile_q: int = 256) -> SearchResult:
         """Split a large Q into fixed ``tile_q``-row tiles (the last one
         padded and masked through ``q_valid``), each seeded from
-        ``(seed, tile index)``. ``n_steps`` sums the tiles' loop steps."""
+        ``(seed, tile index)``. ``n_steps`` sums the tiles' loop steps. A
+        compressed scorer's table is trained or quantized once, before the
+        tiles."""
         self._check_spec(spec)
         Q = queries.shape[0]
         if Q <= tile_q:
             return self.search(queries, spec, seed)
         seed = self.rng_seed if seed is None else seed
+        if spec.scorer == "pq":
+            self.pq_index(spec)
+        elif spec.scorer == "sq8":
+            self.sq8_index()
         ids, dists, comps, tbytes = [], [], [], []
         n_steps = 0
         for i, lo in enumerate(range(0, Q, tile_q)):

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels, their plain versions, and the dispatch.
 
 ``ops`` is what the rest of the port calls; ``ref`` holds the plain PyTorch
-versions; ``gather_distance`` and ``distance_matrix`` wrap the CUDA sources
-in ``csrc/``, built at first use by ``_build``.
+versions; ``gather_distance``, ``distance_matrix``, ``gather_sq8``,
+``gather_adc`` and ``pq_adc`` wrap the CUDA sources in ``csrc/``, built at
+first use by ``_build``.
 """

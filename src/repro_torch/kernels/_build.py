@@ -6,8 +6,9 @@ interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. Builds of several
+The library's file name carries a hash of its source, of every shared
+header ``csrc/*.cuh`` and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. Builds of several
 sources run in parallel, one nvcc each. The build directory is listed in
 ``.gitignore``. Nothing here runs at import: the first kernel launch (or an
 explicit :func:`build`) compiles.
@@ -27,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("gather_distance", "distance_matrix")
+SOURCES = ("gather_distance", "distance_matrix", "gather_sq8", "gather_adc",
+           "pq_adc")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # nvcc's stderr per source (ptxas register / shared-memory / spill report)
@@ -47,9 +49,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The build target of ``csrc/<name>.cu``: its name hashes the source,
+    every ``csrc/*.cuh`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, float]:

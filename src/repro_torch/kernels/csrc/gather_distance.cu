@@ -20,25 +20,18 @@
 // row is read as one coalesced 128-byte segment per 32 floats, and the sum
 // is a warp-shuffle reduction. The ragged R edge is handled in the kernel:
 // no padding to a tile. The l2 diff form needs no extra precision (the
-// expanded form cancels for near-duplicate rows).
+// expanded form cancels for near-duplicate rows). The visited test and the
+// distance epilogue are common.cuh's, shared with the sq8 and ADC gathers.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace repro_kernels;
 
 constexpr int kWarps = 8;
 constexpr int kIdsPerWarp = 4;
 constexpr int kIdsPerBlock = kWarps * kIdsPerWarp;
-
-enum Metric { kL2 = 0, kIp = 1, kCos = 2 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <int METRIC, bool MASKED>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -68,36 +61,17 @@ gather_distance_kernel(const float* __restrict__ queries,
     if (r >= R) break;  // warp-uniform
     const int64_t o = q * R + r;
     const int32_t id = ids[o];
-    bool drop = id < 0;
-    if (MASKED && !drop) {
-      const int w = min(id >> 5, W - 1);
-      const uint32_t word = static_cast<uint32_t>(visited[q * W + w]);
-      drop = ((word >> (id & 31)) & 1u) != 0u;
-    }
+    const bool drop = id < 0 || (MASKED && is_visited(visited + q * W, W, id));
     float dist = INFINITY;
     if (!drop) {  // warp-uniform: every lane holds the same id
       const float* row = base + static_cast<int64_t>(min(id, n - 1)) * d;
       float acc = 0.f, rr = 0.f;
       for (int j = lane; j < d; j += 32) {
-        const float x = __ldg(row + j);
-        const float y = q_s[j];
-        if (METRIC == kL2) {
-          const float df = x - y;
-          acc = fmaf(df, df, acc);
-        } else {
-          acc = fmaf(x, y, acc);
-          if (METRIC == kCos) rr = fmaf(x, x, rr);
-        }
+        accumulate<METRIC>(__ldg(row + j), q_s[j], acc, rr);
       }
       acc = warp_sum(acc);
-      if (METRIC == kL2) {
-        dist = acc;
-      } else if (METRIC == kIp) {
-        dist = -acc;
-      } else {
-        rr = warp_sum(rr);
-        dist = 1.f - acc * rsqrtf(fmaxf(qq, 1e-12f)) * rsqrtf(fmaxf(rr, 1e-12f));
-      }
+      if (METRIC == kCos) rr = warp_sum(rr);
+      dist = finish_distance<METRIC>(acc, rr, qq);
     }
     if (lane == 0) {
       out_d[o] = dist;

@@ -11,8 +11,13 @@ from __future__ import annotations
 import torch
 
 from . import distance_matrix as _dm
+from . import gather_adc as _ga
 from . import gather_distance as _gd
+from . import gather_sq8 as _gs
+from . import pq_adc as _pa
 from . import ref
+
+_COUNTERS = (_gd.LAUNCHES, _dm.LAUNCHES, _gs.LAUNCHES, _ga.LAUNCHES, _pa.LAUNCHES)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -45,12 +50,38 @@ def gather_distance_masked(queries, ids, base, visited, metric: str = "l2"):
     return _gd.gather_distance_masked(queries, ids, base, visited, metric)
 
 
+def gather_sq8_masked(queries, ids, codes, scale, mn, visited, metric: str = "l2"):
+    """Fused uint8 gather + dequantized distance + visited/validity mask ->
+    (dists, masked ids): ids (Q, R) scored against the (n, d) uint8 table
+    dequantized per dimension as ``codes * scale + mn``."""
+    if _on_cpu(queries):
+        return ref.gather_sq8_masked_ref(queries, ids, codes, scale, mn, visited,
+                                         metric)
+    return _gs.gather_sq8_masked(queries, ids, codes, scale, mn, visited, metric)
+
+
+def gather_adc_masked(ids, codes, luts, visited):
+    """Fused PQ code gather + ADC + visited/validity mask -> (dists, masked
+    ids) against per-query (Q, M, K) LUTs; the LUT carries the metric."""
+    if _on_cpu(ids):
+        return ref.gather_adc_masked_ref(ids, codes, luts, visited)
+    return _ga.gather_adc_masked(ids, codes, luts, visited)
+
+
+def pq_adc(codes, luts):
+    """codes (n, M) against a LUT (M, K) -> (n,), or LUTs (Q, M, K) ->
+    (Q, n) ADC scores."""
+    if _on_cpu(codes):
+        return ref.pq_adc_ref(codes, luts)
+    return _pa.pq_adc(codes, luts)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per entry point since the last reset."""
-    return {**_gd.LAUNCHES, **_dm.LAUNCHES}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_gd.LAUNCHES, _dm.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

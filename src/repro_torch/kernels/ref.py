@@ -78,3 +78,71 @@ def gather_distance_masked_ref(queries: torch.Tensor, ids: torch.Tensor,
     (+inf, -1)."""
     masked = visited_mask_ref(ids, visited)
     return gather_distance_ref(queries, masked, base, metric), masked
+
+
+def check_codes_fit(codes: torch.Tensor, K: int) -> None:
+    """Raise unless every code indexes a LUT of K entries, as it does when
+    codes and LUTs come from one PQ table. uint8 codes always fit K = 256,
+    so only a smaller K costs a pass over the codes (and a sync on the
+    card)."""
+    if K < 256 and codes.numel() and int(codes.max()) >= K:
+        raise ValueError(f"codes reach {int(codes.max())}, past a LUT of K={K} "
+                         f"entries: codes and LUTs must come from one PQ table")
+
+
+def gather_adc_ref(ids: torch.Tensor, codes: torch.Tensor,
+                   luts: torch.Tensor) -> torch.Tensor:
+    """ids (Q, R) into a code table (n, M) uint8, per-query LUTs (Q, M, K)
+    -> (Q, R) ADC scores ``sum_m luts[q, m, codes[ids[q, r], m]]``; ids < 0
+    give +inf.
+
+    The sum runs m = 0..M-1 from 0.0, one add at a time, as the CUDA kernel
+    sums: the two agree to the last bit."""
+    check_codes_fit(codes, luts.shape[-1])
+    rows = codes[ids.clamp(0, codes.shape[0] - 1).long()].long()   # (Q, R, M)
+    acc = torch.zeros(ids.shape, dtype=torch.float32, device=ids.device)
+    for m in range(codes.shape[1]):
+        acc = acc + luts[:, m, :].float().gather(1, rows[..., m])
+    return torch.where(ids >= 0, acc, torch.full_like(acc, float("inf")))
+
+
+def gather_adc_masked_ref(ids: torch.Tensor, codes: torch.Tensor,
+                          luts: torch.Tensor, visited: torch.Tensor):
+    """(ADC dists, masked ids) where padding and visited entries come back
+    as (+inf, -1)."""
+    masked = visited_mask_ref(ids, visited)
+    return gather_adc_ref(masked, codes, luts), masked
+
+
+def gather_sq8_ref(queries: torch.Tensor, ids: torch.Tensor, codes: torch.Tensor,
+                   scale: torch.Tensor, mn: torch.Tensor,
+                   metric: str = "l2") -> torch.Tensor:
+    """ids (Q, R) into an (n, d) uint8 scalar-quantized table with
+    per-dimension affine params scale/mn (d,) -> (Q, R) distances on the
+    dequantized rows ``codes * scale + mn``; ids < 0 give +inf."""
+    rows = codes[ids.clamp(0, codes.shape[0] - 1).long()].float()  # (Q, R, d)
+    rows = rows * scale.float() + mn.float()
+    return _distances_from_rows(queries, ids, rows, metric)
+
+
+def gather_sq8_masked_ref(queries: torch.Tensor, ids: torch.Tensor,
+                          codes: torch.Tensor, scale: torch.Tensor,
+                          mn: torch.Tensor, visited: torch.Tensor,
+                          metric: str = "l2"):
+    """(dists, masked ids) where padding and visited entries come back as
+    (+inf, -1)."""
+    masked = visited_mask_ref(ids, visited)
+    return gather_sq8_ref(queries, masked, codes, scale, mn, metric), masked
+
+
+def pq_adc_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """codes (n, M) uint8 against one LUT (M, K) -> (n,) ADC scores, or a
+    batch of LUTs (Q, M, K) -> (Q, n): ``sum_m lut[m, codes[i, m]]``,
+    summed m = 0..M-1 from 0.0 as the CUDA kernel sums."""
+    check_codes_fit(codes, luts.shape[-1])
+    idx = codes.long()
+    acc = torch.zeros(luts.shape[:-2] + (codes.shape[0],), dtype=torch.float32,
+                      device=codes.device)
+    for m in range(codes.shape[1]):
+        acc = acc + luts[..., m, :].float().index_select(-1, idx[:, m])
+    return acc

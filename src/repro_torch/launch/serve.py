@@ -1,12 +1,15 @@
 """Graph-ANN query serving on the PyTorch port (``--arch ann``).
 
-Builds the paper's index (NN-Descent + GD through ``core.build``), then
-answers batched query streams through ``Searcher.search`` with random
-entries, the exact scorer and a device-resident base, and scores recall
-against brute-force ground truth:
+Builds the paper's index (NN-Descent + GD through ``core.build``, plus PQ
+codes under ``--scorer pq``), then answers batched query streams through
+``Searcher.search`` with random entries and a device-resident base, and
+scores recall against brute-force ground truth. ``--scorer`` picks the
+per-hop scorer: ``exact`` (float rows), ``sq8`` (uint8 rows) or ``pq``
+(M-byte codes against per-query LUTs); the compressed two rerank the
+``--rerank`` best survivors exactly (0 = all ef):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ann --smoke \
-        --batch 64 --batches 8 --device cpu
+        --batch 64 --batches 8 --device cpu [--scorer sq8|pq]
 
 The world is float32 Gaussian, ``(20_000, 32)`` under ``--smoke`` and
 ``(1_000_000, 64)`` otherwise, made with numpy from ``--seed`` so the same
@@ -72,11 +75,13 @@ def _sync(device: torch.device) -> None:
 
 def build_searcher(base: torch.Tensor, *, build_k: int = 20,
                    build_rounds: int = 15, diversify: str = "gd",
-                   seed: int = 0, verbose: bool = False):
-    """NN-Descent + ``diversify`` over ``base`` on its device ->
-    (Searcher, BuildResult)."""
-    bspec = BuildSpec(construct="nndescent", diversify=diversify, metric="l2",
-                      graph_k=build_k, nd_rounds=build_rounds)
+                   compress: str = "none", pq_m: int = 8, seed: int = 0,
+                   verbose: bool = False):
+    """NN-Descent + ``diversify`` (+ ``compress``) over ``base`` on its
+    device -> (Searcher, BuildResult)."""
+    bspec = BuildSpec(construct="nndescent", diversify=diversify,
+                      compress=compress, metric="l2", graph_k=build_k,
+                      nd_rounds=build_rounds, pq_m=pq_m)
     result = GraphBuilder(bspec).build(base, seed=seed, verbose=verbose)
     return Searcher.from_build(base, result, rng_seed=seed), result
 
@@ -99,23 +104,51 @@ def serve_batches(searcher: Searcher, spec: SearchSpec, stream: list[torch.Tenso
     return results, time.perf_counter() - t0
 
 
+def summarize(results: list, gt: torch.Tensor, topk: int) -> dict:
+    """recall@1, recall@topk, comps/query, bytes/query (mean
+    ``bytes_touched``) and steps/batch over served batches."""
+    found = torch.cat([r.ids for r in results])
+    return {
+        "recall@1": float((found[:, 0] == gt[:, 0]).float().mean()),
+        f"recall@{topk}": recall_at_k(found, gt),
+        "comps_per_query": float(torch.cat([r.n_comps for r in results]).float().mean()),
+        "bytes_per_query": float(torch.cat([r.bytes_touched for r in results])
+                                 .double().mean()),
+        "steps_per_batch": float(np.mean([int(r.n_steps) for r in results])),
+    }
+
+
 def serve_ann(args) -> ServeRun:
     """Build, serve ``args.batches`` batches, score recall; prints the
     reference's report lines."""
     device = resolve_device(args.device)
     n, d = SMOKE_WORLD if args.smoke else FULL_WORLD
     base = torch.from_numpy(numpy_world(n, d, args.seed)).to(device)
+    compress = "pq" if args.scorer == "pq" else "none"
     searcher, result = build_searcher(
         base, build_k=args.build_k, build_rounds=args.build_rounds,
-        diversify=args.diversify, seed=args.seed)
+        diversify=args.diversify, compress=compress, pq_m=args.pq_m,
+        seed=args.seed)
     rep = result.report
-    print(f"[serve-ann] built nndescent·{args.diversify}·none over n={n} d={d} "
-          f"on {device} in {rep.wall_total_s:.1f}s (rounds={rep.rounds}, "
+    print(f"[serve-ann] built nndescent·{args.diversify}·{compress} over n={n} "
+          f"d={d} on {device} in {rep.wall_total_s:.1f}s (rounds={rep.rounds}, "
           f"graph-recall~{rep.graph_recall_proxy}, degree "
           f"mean={rep.degree['mean']}, dropped reverse="
           f"{rep.dropped_reverse_edges})")
 
-    spec = searcher.spec(ef=args.ef, k=args.topk, entry="random")
+    spec = searcher.spec(ef=args.ef, k=args.topk, entry="random",
+                         scorer=args.scorer, pq_m=args.pq_m, rerank=args.rerank)
+    if args.scorer == "pq":
+        t0 = time.time()
+        attached = searcher.pq
+        idx = searcher.pq_index(spec)
+        _sync(device)
+        source = ("attached" if attached is not None
+                  and (attached.M, attached.K) == (idx.M, idx.K)
+                  else "trained at startup")
+        print(f"[serve-ann] pq scorer ready in {time.time() - t0:.1f}s "
+              f"({source}): M={idx.M} K={idx.K} ({idx.M} B/vector vs "
+              f"{4 * d} B exact, {4 * d / idx.M:.0f}x smaller scored base)")
     warm = torch.from_numpy(numpy_queries(d, args.batch, 1, args.seed + 99)[0]).to(device)
     serve_batches(searcher, spec, [warm], [batch_seed(args.seed, -1)],
                   args.stream_tile)
@@ -129,22 +162,17 @@ def serve_ann(args) -> ServeRun:
     # recall/comps over the served traffic; ground truth off the timed path
     all_q = torch.cat(stream)
     gt = ground_truth(all_q, searcher.base, args.topk, searcher.metric)
-    found = torch.cat([r.ids for r in results])
     served = all_q.shape[0]
-    out = {
-        "n": n, "d": d, "device": str(device), "queries": served,
-        "seconds": dt, "qps": served / dt,
-        "recall@1": float((found[:, 0] == gt[:, 0]).float().mean()),
-        f"recall@{args.topk}": recall_at_k(found, gt),
-        "comps_per_query": float(torch.cat([r.n_comps for r in results]).float().mean()),
-        "steps_per_batch": float(np.mean([int(r.n_steps) for r in results])),
-    }
+    out = {"n": n, "d": d, "device": str(device), "scorer": args.scorer,
+           "queries": served, "seconds": dt, "qps": served / dt,
+           **summarize(results, gt, args.topk)}
     mode = f"stream[{args.stream_tile}]" if args.stream_tile else "batch"
-    print(f"[serve-ann] entry=random ef={args.ef} k={args.topk} mode={mode}: "
-          f"{served} queries in {dt * 1e3:.0f} ms ({out['qps']:.0f} qps), "
-          f"recall@1={out['recall@1']:.3f}, recall@{args.topk}="
-          f"{out[f'recall@{args.topk}']:.3f}, "
-          f"comps/query={out['comps_per_query']:.0f}")
+    print(f"[serve-ann] entry=random scorer={args.scorer} ef={args.ef} "
+          f"k={args.topk} mode={mode}: {served} queries in {dt * 1e3:.0f} ms "
+          f"({out['qps']:.0f} qps), recall@1={out['recall@1']:.3f}, "
+          f"recall@{args.topk}={out[f'recall@{args.topk}']:.3f}, "
+          f"comps/query={out['comps_per_query']:.0f}, "
+          f"bytes/query={out['bytes_per_query']:.0f}")
     return ServeRun(summary=out, searcher=searcher, build=result, spec=spec,
                     stream=stream, seeds=seeds, results=results,
                     ground_truth=gt)
@@ -170,6 +198,13 @@ def parser() -> argparse.ArgumentParser:
                     help="NN-Descent round budget")
     ap.add_argument("--diversify", default="gd", choices=["gd", "none"],
                     help="diversify stage")
+    ap.add_argument("--scorer", default="exact", choices=["exact", "sq8", "pq"],
+                    help="per-hop scorer (sq8/pq: compressed traversal + "
+                         "exact rerank)")
+    ap.add_argument("--pq-m", type=int, default=8,
+                    help="PQ sub-vectors = code bytes/vector")
+    ap.add_argument("--rerank", type=int, default=0,
+                    help="exact-reranked survivors under sq8/pq (0 = all ef)")
     ap.add_argument("--stream-tile", type=int, default=0,
                     help="split batches into tiles of this many queries "
                          "(0 = one search per batch)")

@@ -145,7 +145,7 @@ def test_specs_mirror_the_reference():
 
 
 @pytest.mark.parametrize("stage", [dict(construct="hnsw"), dict(diversify="dpg"),
-                                   dict(compress="pq"), dict(construct="bogus")])
+                                   dict(construct="incremental"), dict(construct="bogus")])
 def test_unported_or_unknown_stages_raise(stage):
     with pytest.raises(ValueError, match="unknown"):
         build.GraphBuilder(build.BuildSpec(**stage))
@@ -174,3 +174,37 @@ def test_graph_builder_report(small_world, diversify_stage):
                                                lid_sample=0)).build(base)
     # the proxy scores the constructed (pre-diversify) graph
     assert exact.report.graph_recall_proxy == 1.0
+
+
+def test_compress_stages_attach_pq_tables(small_world):
+    """compress='pq' trains from the engine's lazy-path seed, so the table a
+    build attaches equals what a fresh Searcher with the same seed trains;
+    memory counts the codebooks and codes; 'opq' carries its rotation."""
+    from repro_torch.core.engine import Searcher
+
+    base = _t(small_world[0][:1000])
+    common = dict(graph_k=10, nd_rounds=2, proxy_sample=0, lid_sample=0,
+                  pq_m=4, pq_k=16, pq_iters=3)
+    res = build.GraphBuilder(build.BuildSpec(compress="pq", **common)).build(base, seed=3)
+    idx = res.pq
+    assert idx.codes.shape == (1000, 4) and idx.codebooks.shape == (4, 16, 3)
+    assert idx.rotation is None
+    assert res.report.memory_bytes == 1000 * 10 * 4 + 4 * 16 * 3 * 4 + 1000 * 4
+    s = Searcher.from_build(base, res, rng_seed=3)
+    spec = s.spec(scorer="pq", pq_m=4, pq_k=16, pq_iters=3)
+    assert s.pq is idx and s.pq_index(spec) is idx
+    lazy = Searcher(base, res.graph.neighbors, rng_seed=3).pq_index(spec)
+    assert torch.equal(lazy.codebooks, idx.codebooks) and torch.equal(lazy.codes, idx.codes)
+    opq = build.GraphBuilder(build.BuildSpec(compress="opq", opq_iters=1, **common)
+                             ).build(base, seed=3).pq
+    assert opq.rotation.shape == (12, 12)
+    torch.testing.assert_close(opq.rotation @ opq.rotation.T, torch.eye(12),
+                               rtol=0, atol=1e-5)
+
+
+def test_compress_validates_pq_m_up_front():
+    """d % pq_m is checked before any construct round runs, as in the
+    reference."""
+    with pytest.raises(ValueError, match="pq_m"):
+        build.GraphBuilder(build.BuildSpec(compress="pq", pq_m=5)).build(
+            torch.zeros((50, 12)))

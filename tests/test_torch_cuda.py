@@ -12,8 +12,11 @@ import torch
 
 from repro_torch.core import convert
 from repro_torch.kernels import distance_matrix as cuda_dm
+from repro_torch.kernels import gather_adc as cuda_ga
 from repro_torch.kernels import gather_distance as cuda_gd
+from repro_torch.kernels import gather_sq8 as cuda_gs
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import pq_adc as cuda_pa
 
 METRICS = ["l2", "ip", "cos"]
 # float32 sums in another order than the plain version's
@@ -83,21 +86,107 @@ def test_cuda_distance_matrix_matches_plain(cuda, metric, shape):
                                    got[0], rtol=0, atol=0)
 
 
+def _codes(rng, n, d, M, K, dev):
+    """sq8 codes with scale/mn (dimension 0 zero-range: scale 1) and PQ
+    codes, on ``dev``."""
+    scale = (rng.random(d).astype(np.float32) + 0.1) / 64
+    scale[0] = 1.0
+    sq = (torch.from_numpy(rng.integers(0, 256, size=(n, d)).astype(np.uint8)).to(dev),
+          _c(scale, dev), _c(rng.standard_normal(d, dtype=np.float32), dev))
+    pq = torch.from_numpy(rng.integers(0, K, size=(n, M)).astype(np.uint8)).to(dev)
+    return sq, pq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("Q,R,n,d", [(64, 20, 5000, 64), (7, 33, 1000, 17),
+                                     (3, 240, 300, 64), (1, 1, 1, 1)])
+def test_cuda_gather_sq8_matches_plain(cuda, metric, Q, R, n, d):
+    """Masked ids identical, dists within GATHER_TOL (one FMA per
+    dequantized value and another summation order than the plain
+    version's); the 4-byte code loads and the byte path both."""
+    queries, _, ids, visited = _world(Q, R, n, d, seed=5)
+    qt, it = _c(queries, cuda), _c(ids, cuda, torch.int32)
+    vt = convert.bitmap_from_uint32(visited, cuda)
+    (codes, scale, mn), _ = _codes(np.random.default_rng(n + d), n + 1, d, 8, 16, cuda)
+    for table in (codes[:n], codes[1:]):   # aligned, and offset by d bytes
+        got_d, got_i = cuda_gs.gather_sq8_masked(qt, it, table, scale, mn, vt, metric)
+        want_d, want_i = ref.gather_sq8_masked_ref(qt, it, table, scale, mn, vt, metric)
+        assert torch.equal(got_i, want_i)
+        torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [8, 16, 4])
+@pytest.mark.parametrize("Q,R,n,K", [(64, 20, 5000, 256), (7, 33, 1000, 16),
+                                     (1, 1, 1, 1)])
+def test_cuda_adc_kernels_match_plain_bitwise(cuda, M, Q, R, n, K):
+    """gather_adc_masked and pq_adc sum in the plain versions' m order:
+    scores bit-identical, masked ids identical; 8-byte and byte code
+    loads both."""
+    rng = np.random.default_rng(M + Q + n)
+    _, _, ids, visited = _world(Q, R, n, 4, seed=6)
+    it, vt = _c(ids, cuda, torch.int32), convert.bitmap_from_uint32(visited, cuda)
+    _, codes = _codes(rng, n + 1, 4, M, K, cuda)
+    luts = _c(rng.standard_normal((Q, M, K), dtype=np.float32), cuda)
+    for table in (codes[:n], codes[1:]):   # aligned, and offset by M bytes
+        got_d, got_i = cuda_ga.gather_adc_masked(it, table, luts, vt)
+        want_d, want_i = ref.gather_adc_masked_ref(it, table, luts, vt)
+        assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+        assert torch.equal(cuda_pa.pq_adc(table, luts), ref.pq_adc_ref(table, luts))
+        assert torch.equal(cuda_pa.pq_adc(table, luts[0]), ref.pq_adc_ref(table, luts[0]))
+
+
+@pytest.mark.cuda
+def test_cuda_pq_adc_many_query_groups_and_rows(cuda):
+    """Q past one query group and n past one row tile, ragged at both."""
+    rng = np.random.default_rng(12)
+    _, codes = _codes(rng, 9001, 4, 8, 256, cuda)
+    luts = _c(rng.standard_normal((21, 8, 256), dtype=np.float32), cuda)
+    assert torch.equal(cuda_pa.pq_adc(codes, luts), ref.pq_adc_ref(codes, luts))
+
+
 @pytest.mark.cuda
 def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     queries, base, ids, visited = _world(4, 6, 100, 8)
     qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
     vt = convert.bitmap_from_uint32(visited, cuda)
+    (codes, scale, mn), pq_codes = _codes(np.random.default_rng(1), 100, 8, 8, 16, cuda)
+    luts = torch.randn((4, 8, 16), device=cuda)
     ops.reset_launch_counts()
     ops.gather_distance(qt, it, bt)
     ops.gather_distance_masked(qt, it, bt, vt)
     ops.distance_matrix(qt, bt)
+    ops.gather_sq8_masked(qt, it, codes, scale, mn, vt)
+    ops.gather_adc_masked(it, pq_codes, luts, vt)
+    ops.pq_adc(pq_codes, luts)
     assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_masked": 1,
-                                   "distance_matrix": 1}
+                                   "distance_matrix": 1, "gather_sq8_masked": 1,
+                                   "gather_adc_masked": 1, "pq_adc": 1}
     with pytest.raises(ValueError, match="contiguous"):
         ops.distance_matrix(qt.t(), bt.t())
     with pytest.raises(ValueError, match="int32"):
         ops.gather_distance(qt, it.long(), bt)
+    with pytest.raises(ValueError, match="uint8"):
+        ops.pq_adc(pq_codes.int(), luts)
+
+
+@pytest.mark.cuda
+def test_cuda_adc_wrappers_reject_codes_past_the_lut(cuda):
+    """The ADC kernels index the LUT by code unchecked: the wrappers raise
+    on a code >= K before launching."""
+    _, _, ids, visited = _world(4, 6, 100, 8)
+    it, vt = _c(ids, cuda, torch.int32), convert.bitmap_from_uint32(visited, cuda)
+    _, pq_codes = _codes(np.random.default_rng(2), 100, 8, 8, 16, cuda)
+    pq_codes[5, 3] = 200
+    luts = torch.randn((4, 8, 16), device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        cuda_ga.gather_adc_masked(it, pq_codes, luts, vt)
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        cuda_pa.pq_adc(pq_codes, luts)
+    assert ops.launch_counts()["gather_adc_masked"] == 0
+    assert ops.launch_counts()["pq_adc"] == 0
 
 
 @pytest.mark.cuda
@@ -125,3 +214,50 @@ def test_cuda_beam_search_matches_cpu(cuda, metric):
     assert torch.equal(got.n_comps.cpu(), want.n_comps)
     assert int(got.n_steps) == int(want.n_steps)
     torch.testing.assert_close(got.dists.cpu(), want.dists, **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", ["sq8", "pq"])
+def test_cuda_compressed_beam_search_matches_cpu(cuda, scorer):
+    """The compressed beam on the card against the same beam on the CPU,
+    from the same graph, entries and scorer state: identical ids, n_comps,
+    n_steps and bytes_touched (pq's ADC is bit-identical; sq8 has no
+    float32 near-ties at the list boundaries at this size)."""
+    from repro_torch.baselines.pq import build_pq
+    from repro_torch.core import bruteforce, diversify
+    from repro_torch.core.beam_search import beam_search, dedup_rows
+
+    rng = np.random.default_rng(9)
+    base = torch.from_numpy(rng.standard_normal((2000, 16), dtype=np.float32))
+    queries = torch.from_numpy(rng.standard_normal((48, 16), dtype=np.float32))
+    nbrs = diversify.add_reverse_edges(bruteforce.exact_knn_graph(base, 12).neighbors, 16)
+    entries = dedup_rows(torch.from_numpy(
+        rng.integers(0, 2000, size=(48, 8)).astype(np.int32)))
+    s_cpu = convert.searcher_from_numpy(base, nbrs, device="cpu",
+                                        pq=build_pq(base, M=8, K=64, iters=4, key=1))
+    spec = s_cpu.spec(ef=32, k=10, scorer=scorer, pq_k=64, rerank=16)
+    # one scorer state (the CPU's tables and LUTs) for both devices
+    state = s_cpu.scorer_state(queries, spec)
+    kw = dict(ef=32, k=10, scorer=scorer, rerank=16)
+    want = beam_search(queries, base, nbrs, entries, scorer_state=state, **kw)
+    got = beam_search(queries.to(cuda), base.to(cuda), nbrs.to(cuda), entries.to(cuda),
+                      scorer_state=tuple(t.to(cuda) for t in state), **kw)
+    assert torch.equal(got.ids.cpu(), want.ids)
+    assert torch.equal(got.n_comps.cpu(), want.n_comps)
+    assert torch.equal(got.bytes_touched.cpu(), want.bytes_touched)
+    assert int(got.n_steps) == int(want.n_steps)
+    torch.testing.assert_close(got.dists.cpu(), want.dists, **GATHER_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_pq_training_is_deterministic(cuda):
+    """Same-seed PQ training on the card gives identical codebooks and
+    codes: cluster sums are one-hot matmuls, never float atomics (two row
+    chunks here)."""
+    from repro_torch.baselines.pq import CHUNK, build_pq
+
+    g = torch.Generator().manual_seed(3)
+    base = torch.randn((CHUNK + 4000, 16), generator=g).to(cuda)
+    a = build_pq(base, M=4, K=256, iters=4, key=5)
+    b = build_pq(base, M=4, K=256, iters=4, key=5)
+    assert torch.equal(a.codebooks, b.codebooks) and torch.equal(a.codes, b.codes)

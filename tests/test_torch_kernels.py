@@ -19,11 +19,17 @@ import torch
 from repro.kernels import distance_matrix as pallas_dm
 from repro.kernels import gather_distance as pallas_gd
 from repro.kernels import gather_distance_masked as pallas_gdm
+from repro.kernels import pq_adc as pallas_pq_adc
 from repro.kernels import ref as jref
+from repro.kernels.gather_adc import gather_adc_masked as pallas_gam
+from repro.kernels.gather_sq8 import gather_sq8_masked as pallas_gsm
 from repro_torch.core import convert
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import distance_matrix as cuda_dm
+from repro_torch.kernels import gather_adc as cuda_ga
 from repro_torch.kernels import gather_distance as cuda_gd
+from repro_torch.kernels import gather_sq8 as cuda_gs
+from repro_torch.kernels import pq_adc as cuda_pa
 from repro_torch.kernels import ref
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -33,6 +39,8 @@ METRICS = ["l2", "ip", "cos"]
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
 # the matrix's expanded l2 form cancels, so its error scales with the norms
 MATRIX_TOL = dict(rtol=1e-5, atol=1e-4)
+# ADC scores are sums of M LUT entries: only the summation order may differ
+ADC_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
 def _world(Q, R, n, d, seed=0):
@@ -148,6 +156,139 @@ def test_plain_versions_match_pallas_interpret(metric):
     np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), **MATRIX_TOL)
 
 
+def _codes_world(Q, R, n, d, M, K, seed=0):
+    """ids with padding, an all-invalid row and ids on bit 31 and in the
+    partial last word; a random uint32 visited bitmap; sq8 codes with
+    scale/mn (one zero-range dimension: scale 1); PQ codes and LUTs."""
+    rng = np.random.default_rng(seed + 11 * Q + R + M)
+    queries = rng.standard_normal((Q, d), dtype=np.float32)
+    ids = rng.integers(-1, n, size=(Q, R)).astype(np.int32)
+    ids[0] = -1
+    if Q > 1 and R >= 4:
+        ids[1, :4] = [min(31, n - 1), min(63, n - 1), n - 1, ((n - 1) // 32) * 32]
+    visited = rng.integers(0, 2**32, size=(Q, (n + 31) // 32), dtype=np.uint64)
+    visited = visited.astype(np.uint32)
+    visited[:, 0] |= np.uint32(1 << 31)
+    sq_codes = rng.integers(0, 256, size=(n, d)).astype(np.uint8)
+    scale = (rng.random(d).astype(np.float32) + 0.1) / 64
+    scale[0] = 1.0
+    mn = rng.standard_normal(d, dtype=np.float32)
+    pq_codes = rng.integers(0, K, size=(n, M)).astype(np.uint8)
+    luts = rng.standard_normal((Q, M, K), dtype=np.float32)
+    return dict(queries=queries, ids=ids, visited=visited, sq_codes=sq_codes,
+                scale=scale, mn=mn, pq_codes=pq_codes, luts=luts)
+
+
+def _u8(a):
+    return convert.tensor(a, torch.uint8, device="cpu")
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("Q,R,n,d", [(4, 8, 100, 16), (6, 29, 2048, 32),
+                                     (3, 40, 70, 8), (2, 5, 33, 3)])
+def test_gather_sq8_masked_ref_matches_reference(metric, Q, R, n, d):
+    """Masked ids identical, dists within GATHER_TOL, with ids < 0, an
+    all-invalid row, bit 31 and a partial last word."""
+    w = _codes_world(Q, R, n, d, 4, 16, seed=3)
+    got_d, got_i = ref.gather_sq8_masked_ref(
+        _t(w["queries"]), _t(w["ids"], torch.int32), _u8(w["sq_codes"]),
+        _t(w["scale"]), _t(w["mn"]), convert.bitmap_from_uint32(w["visited"], "cpu"),
+        metric)
+    want_d, want_i = jref.gather_sq8_masked_ref(
+        jnp.asarray(w["queries"]), jnp.asarray(w["ids"]), jnp.asarray(w["sq_codes"]),
+        jnp.asarray(w["scale"]), jnp.asarray(w["mn"]), jnp.asarray(w["visited"]),
+        metric)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **GATHER_TOL)
+    assert np.isinf(got_d.numpy()[0]).all()
+    unmasked = ref.gather_sq8_ref(_t(w["queries"]), _t(w["ids"], torch.int32),
+                                  _u8(w["sq_codes"]), _t(w["scale"]), _t(w["mn"]), metric)
+    np.testing.assert_allclose(
+        unmasked.numpy(),
+        np.asarray(jref.gather_sq8_ref(jnp.asarray(w["queries"]), jnp.asarray(w["ids"]),
+                                       jnp.asarray(w["sq_codes"]), jnp.asarray(w["scale"]),
+                                       jnp.asarray(w["mn"]), metric)), **GATHER_TOL)
+
+
+@pytest.mark.parametrize("M", [4, 8])
+@pytest.mark.parametrize("Q,R,n,K", [(4, 8, 100, 16), (6, 29, 2048, 256),
+                                     (3, 40, 70, 256), (2, 1, 5, 3)])
+def test_gather_adc_masked_ref_matches_reference(M, Q, R, n, K):
+    w = _codes_world(Q, R, n, 8, M, K, seed=5)
+    it, ct, lt = _t(w["ids"], torch.int32), _u8(w["pq_codes"]), _t(w["luts"])
+    got_d, got_i = ref.gather_adc_masked_ref(
+        it, ct, lt, convert.bitmap_from_uint32(w["visited"], "cpu"))
+    want_d, want_i = jref.gather_adc_masked_ref(
+        jnp.asarray(w["ids"]), jnp.asarray(w["pq_codes"]), jnp.asarray(w["luts"]),
+        jnp.asarray(w["visited"]))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **ADC_TOL)
+    np.testing.assert_allclose(
+        ref.gather_adc_ref(it, ct, lt).numpy(),
+        np.asarray(jref.gather_adc_ref(jnp.asarray(w["ids"]), jnp.asarray(w["pq_codes"]),
+                                       jnp.asarray(w["luts"]))), **ADC_TOL)
+
+
+@pytest.mark.parametrize("M", [4, 8])
+@pytest.mark.parametrize("n,K", [(1000, 256), (37, 16), (1, 1)])
+def test_pq_adc_ref_matches_reference(M, n, K):
+    """One LUT and a batch of LUTs; each batch row is the one-LUT scan,
+    bit for bit."""
+    w = _codes_world(3, 1, n, 8, M, K, seed=6)
+    ct, lt = _u8(w["pq_codes"]), _t(w["luts"])
+    got = ref.pq_adc_ref(ct, lt)
+    assert got.shape == (3, n)
+    for q in range(3):
+        want = jref.pq_adc_ref(jnp.asarray(w["pq_codes"]), jnp.asarray(w["luts"][q]))
+        np.testing.assert_allclose(got[q].numpy(), np.asarray(want), **ADC_TOL)
+        assert torch.equal(ref.pq_adc_ref(ct, lt[q]), got[q])
+
+
+def test_adc_plain_versions_sum_in_m_order():
+    """The plain ADC versions add the M entries one at a time from 0.0 in
+    m order, the order the CUDA kernels use: float32 entries 1, 1e8, -1e8,
+    1 sum to 1.0 in that order (a pairwise order gives 0.0)."""
+    lut = torch.tensor([[[1.0], [1e8], [-1e8], [1.0]]], dtype=torch.float32)
+    codes = torch.zeros((1, 4), dtype=torch.uint8)
+    f = np.float32
+    in_order = ((f(1.0) + f(1e8)) + f(-1e8)) + f(1.0)
+    assert in_order == 1.0 and (f(1.0) + f(1e8)) + (f(-1e8) + f(1.0)) == 0.0
+    assert ref.pq_adc_ref(codes, lut[0]).item() == in_order
+    assert ref.gather_adc_ref(torch.zeros((1, 1), dtype=torch.int32), codes,
+                              lut).item() == in_order
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_compressed_plain_versions_match_pallas_interpret(metric):
+    """One small shape of each compressed kernel against its Pallas body in
+    interpret mode, as tests/test_kernels.py runs them."""
+    w = _codes_world(5, 21, 96, 16, 8, 32, seed=7)
+    vt = convert.bitmap_from_uint32(w["visited"], "cpu")
+    got_d, got_i = ref.gather_sq8_masked_ref(
+        _t(w["queries"]), _t(w["ids"], torch.int32), _u8(w["sq_codes"]),
+        _t(w["scale"]), _t(w["mn"]), vt, metric)
+    want_d, want_i = pallas_gsm(
+        jnp.asarray(w["queries"]), jnp.asarray(w["ids"]), jnp.asarray(w["sq_codes"]),
+        jnp.asarray(w["scale"]), jnp.asarray(w["mn"]), jnp.asarray(w["visited"]),
+        metric=metric, r_tile=8, interpret=True)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    # the Pallas l2 body uses the expanded form: the matrix's tolerance
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **MATRIX_TOL)
+    if metric != "l2":
+        return  # the ADC kernels are metric-free: the LUT carries the metric
+    got_d, got_i = ref.gather_adc_masked_ref(_t(w["ids"], torch.int32),
+                                             _u8(w["pq_codes"]), _t(w["luts"]), vt)
+    want_d, want_i = pallas_gam(jnp.asarray(w["ids"]), jnp.asarray(w["pq_codes"]),
+                                jnp.asarray(w["luts"]), jnp.asarray(w["visited"]),
+                                r_tile=8, interpret=True)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=1e-5, atol=1e-5)
+    got = ref.pq_adc_ref(_u8(w["pq_codes"]), _t(w["luts"][0]))
+    want = pallas_pq_adc(jnp.asarray(w["pq_codes"]), jnp.asarray(w["luts"][0]),
+                         block_n=32, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
 def test_ops_dispatches_cpu_tensors_to_plain_versions():
     queries, base, ids, visited = _world(4, 6, 100, 8)
     qt, it, bt = _t(queries), _t(ids, torch.int32), _t(base)
@@ -160,7 +301,41 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
         assert torch.equal(a, b)
     assert torch.equal(ops.distance_matrix(qt, bt, "ip"),
                        ref.distance_matrix_ref(qt, bt, "ip"))
+    w = _codes_world(4, 6, 100, 8, 4, 16)
+    it, ct, lt = _t(w["ids"], torch.int32), _u8(w["pq_codes"]), _t(w["luts"])
+    vt = convert.bitmap_from_uint32(w["visited"], "cpu")
+    sq = (_u8(w["sq_codes"]), _t(w["scale"]), _t(w["mn"]))
+    for a, b in zip(ops.gather_sq8_masked(_t(w["queries"]), it, *sq, vt, "ip"),
+                    ref.gather_sq8_masked_ref(_t(w["queries"]), it, *sq, vt, "ip")):
+        assert torch.equal(a, b)
+    for a, b in zip(ops.gather_adc_masked(it, ct, lt, vt),
+                    ref.gather_adc_masked_ref(it, ct, lt, vt)):
+        assert torch.equal(a, b)
+    assert torch.equal(ops.pq_adc(ct, lt), ref.pq_adc_ref(ct, lt))
     assert ops.launch_counts() == before  # no kernel ran
+    assert set(before) == {"gather_distance", "gather_distance_masked",
+                           "distance_matrix", "gather_sq8_masked",
+                           "gather_adc_masked", "pq_adc"}
+
+
+def test_adc_rejects_codes_past_the_lut():
+    """Codes and LUTs must come from one PQ table: a code >= K raises on the
+    CPU path, as the CUDA wrappers raise before their kernels index the LUT
+    unchecked. K = 256 takes every uint8 code."""
+    w = _codes_world(3, 5, 40, 8, 4, 16)
+    it, vt = _t(w["ids"], torch.int32), convert.bitmap_from_uint32(w["visited"], "cpu")
+    ct, lt = _u8(w["pq_codes"]), _t(w["luts"])
+    ct[7, 2] = 16
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        ops.gather_adc_masked(it, ct, lt, vt)
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        ops.pq_adc(ct, lt)
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        ops.pq_adc(ct, lt[0])
+    ct[7, 2] = 255
+    wide = torch.zeros((3, 4, 256))
+    assert ops.pq_adc(ct, wide).shape == (3, 40)
+    assert ops.gather_adc_masked(it, ct, wide, vt)[0].shape == (3, 5)
 
 
 def test_ops_rejects_unsupported_devices():
@@ -181,7 +356,16 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
                                        convert.bitmap_from_uint32(visited, "cpu"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_dm.distance_matrix(qt, bt)
-    assert cuda_gd._fn is None and cuda_dm._fn is None
+    w = _codes_world(2, 3, 40, 8, 4, 16)
+    it, vt = _t(w["ids"], torch.int32), convert.bitmap_from_uint32(w["visited"], "cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_gs.gather_sq8_masked(_t(w["queries"]), it, _u8(w["sq_codes"]),
+                                  _t(w["scale"]), _t(w["mn"]), vt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_ga.gather_adc_masked(it, _u8(w["pq_codes"]), _t(w["luts"]), vt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_pa.pq_adc(_u8(w["pq_codes"]), _t(w["luts"]))
+    assert all(m._fn is None for m in (cuda_gd, cuda_dm, cuda_gs, cuda_ga, cuda_pa))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -194,12 +378,28 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build(("gather_distance",))
 
 
-def test_library_path_tracks_source_and_flags():
+def test_library_path_tracks_source_and_flags(monkeypatch, tmp_path):
     p = _build.library_path("gather_distance")
     assert p == _build.library_path("gather_distance")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libgather_distance-")
     assert p != _build.library_path("distance_matrix")
     assert all((_build.CSRC / f"{s}.cu").exists() for s in _build.SOURCES)
+    # an edited shared header changes every library's name: a source that
+    # includes it is never loaded stale
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {s: _build.library_path(s) for s in _build.SOURCES}
+    assert before["gather_distance"] == p
+    header = csrc / "common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {s: _build.library_path(s) for s in _build.SOURCES}
+    assert all(after[s] != before[s] for s in _build.SOURCES)
+    (csrc / "extra.cuh").write_text("// a new header\n")
+    assert _build.library_path("pq_adc") != after["pq_adc"]
 
 
 def test_bitmap_conversion_round_trips_bit_for_bit():
@@ -216,7 +416,9 @@ def test_no_jax_or_repro_in_the_port():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "assert len(mods) >= 18, mods\n"
+        "assert len(mods) >= 25, mods\n"
+        "assert {'repro_torch.baselines.pq', 'repro_torch.kernels.gather_sq8',\n"
+        "        'repro_torch.kernels.gather_adc', 'repro_torch.kernels.pq_adc'} <= set(mods)\n"
         "assert not bad, bad\n"
     )
     src = os.path.join(os.path.dirname(__file__), "..", "src")

@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.baselines import pq as jpq
 from repro.core import beam_search as jbeam
 from repro.core import bruteforce as jbrute
 from repro.core import diversify as jdiv
 from repro.core import graph_index as jgi
 from repro.core import lid as jlid
+from repro.core import scorers as jscorers
 from repro.core import topk as jtopk
 from repro_torch.core import beam_search, bruteforce, convert, graph_index, lid, topk
 from repro_torch.core.engine import SearchSpec
@@ -115,6 +117,76 @@ def test_beam_search_tombstones_match_reference(world):
     assert not np.isin(ids[ids >= 0], dead).any()
 
 
+@pytest.fixture(scope="module")
+def tables(world):
+    """The reference's sq8 table and PQ index (M=8, K=64) on the world."""
+    base = jnp.asarray(world[0])
+    return {"sq8": jscorers.build_sq8(base),
+            "pq": jpq.build_pq(base, M=8, K=64, iters=5, key=jax.random.PRNGKey(2))}
+
+
+def _states(world, tables, scorer, metric):
+    """(reference scorer_state, the same carried across to the port): the
+    sq8 table, or the PQ codes with the reference's LUTs injected."""
+    if scorer == "sq8":
+        t = tables["sq8"]
+        ref_state = (t.codes, t.scale, t.mn)
+        port = convert.sq8_from_numpy(*(np.asarray(a) for a in ref_state), device="cpu")
+        return ref_state, tuple(port)
+    idx = tables["pq"]
+    luts = jpq.build_adc_luts(jnp.asarray(world[1]), idx.codebooks, metric)
+    return ((idx.codes, luts),
+            (convert.tensor(np.asarray(idx.codes), torch.uint8, "cpu"),
+             _t(np.asarray(luts))))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("rerank", [0, 16])
+@pytest.mark.parametrize("scorer", ["sq8", "pq"])
+def test_compressed_beam_search_matches_reference(world, tables, scorer, rerank, metric):
+    """Given the reference's graph, entries and tables (its LUTs injected
+    for pq): identical ids, n_comps, n_steps and bytes_touched; dists
+    within rtol 1e-5."""
+    ref_state, port_state = _states(world, tables, scorer, metric)
+    kw = dict(ef=32, k=10, scorer=scorer, rerank=rerank)
+    want = _ref_search(world, metric, scorer_state=ref_state, **kw)
+    got = _port_search(world, metric, scorer_state=port_state, **kw)
+    _assert_same(got, want)
+    np.testing.assert_array_equal(got.bytes_touched.numpy(),
+                                  np.asarray(want.bytes_touched))
+
+
+def test_compressed_scorers_need_their_state(world):
+    for scorer in ("sq8", "pq"):
+        with pytest.raises(ValueError, match="scorer_state"):
+            _port_search(world, "l2", ef=16, scorer=scorer)
+
+
+def test_rerank_slice_matches_reference():
+    for ef, k, r in [(64, 10, 0), (64, 10, 16), (64, 10, 5), (32, 1, 100)]:
+        assert beam_search.rerank_slice(ef, k, r) == jbeam.rerank_slice(ef, k, r)
+
+
+def test_searcher_trains_pq_once_and_serves_compressed_scorers(world):
+    """Without an attached table the pq scorer trains one on first use and
+    caches it; search_stream answers every row under sq8 and pq, and a tile
+    equals a direct search of it."""
+    base, queries, nbrs, _ = world
+    s = convert.searcher_from_numpy(base, nbrs, device="cpu", rng_seed=3)
+    assert s.pq is None
+    spec = s.spec(ef=32, k=10, scorer="pq", pq_k=32, pq_iters=3, rerank=16)
+    idx = s.pq_index(spec)
+    assert s.pq is idx and s.pq_index(spec) is idx and idx.codes.shape == (2000, 8)
+    assert s.sq8_index() is s.sq8_index()
+    from repro_torch.core.engine import _fold
+    for sp in (spec, spec._replace(scorer="sq8")):
+        res = s.search_stream(_t(queries), sp, 7, tile_q=20)
+        assert res.ids.shape == (48, 10) and (res.ids >= 0).all()
+        direct = s.search(_t(queries[40:]), sp, _fold(7, 2))
+        assert torch.equal(res.ids[40:], direct.ids)
+        assert torch.equal(res.bytes_touched[40:], direct.bytes_touched)
+
+
 def test_searcher_with_injected_entries_matches_beam_search(world):
     base, queries, nbrs, entries = world
     s = convert.searcher_from_numpy(base, nbrs, device="cpu")
@@ -127,12 +199,14 @@ def test_searcher_rejects_unported_options(world):
     base, queries, nbrs, _ = world
     s = convert.searcher_from_numpy(base, nbrs, device="cpu")
     q = _t(queries)
-    for kw in (dict(entry="hubs"), dict(scorer="pq"), dict(base_placement="host"),
+    for kw in (dict(entry="hubs"), dict(base_placement="disk"), dict(base_placement="host"),
                dict(term="stable"), dict(restarts=1), dict(filter=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             s.search(q, s.spec(**kw))
     with pytest.raises(ValueError, match="metric"):
         s.search(q, SearchSpec(metric="ip"))
+    with pytest.raises(ValueError, match="unknown scorer"):
+        s.search(q, s.spec(scorer="bogus"))
 
 
 def test_search_stream_tiles_and_masks(world):

@@ -1,7 +1,12 @@
-"""The whole slice on the CPU: build (NN-Descent + GD), batched beam search
-with random entries, ground truth, through ``repro_torch.launch.serve``,
+"""The whole slice on the CPU: build (NN-Descent + GD, + PQ under
+``--scorer pq``), batched beam search with random entries under the exact,
+sq8 and pq scorers, ground truth, through ``repro_torch.launch.serve``,
 against ``repro``'s ``Searcher.build`` + ``search`` on the same base and
 queries (n=3000, d=16); and the device rule of the entry points.
+
+recall@10 slack against the reference: 0.02 for exact and sq8, whose
+tables are deterministic (only the random entries and NN-Descent's draws
+differ); 0.03 for pq, whose codebooks also come from another generator.
 """
 import jax
 import jax.numpy as jnp
@@ -18,27 +23,35 @@ from repro_torch.launch import serve
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, D, BATCH, BATCHES = 3000, 16, 64, 2
+SLACK = {"exact": 0.02, "sq8": 0.02, "pq": 0.03}
 
 
 @pytest.fixture(scope="module")
 def reference():
-    """repro's index and answers on the slice world (ef=64, k=10)."""
+    """repro's index (with its build-time PQ table) and answers on the
+    slice world (ef=64, k=10) under each scorer."""
     base = jnp.asarray(serve.numpy_world(N, D, 0))
     key = jax.random.PRNGKey(0)
-    searcher = JSearcher.build(base, key=key)
+    searcher = JSearcher.build(base, key=key, with_pq=True)
     spec = searcher.spec(ef=64, k=10)
     qs = serve.numpy_queries(D, BATCH, BATCHES, 0)
     entries = [np.asarray(searcher.seed(jnp.asarray(q), spec,
                                         jax.random.fold_in(key, b))[0])
                for b, q in enumerate(qs)]
-    results = [searcher.search(jnp.asarray(q), spec, entries=jnp.asarray(e))
-               for q, e in zip(qs, entries)]
     gt = jbrute.ground_truth(jnp.asarray(np.concatenate(qs)), base, 10)
-    found = jnp.concatenate([r.ids for r in results])
+    results, recall, nbytes = {}, {}, {}
+    for scorer in ("exact", "sq8", "pq"):
+        sp = spec._replace(scorer=scorer)
+        results[scorer] = [searcher.search(jnp.asarray(q), sp, entries=jnp.asarray(e))
+                           for q, e in zip(qs, entries)]
+        found = jnp.concatenate([r.ids for r in results[scorer]])
+        recall[scorer] = float(jrecall(found, gt))
+        nbytes[scorer] = float(np.mean(np.concatenate(
+            [np.asarray(r.bytes_touched) for r in results[scorer]])))
     return {
         "neighbors": np.asarray(searcher.neighbors),
-        "entries": entries, "results": results, "queries": qs,
-        "recall@10": float(jrecall(found, gt)),
+        "entries": entries, "results": results["exact"], "queries": qs,
+        "recall@10": recall["exact"], "recall": recall, "bytes": nbytes,
     }
 
 
@@ -56,6 +69,31 @@ def test_slice_recall_matches_reference(reference, monkeypatch, capsys):
     text = capsys.readouterr().out
     assert "[serve-ann] built nndescent·gd·none over n=3000 d=16" in text
     assert "recall@1=" in text and "comps/query=" in text
+
+
+@pytest.mark.parametrize("scorer", ["sq8", "pq"])
+def test_compressed_slice_recall_matches_reference(reference, scorer, monkeypatch,
+                                                   capsys):
+    """The serve path under --scorer sq8 / pq: recall@10 within SLACK of
+    the reference's under the same scorer, bytes/query within 5% of its
+    (the same billing over walks of the same length), and the reference's
+    report lines."""
+    monkeypatch.setattr(serve, "SMOKE_WORLD", (N, D))
+    out = serve.serve_ann(serve.parser().parse_args(
+        ["--arch", "ann", "--smoke", "--device", "cpu", "--batch", str(BATCH),
+         "--batches", str(BATCHES), "--scorer", scorer])).summary
+    want = reference["recall"][scorer]
+    assert abs(out["recall@10"] - want) <= SLACK[scorer], (out["recall@10"], want)
+    assert out["scorer"] == scorer and out["queries"] == BATCH * BATCHES
+    want_bytes = reference["bytes"][scorer]
+    assert abs(out["bytes_per_query"] - want_bytes) <= 0.05 * want_bytes, \
+        (out["bytes_per_query"], want_bytes)
+    assert want_bytes < reference["bytes"]["exact"]
+    text = capsys.readouterr().out
+    if scorer == "pq":
+        assert "[serve-ann] built nndescent·gd·pq over n=3000 d=16" in text
+        assert "[serve-ann] pq scorer ready in" in text and "(attached): M=8 K=256" in text
+    assert f"scorer={scorer}" in text and "bytes/query=" in text
 
 
 def test_reference_graph_and_entries_give_identical_answers(reference):
