@@ -36,12 +36,31 @@ Phases (each prints its seconds):
    lock-step from the same graph, entries and scorer state: ids, n_comps
    and n_steps must be identical except rows whose first divergence is a
    float32 near-tie (at most 1% of rows).
+   flash_attention against its plain version (dense, chunked over batch
+   so its (S, S) scores fit): fp32 and bf16; causal, causal + window,
+   non-causal, non-causal + window; GQA ratios 1 to 8; dh 64, 80 and 128;
+   a ragged tail; TinyLlama's layer shape (B=8, S=2048, 32/4, dh=64).
+   fp32: rtol 2e-5, atol 2e-5 (the reference's own kernel tests); bf16:
+   rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
+   fp32 values that agree to ~1e-6.
 5. Per-kernel times at the main path's shapes, their bounds, the plain
    versions' times and one library call where there is one. Times are
    device time from torch.profiler (CUPTI), so a tiny kernel is not billed
    the host's launch gaps; back-to-back wall per call (CUDA events) is
    printed beside it. Last, the device-busy share of one served batch
    under the exact and the pq scorer.
+6. LM serving at full width: TinyLlama-1.1B (22 layers, d=2048, GQA 32/4,
+   bf16, random weights from seed 0) through ``repro_torch.models``: (a)
+   init on the card; (b) ``prefill`` of 8 x 2048 tokens, whose attention
+   launches the flash kernel once a layer; (c) the same prefill with the
+   plain attention on two batches: last-position logits within
+   LM_LOGIT_RTOL of the largest logit, the same argmax on >= 15 of 16 rows;
+   (d) fp32 weights: a 2 x 128 prompt fed token by token through
+   ``decode_step`` gives ``forward``'s logits at every position within
+   1e-3 relative; (e) the serve entry point ``--arch tinyllama-1.1b
+   --batch 8 --tokens 32 --max-len 2048``. One prefill call and 8 decode
+   steps (batch 8, caches of 2048) also run under the profiler: device-busy
+   share and the device ops that lead.
 
 Prints a ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
@@ -50,6 +69,8 @@ without a GPU, or when the repository's sources are not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -81,9 +102,19 @@ PQ_SEARCH_RERANK = 64
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
 MATRIX_RTOL, MATRIX_ATOL = 1e-4, 1e-4
 NEAR_TIE_ROWS_MAX = 0.01
-# published H100 SXM peaks: HBM3 bandwidth and dense FP32 rate
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-5)}
+# phase 6 (c): bf16 rounds at other places in the kernel's and the plain
+# attention's fp32 sums (a one-ulp flip in ~1e-4 of the outputs), which 22
+# bf16 layers carry to the logits
+LM_LOGIT_RTOL = 0.05
+LM_ARGMAX_ROWS = 15
+LM_DECODE_RTOL = 1e-3
+# published H100 SXM peaks: HBM3 bandwidth, dense FP32 rate and the dense
+# bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 METRICS = ("l2", "ip", "cos")
 
 
@@ -146,9 +177,9 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
     return total_us / 1e3 / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     """(least ms on the card, what bounds it) at the published peaks."""
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -313,6 +344,67 @@ def check_compressed_kernels(full_base: torch.Tensor, errs: dict) -> None:
             check(torch.equal(got, want), f"pq_adc not bit-identical: {label}")
             errs["pq_adc"] = max(errs["pq_adc"], max_abs_err(got, want))
         print(f"  pq_adc {label}: bit-identical, aligned and offset")
+
+
+def plain_flash_attention(q, k, v, causal=True, window=None, softmax_scale=None):
+    """The flash kernel's plain version one batch row at a time, so its
+    dense (S, S) scores of every head fit at the full shape."""
+    from repro_torch.kernels import ref
+
+    return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                              causal, window, softmax_scale)
+                      for b in range(q.shape[0])])
+
+
+def check_flash_attention(errs: dict) -> None:
+    from repro_torch.kernels import flash_attention as kfa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (label, B, S, Hq, Hkv, dh, dhv, dtype, causal, window, scale)
+        ("TinyLlama layer B=8 S=2048 32/4 dh=64 bf16 causal",
+         8, 2048, 32, 4, 64, 64, bf16, True, None, None),
+        ("B=2 S=256 8/8 dh=64 fp32 causal", 2, 256, 8, 8, 64, 64, f32, True, None, None),
+        ("B=2 S=256 8/8 dh=64 bf16 causal", 2, 256, 8, 8, 64, 64, bf16, True, None, None),
+        ("B=2 S=512 8/1 dh=128 fp32 causal window 100",
+         2, 512, 8, 1, 128, 128, f32, True, 100, None),
+        ("B=2 S=512 8/1 dh=128 bf16 causal window 100",
+         2, 512, 8, 1, 128, 128, bf16, True, 100, None),
+        ("Danube heads B=2 S=1000 32/8 dh=80 bf16 causal window 129",
+         2, 1000, 32, 8, 80, 80, bf16, True, 129, None),
+        ("B=2 S=300 4/4 dh=80 fp32 non-causal (ragged tail)",
+         2, 300, 4, 4, 80, 80, f32, False, None, None),
+        ("B=1 S=200 8/2 dh=64 fp32 non-causal window 50",
+         1, 200, 8, 2, 64, 64, f32, False, 50, None),
+        ("B=1 S=130 16/2 dh=128 dhv=32 fp32 causal scale 0.2",
+         1, 130, 16, 2, 128, 32, f32, True, None, 0.2),
+        ("B=3 S=64 8/2 dh=16 fp32 causal window 1 (diagonal only)",
+         3, 64, 8, 2, 16, 16, f32, True, 1, None),
+        ("tiny B=1 S=1 1/1 dh=1 fp32 causal", 1, 1, 1, 1, 1, 1, f32, True, None, None),
+    ]
+    for label, B, S, Hq, Hkv, dh, dhv, dt, causal, window, scale in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+        q, k, v = rnd(B, S, Hq, dh), rnd(B, S, Hkv, dh), rnd(B, S, Hkv, dhv)
+        got = kfa.flash_attention(q, k, v, causal, window, scale)
+        want = plain_flash_attention(q, k, v, causal, window, scale)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dt]
+        err = max_abs_err(got.float(), want.float())
+        excess = float(((got.float() - want.float()).abs()
+                        - tol["atol"] - tol["rtol"] * want.float().abs()).max())
+        print(f"  flash_attention {label}: max abs error {err:.3g} "
+              f"(rtol {tol['rtol']}, atol {tol['atol']})")
+        check(got.shape == want.shape and got.dtype == dt, f"flash_attention shape/dtype: {label}")
+        check(bool(torch.isfinite(got).all()), f"flash_attention non-finite output: {label}")
+        check(excess <= 0.0, f"flash_attention outside its tolerance: {label}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    q = torch.zeros((1, 4, 1, 129), device=dev)
+    with contextlib.suppress(ValueError):
+        kfa.flash_attention(q, q, q)
+        check(False, "flash_attention took dh=129")
+    print("  flash_attention raises on dh=129")
 
 
 # -- phase 4: kernel path against plain path, in lock-step -------------------
@@ -652,6 +744,198 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
     return rows
 
 
+def time_flash_attention(errs: dict) -> dict:
+    """flash_attention at one TinyLlama prefill layer (B=8, S=2048, 32/4,
+    dh=64, bf16, causal): the kernel, its plain version (dense, the whole
+    batch at once) and PyTorch's scaled_dot_product_attention. The row's
+    launches come from phase 6's prefill."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    B, S, Hq, Hkv, dh = 8, 2048, 32, 4, 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, S, Hq, dh), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    k_ms = device_ms(lambda: ops.flash_attention(q, k, v), reps=10,
+                     match="flash_attention_kernel")
+    call_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), reps=10)
+    p_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v), reps=2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+    # CUDA events: torch.profiler records no device time for this call
+    l_ms = cuda_ms(sdpa, reps=10)
+    sdpa_err = max_abs_err(sdpa().float(), ops.flash_attention(q, k, v).float())
+    pairs = S * (S + 1) / 2                              # visible (q, k) pairs a head
+    flops = 2.0 * 2.0 * B * Hq * pairs * dh              # QK^T and PV
+    nbytes = 2.0 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)   # q, o; k, v
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    print(f"  flash_attention TinyLlama layer B={B} S={S} {Hq}/{Hkv} dh={dh} bf16 "
+          f"causal: kernel {k_ms:.3f} ms on the device ({call_ms:.3f} ms a call back "
+          f"to back; {flops / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.3f} ms, "
+          f"scaled_dot_product_attention {l_ms:.3f} ms a call back to back (max abs "
+          f"difference to the "
+          f"kernel {sdpa_err:.3g}), bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flops at "
+          f"the bf16 tensor-core peak; {flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the "
+          f"fp32 peak; {nbytes / 1e6:.1f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:125",
+                launches=None, max_abs_err=errs["flash_attention"], ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+
+
+# -- phase 6 -----------------------------------------------------------------
+
+
+def device_profile(fn, label: str, calls: int = 1, top: int = 6) -> None:
+    """Wall and device time of ``calls`` runs of ``fn`` under torch.profiler
+    (CUPTI): the busy share and the device ops that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_card)
+    check(dev_us > 0, f"the profiler recorded no device time for {label}")
+    print(f"  {label} under the profiler: {wall_us / 1e3 / calls:.2f} ms wall a call, "
+          f"{dev_us / 1e3 / calls:.3f} ms on the device ({dev_us / wall_us:.1%} busy, "
+          f"{1 - dev_us / wall_us:.1%} idle), {sum(e.count for e in on_card) / calls:.0f} "
+          f"device ops a call")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.key[:70]:70s} {e.self_device_time_total / calls / 1e3:9.3f} ms "
+              f"({e.self_device_time_total / dev_us:.1%}) x{e.count / calls:.0f}")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``attention_full`` on the flash kernel's plain version (chunked over
+    batch) while the block runs."""
+    from repro_torch.kernels import ops
+
+    kernel = ops.flash_attention
+    ops.flash_attention = plain_flash_attention
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def lm_serving() -> int:
+    """Phase 6; returns the flash kernel's launches in one prefill call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = get_arch("tinyllama-1.1b").model_cfg
+    B, S = 8, 2048
+    t = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(model)
+    print(f"(a) {cfg.name}: {n_params:,} parameters ({cfg.n_layers} layers, d={cfg.d_model}, "
+          f"GQA {cfg.n_heads}/{cfg.n_kv}, d_head={cfg.d_head}, d_ff={cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}) initialised on the card in "
+          f"{time.perf_counter() - t:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(1.0e9 < n_params < 1.2e9, "TinyLlama-1.1B parameter count out of range")
+
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S))).to(dev)
+               for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits = tf.prefill(model, prompts[0])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    launches = counts["flash_attention"]
+    print(f"(b) prefill {B} x {S}: launches {counts}")
+    check(launches == cfg.n_layers, f"prefill launched flash_attention {launches} times, "
+          f"not once per layer ({cfg.n_layers})")
+    check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "prefill logits are not finite (B, vocab)")
+    ms = cuda_ms(lambda: tf.prefill(model, prompts[0]), reps=3, warmup=1)
+    print(f"(b) prefill {B} x {S} tokens: {ms:.1f} ms a call, {B * S / ms * 1e3:,.0f} "
+          f"tokens/s, {launches} flash_attention launches a call; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_profile(lambda: tf.prefill(model, prompts[0]), f"prefill {B} x {S}")
+
+    kern = torch.cat([logits, tf.prefill(model, prompts[1])])
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with plain_attention():
+        plain = torch.cat([tf.prefill(model, p) for p in prompts])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3 / len(prompts)
+    check(ops.launch_counts()["flash_attention"] == 0, "the plain prefill launched the kernel")
+    err = max_abs_err(kern, plain)
+    top = float(plain.abs().max())
+    same = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    print(f"(c) kernel vs plain attention, last-position logits of {kern.shape[0]} rows: "
+          f"max abs difference {err:.4g} (largest logit {top:.4g}; tolerance "
+          f"{LM_LOGIT_RTOL} x that), argmax agrees on {same} of {kern.shape[0]}; the "
+          f"plain prefill takes {plain_ms:.1f} ms a call (host clock)")
+    check(err <= LM_LOGIT_RTOL * top, "prefill logits: kernel and plain attention disagree")
+    check(same >= LM_ARGMAX_ROWS, "prefill argmax: kernel and plain attention disagree")
+    del logits, kern, plain
+
+    caches = tf.init_cache(cfg, B, S, dev)
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    step = iter(range(S))
+
+    def decode():
+        tf.decode_step(model, tok, torch.full((B,), next(step), dtype=torch.int32,
+                                              device=dev), caches)
+    device_profile(decode, f"decode step, batch {B}, caches of {S}", calls=8)
+    del model, caches
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = tf.init_params(cfg32, seed=0, device=dev)
+    Bd, Sd = 2, 128
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(Bd, Sd))).to(dev)
+    ops.reset_launch_counts()
+    full = (tf.forward(model, toks) @ model.lm_head).float()
+    check(ops.launch_counts()["flash_attention"] == cfg.n_layers,
+          "the fp32 forward did not go through the kernel")
+    caches = tf.init_cache(cfg32, Bd, Sd, dev)
+    t = time.perf_counter()
+    steps = torch.stack([tf.decode_step(model, toks[:, i],
+                                        torch.full((Bd,), i, dtype=torch.int32, device=dev),
+                                        caches) for i in range(Sd)], 1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    rel = max_abs_err(full, steps) / float(full.abs().max())
+    print(f"(d) fp32 prefill == decode, {Bd} x {Sd}: max abs difference / largest logit "
+          f"{rel:.3g} (tolerance {LM_DECODE_RTOL}); {Sd} decode steps in {dec_s:.2f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(rel <= LM_DECODE_RTOL, "fp32 decode logits differ from forward's")
+    del model, caches, full, steps
+
+    run = serve.main(["--arch", "tinyllama-1.1b", "--batch", "8", "--tokens", "32",
+                      "--max-len", "2048", "--device", "cuda"])
+    print(f"(e) serve: {run.tok_per_s:,.1f} tok/s, {run.ms_per_token:.2f} ms/token "
+          f"(8 sequences, 32 greedy steps, caches of 2048)")
+    check(run.tokens.shape == (8, 32) and bool(((run.tokens >= 0)
+                                                 & (run.tokens < cfg.vocab)).all()),
+          "the serve loop's tokens are out of range")
+    return launches
+
+
 def busy_share(run, spec) -> None:
     """Device-busy share of one served batch under ``spec``: kernel time on
     the card (torch.profiler, CUPTI) over the batch's wall time."""
@@ -722,6 +1006,7 @@ def main(argv=None) -> int:
     errs = {name: 0.0 for name in ops.launch_counts()}
     check_kernels(full_base, errs)
     check_compressed_kernels(full_base, errs)
+    check_flash_attention(errs)
     print(f"  max abs error against the plain versions: {errs}")
     del full_base
     done(t0, "phase 2")
@@ -843,7 +1128,14 @@ def main(argv=None) -> int:
     rows += time_compressed_kernels(run, errs, kernel_launches)
     busy_share(run, specs["exact"])
     busy_share(run, specs["pq"])
+    del run
+    flash_row = time_flash_attention(errs)
     done(t0, "phase 5")
+
+    t0 = phase("phase 6: LM serving, TinyLlama-1.1B at full width")
+    flash_row["launches"] = lm_serving()
+    rows.append(flash_row)
+    done(t0, "phase 6")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

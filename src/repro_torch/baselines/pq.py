@@ -63,15 +63,22 @@ def _assign(x: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
                       for lo in range(0, x.shape[0], CHUNK)])
 
 
-def _kmeans(seed: int, x: torch.Tensor, k: int, iters: int = 15) -> torch.Tensor:
-    """Lloyd's k-means, (n, s) -> (k, s). Empty clusters re-seed from a
-    random row, drawn per iteration from the same generator, so a retrain
-    from the same seed walks the identical centroid trajectory."""
+def _kmeans(seed: int, x: torch.Tensor, k: int, iters: int = 15,
+            init: torch.Tensor | None = None) -> torch.Tensor:
+    """Lloyd's k-means, (n, s) -> (k, s), from ``init`` (k, s) centroids or
+    else k distinct random rows. Empty clusters re-seed from a random row,
+    drawn per iteration from the same generator, so a retrain from the same
+    seed walks the identical centroid trajectory."""
     n = x.shape[0]
     if k > n:
         raise ValueError(f"k-means needs k <= n, got k={k}, n={n}")
     g = _generator(x.device, seed)
-    cent = x[torch.randperm(n, generator=g, device=x.device)[:k]]
+    if init is None:
+        cent = x[torch.randperm(n, generator=g, device=x.device)[:k]]
+    elif init.shape != (k, x.shape[1]):
+        raise ValueError(f"init must be ({k}, {x.shape[1]}), got {tuple(init.shape)}")
+    else:
+        cent = init.to(x)
     for _ in range(iters):
         sums = torch.zeros_like(cent)
         counts = torch.zeros((k,), dtype=torch.float32, device=x.device)

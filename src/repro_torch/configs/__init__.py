@@ -1,0 +1,28 @@
+"""Architecture registry of the port: the LM archs it serves, under the
+reference's arch ids (``repro/configs``). Each is a reduced ``ArchDef``
+with only what serving reads."""
+from __future__ import annotations
+
+import dataclasses
+
+from . import h2o_danube_1_8b, tinyllama_1_1b
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchDef:
+    arch_id: str
+    family: str          # lm
+    model_cfg: object    # models.transformer.LMConfig at published widths
+    smoke_cfg: object    # the reference's reduced config for CPU tests
+
+
+_ARCHS = {m.ARCH_ID: ArchDef(m.ARCH_ID, "lm", m.CONFIG, m.SMOKE)
+          for m in (tinyllama_1_1b, h2o_danube_1_8b)}
+
+
+def get_arch(arch_id: str) -> ArchDef:
+    return _ARCHS[arch_id]
+
+
+def list_archs() -> list[str]:
+    return list(_ARCHS)

@@ -1,0 +1,87 @@
+"""CUDA wrapper for the flash-attention forward (causal / windowed, GQA).
+
+Replaces the Pallas kernel ``flash_attention``
+(``src/repro/kernels/flash_attention.py``). The source is
+``csrc/flash_attention.cu``; its header says what bounds the kernel on the
+H100 (operations: two products per tile) and how this first, simple design
+meets them (fp32 FMA over K/V tiles staged in shared memory, fully masked
+tiles skipped). Unlike the TPU wrapper, q, k and v are read in their
+(B, S, H, dh) layout through strides, with no transpose on the host. This
+wrapper takes CUDA tensors only; ``kernels.ops`` sends CPU tensors to
+``kernels.ref.flash_attention_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GRID_Y_MAX = 65535
+
+LAUNCHES = {"flash_attention": 0}
+
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_int64] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int | None = None,
+                    softmax_scale: float | None = None) -> torch.Tensor:
+    """q (B, S, Hq, dh), k (B, S, Hkv, dh), v (B, S, Hkv, dhv) -> (B, S, Hq,
+    dhv) in q's dtype; query head h reads KV head h // (Hq // Hkv). The
+    scale is ``dh ** -0.5`` unless given; ``window`` keeps keys with
+    ``q_pos - k_pos < window``. fp32 or bf16, dh and dhv <= 128, each
+    tensor's last dimension contiguous."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must share a dtype, got {q.dtype} and "
+                             f"{t.dtype} ({name})")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, S, H, d), got {tuple(t.shape)}")
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name}'s last dimension must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {q.dtype}; fp32 or bf16")
+    B, S, Hq, dh = q.shape
+    Hkv, dhv = k.shape[2], v.shape[3]
+    if (k.shape[:2] != (B, S) or v.shape[:3] != (B, S, Hkv) or k.shape[3] != dh
+            or Hkv < 1 or Hq % Hkv):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} (Hq must be a multiple of Hkv)")
+    if not (1 <= dh <= MAX_HEAD_DIM and 1 <= dhv <= MAX_HEAD_DIM):
+        raise ValueError(f"head dims dh={dh}, dhv={dhv}: the kernel takes 1..{MAX_HEAD_DIM}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if B * Hq > _GRID_Y_MAX or S >= 2**31:
+        raise ValueError(f"shape exceeds the launch grid: B*Hq={B * Hq}, S={S}")
+    scale = softmax_scale if softmax_scale is not None else dh ** -0.5
+    out = torch.empty((B, S, Hq, dhv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          _DTYPES[q.dtype], B, S, Hq, Hkv, dh, dhv,
+                          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                          float(scale), int(causal), 0 if window is None else int(window),
+                          stream)
+    _build.check(status, "flash_attention_fwd")
+    LAUNCHES["flash_attention"] += 1
+    return out

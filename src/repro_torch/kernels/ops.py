@@ -11,13 +11,15 @@ from __future__ import annotations
 import torch
 
 from . import distance_matrix as _dm
+from . import flash_attention as _fa
 from . import gather_adc as _ga
 from . import gather_distance as _gd
 from . import gather_sq8 as _gs
 from . import pq_adc as _pa
 from . import ref
 
-_COUNTERS = (_gd.LAUNCHES, _dm.LAUNCHES, _gs.LAUNCHES, _ga.LAUNCHES, _pa.LAUNCHES)
+_COUNTERS = (_gd.LAUNCHES, _dm.LAUNCHES, _gs.LAUNCHES, _ga.LAUNCHES, _pa.LAUNCHES,
+             _fa.LAUNCHES)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -74,6 +76,15 @@ def pq_adc(codes, luts):
     if _on_cpu(codes):
         return ref.pq_adc_ref(codes, luts)
     return _pa.pq_adc(codes, luts)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
+                    softmax_scale: float | None = None):
+    """GQA attention q (B, S, Hq, dh), k/v (B, S, Hkv, d) -> (B, S, Hq, dhv)
+    in q's dtype: causal and/or windowed mask, fp32 scores and softmax."""
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal, window, softmax_scale)
+    return _fa.flash_attention(q, k, v, causal, window, softmax_scale)
 
 
 def launch_counts() -> dict[str, int]:

@@ -146,3 +146,30 @@ def pq_adc_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     for m in range(codes.shape[1]):
         acc = acc + luts[..., m, :].float().index_select(-1, idx[:, m])
     return acc
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        softmax_scale: float | None = None) -> torch.Tensor:
+    """Dense GQA attention, the flash kernel's oracle: q (B, S, Hq, dh), k
+    (B, S, Hkv, dh), v (B, S, Hkv, dhv) -> (B, S, Hq, dhv) in q's dtype.
+    Query head h reads KV head h // (Hq // Hkv); scores ``(q * scale) . k``
+    and the softmax in fp32; masked scores are -inf, and a row that sees no
+    key (softmax NaN) comes out 0. Builds the (S, S) scores of every head."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else dh ** -0.5
+    qg = q.reshape(B, S, Hkv, G, dh).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = p.masked_fill(torch.isnan(p), 0.0)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)

@@ -1,4 +1,5 @@
-"""Graph-ANN query serving on the PyTorch port (``--arch ann``).
+"""Query serving on the PyTorch port: graph ANN (``--arch ann``) and
+greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b``).
 
 Builds the paper's index (NN-Descent + GD through ``core.build``, plus PQ
 codes under ``--scorer pq``), then answers batched query streams through
@@ -16,6 +17,15 @@ The world is float32 Gaussian, ``(20_000, 32)`` under ``--smoke`` and
 world can be rebuilt on any device (and by the JAX reference). The query
 stream is made and moved to the device before the timer starts, and the
 device is synchronised before it stops.
+
+An LM arch (the reference's ``--arch`` LM branch) initialises the model
+from ``--seed`` (random weights; ``--smoke`` takes the arch's reduced
+config) and decodes ``--tokens`` greedy steps for ``--batch`` sequences
+from token 0 at positions 0..T-1 against caches of ``--max-len``, then
+prints tok/s and ms/token:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+        --smoke --tokens 32 --batch 2 --device cpu
 """
 from __future__ import annotations
 
@@ -26,11 +36,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import configs
 from .._device import resolve_device
 from ..core.bruteforce import ground_truth
 from ..core.build import BuildSpec, GraphBuilder
 from ..core.engine import Searcher, SearchSpec
 from ..core.topk import recall_at_k
+from ..models import transformer as tf
 
 SMOKE_WORLD = (20_000, 32)
 FULL_WORLD = (1_000_000, 64)
@@ -149,12 +161,13 @@ def serve_ann(args) -> ServeRun:
         print(f"[serve-ann] pq scorer ready in {time.time() - t0:.1f}s "
               f"({source}): M={idx.M} K={idx.K} ({idx.M} B/vector vs "
               f"{4 * d} B exact, {4 * d / idx.M:.0f}x smaller scored base)")
-    warm = torch.from_numpy(numpy_queries(d, args.batch, 1, args.seed + 99)[0]).to(device)
+    batch = args.batch or 64
+    warm = torch.from_numpy(numpy_queries(d, batch, 1, args.seed + 99)[0]).to(device)
     serve_batches(searcher, spec, [warm], [batch_seed(args.seed, -1)],
                   args.stream_tile)
 
     stream = [torch.from_numpy(q).to(device)
-              for q in numpy_queries(d, args.batch, args.batches, args.seed)]
+              for q in numpy_queries(d, batch, args.batches, args.seed)]
     seeds = [batch_seed(args.seed, b) for b in range(args.batches)]
     _sync(device)
     results, dt = serve_batches(searcher, spec, stream, seeds, args.stream_tile)
@@ -178,19 +191,81 @@ def serve_ann(args) -> ServeRun:
                     ground_truth=gt)
 
 
+class LMServeRun(NamedTuple):
+    """What one :func:`serve_lm` run decoded and how long it took."""
+
+    tokens: torch.Tensor     # (batch, steps) greedy tokens, in decode order
+    seconds: float
+    tok_per_s: float
+    ms_per_token: float      # wall per decode step (one token per sequence)
+
+
+def serve_lm(model: tf.Transformer, batch: int, tokens: int, max_len: int) -> LMServeRun:
+    """Greedy decoding as the reference's serve loop: ``tokens`` steps for
+    ``batch`` sequences from token 0 at positions 0..tokens-1, each step's
+    argmax (ties to the first index) fed to the next. The timer covers the
+    steps; the device is synchronised before it stops."""
+    cfg = model.cfg
+    if tokens < 1:
+        raise ValueError(f"--tokens must be >= 1, got {tokens}")
+    if tokens > max_len and any(cfg.layer_window(i) is None for i in range(cfg.n_layers)):
+        raise ValueError(f"--tokens {tokens} exceeds --max-len {max_len}")
+    device = model.device
+    caches = tf.init_cache(cfg, batch, max_len, device)
+    tok = torch.zeros((batch,), dtype=torch.long, device=device)
+    out = []
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(tokens):
+        pos = torch.full((batch,), t, dtype=torch.int32, device=device)
+        tok = torch.argmax(tf.decode_step(model, tok, pos, caches), dim=-1)
+        out.append(tok)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    run = LMServeRun(tokens=torch.stack(out, 1), seconds=dt,
+                     tok_per_s=tokens * batch / dt, ms_per_token=dt * 1e3 / tokens)
+    print(f"[serve] {tokens} tokens x {batch} seqs in {dt:.2f}s "
+          f"({run.tok_per_s:.1f} tok/s, {run.ms_per_token:.2f} ms/token) on {device}")
+    return run
+
+
+def serve_lm_arch(args) -> LMServeRun:
+    """``--arch`` an LM: init from ``--seed`` on ``--device``, then
+    :func:`serve_lm`."""
+    arch = configs.get_arch(args.arch)
+    cfg = arch.smoke_cfg if args.smoke else arch.model_cfg
+    model = tf.init_params(cfg, args.seed, resolve_device(args.device))
+    return serve_lm(model, args.batch or 2, args.tokens, args.max_len)
+
+
+def _arch(name: str) -> str:
+    if name == "ann" or name in configs.list_archs():
+        return name
+    raise argparse.ArgumentTypeError(
+        f"{name!r} is not served by the port (graph ANN and "
+        f"{', '.join(configs.list_archs())}); the other archs are ROADMAP "
+        "queue A item 14")
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True, choices=["ann"],
-                    help="serving family (the port serves graph ANN only)")
+    ap.add_argument("--arch", required=True, type=_arch,
+                    help=f"ann or an LM: {', '.join(configs.list_archs())}")
     ap.add_argument("--smoke", action="store_true",
-                    help="n=20_000, d=32 world instead of n=1_000_000, d=64")
+                    help="[ann] n=20_000, d=32 world instead of n=1_000_000, "
+                         "d=64; [lm] the arch's reduced config")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seeds the world, the build and the random entries")
+                    help="seeds the world, the build and the random entries "
+                         "[ann], the weights [lm]")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="queries per batch [ann, default 64], sequences [lm, "
+                         "default 2]")
+    ap.add_argument("--tokens", type=int, default=32, help="[lm] decode steps")
+    ap.add_argument("--max-len", type=int, default=128, help="[lm] cache length")
     ap.add_argument("--ef", type=int, default=64, help="beam width")
     ap.add_argument("--topk", type=int, default=10, help="answers per query")
-    ap.add_argument("--batch", type=int, default=64, help="queries per batch")
     ap.add_argument("--batches", type=int, default=8, help="batches to serve")
     ap.add_argument("--build-k", type=int, default=20,
                     help="raw k-NN degree out of NN-Descent")
@@ -211,8 +286,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> None:
-    serve_ann(parser().parse_args(argv))
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.arch == "ann":
+        return serve_ann(args)
+    return serve_lm_arch(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,63 @@
+"""Carry the reference's LM parameters into the port's model.
+
+``lm_params_from_numpy`` takes the tree of ``repro.models.transformer.
+init_params`` with its leaves as numpy arrays (``np.asarray`` of each), so
+the tests can run both packages on the same weights. The reference stacks
+the layers' weights on axis 0 (``params["layers"]``); they are unstacked
+into the per-layer modules. dtypes are kept: bf16 arrives as numpy's
+``bfloat16`` extension type (2-byte items) and goes across bit for bit
+through an int16 view.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transformer import LMConfig, Transformer
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for key, sub in tree.items():
+            out.update(_flatten(sub, f"{prefix}{key}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array (bf16 included) as a tensor on ``device``, bits kept."""
+    a = np.array(a, order="C")     # a writable copy: leaves may be read-only views
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+@torch.no_grad()
+def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cuda") -> Transformer:
+    """The reference's parameter tree (numpy leaves) -> ``Transformer``.
+    Raises on a missing or extra leaf, a shape that does not match ``cfg``
+    or a dtype other than ``cfg.dtype``."""
+    model = Transformer(cfg, device)
+    want = dict(model.named_parameters())
+    got = {}
+    for name, a in _flatten(tree).items():
+        if name.startswith("layers."):
+            head, rest = name.split(".", 1)
+            if a.shape[:1] != (cfg.n_layers,):
+                raise ValueError(f"{name}: stacked shape {a.shape} does not have "
+                                 f"{cfg.n_layers} layers on axis 0")
+            got.update({f"{head}.{i}.{rest}": a[i] for i in range(cfg.n_layers)})
+        else:
+            got[name] = a
+    missing, extra = sorted(want.keys() - got.keys()), sorted(got.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"parameter tree does not match {cfg.name!r}: missing "
+                         f"{missing}, extra {extra}")
+    for name, p in want.items():
+        t = tensor_from_numpy(got[name], p.device)
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, want "
+                             f"{tuple(p.shape)} {p.dtype}")
+        p.copy_(t)
+    return model

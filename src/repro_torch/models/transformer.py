@@ -1,0 +1,278 @@
+"""Dense GQA LM (TinyLlama, H2O-Danube), mirroring ``repro/models/transformer.py``.
+
+``LMConfig`` carries the reference's fields and defaults, so configs copy
+over with only the dtype changed; fields that only training or the
+reference's sharding reads (``remat``, ``scan_unroll``, the ``*_spec``
+fields, ...) are kept and unused. The model is ``nn.Module``s
+(``Transformer`` > ``Block`` > ``GQAttention`` + ``SwiGLU``) whose parameter
+names follow the reference's tree (``layers.{i}.attn.wq``), with a Python
+loop over layers: each layer's window is ``cfg.layer_window(i)``, as the
+reference's decode path reads it.
+
+Entry points (forward, prefill and decode under ``torch.inference_mode``):
+
+* ``init_params(cfg, seed, device)`` -> ``Transformer``, random weights from
+  a seeded ``torch.Generator`` in the reference's scheme (normals times
+  ``d_model ** -0.5``, norms one); the draws differ from ``jax.random``'s,
+  so tests carry the reference's weights across (``models/convert.py``);
+* ``forward`` (hidden states), ``prefill`` (last-position logits): full
+  sequences, attention through the flash-attention kernel;
+* ``init_cache`` + ``decode_step``: one token at a time against per-layer
+  caches that are updated in place; a windowed layer's cache is a ring of
+  ``min(window, max_len)`` slots, its mask built from the absolute position
+  stored in each slot.
+
+MLA, MoE, the dense-FFN prefix, the hybrid local:global pattern and MTP are
+not ported yet (ROADMAP queue A item 14): building such a config raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from . import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv: int = 2
+    d_head: int = 64
+    d_ff: int = 512
+    vocab: int = 1024
+    attention: str = "gqa"              # 'gqa' | 'mla' (not ported)
+    mla: Any = None
+    moe: Any = None
+    n_dense_prefix: int = 0
+    window: int | None = None           # sliding-window width (danube)
+    local_global: int | None = None     # period P: layer % P == P-1 is global
+    local_window: int = 1024
+    rope_theta: float = 10000.0
+    mtp: bool = False
+    mtp_weight: float = 0.3
+    dtype: Any = torch.bfloat16
+    kv_chunk: int = 1024
+    remat: bool = False
+    scan_unroll: int = 1
+    attn_unroll: int = 1
+    act_spec: Any = None
+    logit_spec: Any = None
+    xent_mode: str = "gather"
+    bf16_grad_sync: bool = False
+    remat_policy: str = "full"
+
+    @property
+    def n_scan_layers(self) -> int:
+        return self.n_layers - self.n_dense_prefix
+
+    def layer_is_global(self, i: int) -> bool:
+        if self.local_global is None:
+            return self.window is None
+        return i % self.local_global == self.local_global - 1
+
+    def layer_window(self, i: int) -> int | None:
+        if self.local_global is not None:
+            return None if self.layer_is_global(i) else self.local_window
+        return self.window
+
+
+def check_supported(cfg: LMConfig) -> None:
+    """Raise for the parts of the reference's LM family the port has not
+    taken over yet."""
+    missing = [what for what, present in (
+        ("MLA attention", cfg.attention != "gqa" or cfg.mla is not None),
+        ("MoE", cfg.moe is not None),
+        ("the dense-FFN prefix", cfg.n_dense_prefix != 0),
+        ("the hybrid local:global pattern", cfg.local_global is not None),
+        ("the MTP head", cfg.mtp)) if present]
+    if missing:
+        raise NotImplementedError(f"{', '.join(missing)} of {cfg.name!r}: {L.NOT_PORTED}")
+
+
+def _weight(shape, cfg, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
+                        requires_grad=False)
+
+
+def _ones(n, cfg, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones((n,), dtype=cfg.dtype, device=device),
+                        requires_grad=False)
+
+
+class GQAttention(nn.Module):
+    def __init__(self, cfg: LMConfig, window: int | None, device):
+        super().__init__()
+        D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+        self.cfg, self.window = cfg, window
+        self.wq = _weight((D, H * dh), cfg, device)
+        self.wk = _weight((D, Hkv * dh), cfg, device)
+        self.wv = _weight((D, Hkv * dh), cfg, device)
+        self.wo = _weight((H * dh, D), cfg, device)
+
+    def params(self) -> dict:
+        return {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        out, _ = L.gqa_forward(self.params(), x, positions, n_heads=c.n_heads,
+                               n_kv=c.n_kv, d_head=c.d_head, rope_theta=c.rope_theta,
+                               window=self.window)
+        return out
+
+    def decode(self, h: torch.Tensor, pos: torch.Tensor, cache: dict) -> torch.Tensor:
+        """h (B, D) at absolute positions pos (B,); writes this token's k, v
+        and position into ``cache`` in place and attends over it."""
+        c = self.cfg
+        B = h.shape[0]
+        H, Hkv, dh = c.n_heads, c.n_kv, c.d_head
+        w = self.window
+        size = cache["k"].shape[1]
+        slot = pos % size if w is not None and w <= size else pos
+        positions = pos[:, None]
+        q = L.rope((h @ self.wq).reshape(B, 1, H, dh), positions, c.rope_theta)
+        k = L.rope((h @ self.wk).reshape(B, 1, Hkv, dh), positions, c.rope_theta)
+        v = (h @ self.wv).reshape(B, 1, Hkv, dh)
+        rows = torch.arange(B, device=h.device)
+        cache["k"].index_put_((rows, slot), k[:, 0])
+        cache["v"].index_put_((rows, slot), v[:, 0])
+        cache["pos"].index_put_((rows, slot), pos.to(cache["pos"].dtype))
+        pc = cache["pos"]
+        # the mask straight from the stored absolute positions (ring-safe)
+        s = L.gqa_scores(q.reshape(B, 1, Hkv, H // Hkv, dh) * dh ** -0.5,
+                          cache["k"])[..., 0, :]                  # (B, Hkv, G, size)
+        valid = (pc >= 0) & (pc <= pos[:, None])
+        if w is not None:
+            valid &= pc > (pos[:, None] - w)
+        s = s.masked_fill(~valid[:, None, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", p, cache["v"].float())
+        return o.reshape(B, H * dh).to(h.dtype) @ self.wo
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        self.w_gate = _weight((cfg.d_model, cfg.d_ff), cfg, device)
+        self.w_up = _weight((cfg.d_model, cfg.d_ff), cfg, device)
+        self.w_down = _weight((cfg.d_ff, cfg.d_model), cfg, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return L.swiglu(x, self.w_gate, self.w_up, self.w_down)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: LMConfig, index: int, device):
+        super().__init__()
+        self.attn_norm = _ones(cfg.d_model, cfg, device)
+        self.attn = GQAttention(cfg, cfg.layer_window(index), device)
+        self.mlp_norm = _ones(cfg.d_model, cfg, device)
+        self.mlp = SwiGLU(cfg, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(L.rms_norm(x, self.attn_norm), positions)
+        return x + self.mlp(L.rms_norm(x, self.mlp_norm))
+
+    def decode(self, x: torch.Tensor, pos: torch.Tensor, cache: dict) -> torch.Tensor:
+        x = x + self.attn.decode(L.rms_norm(x, self.attn_norm), pos, cache)
+        return x + self.mlp(L.rms_norm(x, self.mlp_norm))
+
+
+class Transformer(nn.Module):
+    """Embedding, ``n_layers`` blocks, final norm, LM head; weights left
+    uninitialised (``init_params`` or ``convert.lm_params_from_numpy`` fill
+    them)."""
+
+    def __init__(self, cfg: LMConfig, device="cuda"):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.embed = _weight((cfg.vocab, cfg.d_model), cfg, device)
+        self.final_norm = _ones(cfg.d_model, cfg, device)
+        self.lm_head = _weight((cfg.d_model, cfg.vocab), cfg, device)
+        self.layers = nn.ModuleList(Block(cfg, i, device) for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (B, S) -> final-normed hidden states (B, S, D)."""
+        B, S = tokens.shape
+        x = self.embed[tokens]
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        for block in self.layers:
+            x = block(x, positions)
+        return L.rms_norm(x, self.final_norm)
+
+    def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list) -> torch.Tensor:
+        """token (B,), pos (B,) -> logits (B, V) fp32; caches updated in place."""
+        x = self.embed[token]
+        for block, cache in zip(self.layers, caches):
+            x = block.decode(x, pos, cache)
+        return (L.rms_norm(x, self.final_norm) @ self.lm_head).float()
+
+
+def param_count(model: Transformer) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+@torch.no_grad()
+def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Transformer:
+    """A ``Transformer`` with random weights drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``: every matrix standard normal
+    times ``d_model ** -0.5`` (drawn in fp32, then cast to ``cfg.dtype``),
+    every norm scale one."""
+    model = Transformer(cfg, device)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    s = cfg.d_model ** -0.5
+    for name, p in model.named_parameters():
+        if not name.endswith("norm"):
+            p.copy_(torch.randn(p.shape, generator=g, device=p.device) * s)
+    return model
+
+
+@torch.inference_mode()
+def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> hidden (B, S, D)."""
+    return model(tokens)
+
+
+@torch.inference_mode()
+def prefill(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward returning last-position logits (B, V) fp32
+    (the cache is not returned, as in the reference)."""
+    h = model(tokens)
+    return (h[:, -1] @ model.lm_head).float()
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> list[dict]:
+    """Per-layer caches {k, v: (B, size, Hkv, dh), pos: (B, size) int32 of
+    -1}; a windowed layer's size is ``min(window, max_len)``."""
+    device = resolve_device(device)
+    caches = []
+    for i in range(cfg.n_layers):
+        w = cfg.layer_window(i)
+        size = max_len if w is None else min(w, max_len)
+        kv = (batch, size, cfg.n_kv, cfg.d_head)
+        caches.append({
+            "k": torch.zeros(kv, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(kv, dtype=cfg.dtype, device=device),
+            "pos": torch.full((batch, size), -1, dtype=torch.int32, device=device),
+        })
+    return caches
+
+
+@torch.inference_mode()
+def decode_step(model: Transformer, token: torch.Tensor, pos: torch.Tensor,
+                caches: list) -> torch.Tensor:
+    """token (B,), pos (B,) -> logits (B, V) fp32: one autoregressive step;
+    ``caches`` are updated in place."""
+    return model.decode(token, pos, caches)

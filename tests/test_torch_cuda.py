@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import convert
 from repro_torch.kernels import distance_matrix as cuda_dm
+from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import gather_adc as cuda_ga
 from repro_torch.kernels import gather_distance as cuda_gd
 from repro_torch.kernels import gather_sq8 as cuda_gs
@@ -160,9 +161,12 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     ops.gather_sq8_masked(qt, it, codes, scale, mn, vt)
     ops.gather_adc_masked(it, pq_codes, luts, vt)
     ops.pq_adc(pq_codes, luts)
+    q = torch.randn((1, 16, 4, 8), device=cuda)
+    ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
     assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_masked": 1,
                                    "distance_matrix": 1, "gather_sq8_masked": 1,
-                                   "gather_adc_masked": 1, "pq_adc": 1}
+                                   "gather_adc_masked": 1, "pq_adc": 1,
+                                   "flash_attention": 1}
     with pytest.raises(ValueError, match="contiguous"):
         ops.distance_matrix(qt.t(), bt.t())
     with pytest.raises(ValueError, match="int32"):
@@ -261,3 +265,87 @@ def test_cuda_pq_training_is_deterministic(cuda):
     a = build_pq(base, M=4, K=256, iters=4, key=5)
     b = build_pq(base, M=4, K=256, iters=4, key=5)
     assert torch.equal(a.codebooks, b.codebooks) and torch.equal(a.codes, b.codes)
+
+
+# fp32: the reference's own kernel tolerance; bf16: one bf16 ulp (<= 2^-7
+# relative) of a cast from fp32 values that agree to ~1e-6
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-5)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, None),
+                                           (False, 30)])
+@pytest.mark.parametrize("B,S,Hq,Hkv,dh,dhv", [(2, 256, 8, 8, 64, 64),
+                                               (1, 300, 8, 1, 128, 128),
+                                               (2, 200, 32, 8, 80, 80),
+                                               (1, 70, 4, 2, 128, 24)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, window, B, S, Hq, Hkv,
+                                            dh, dhv):
+    """Windows, GQA ratios 1 to 8, dh 64 / 80 / 128, dhv != dh, ragged
+    tails (S not a multiple of the 64-row tile)."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq + dh)
+    q = torch.randn((B, S, Hq, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, dhv), generator=g, device=cuda).to(dtype)
+    got = cuda_fa.flash_attention(q, k, v, causal, window)
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    assert got.dtype == dtype and got.shape == (B, S, Hq, dhv)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_strided_layouts(cuda):
+    """q, k and v as views of one fused (B, S, H, 3 dh) projection, and a
+    given softmax scale: the kernel reads through the strides."""
+    qkv = torch.randn((2, 130, 4, 3 * 32), device=cuda)
+    q, k, v = qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]
+    assert not q.is_contiguous()
+    got = cuda_fa.flash_attention(q, k, v, softmax_scale=0.3)
+    want = ref.flash_attention_ref(q, k, v, softmax_scale=0.3)
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((1, 8, 2, 16), device=cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="head dims"):
+        cuda_fa.flash_attention(*(torch.randn((1, 8, 2, 129), device=cuda),) * 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_fa.flash_attention(q.cpu(), q.cpu(), q.cpu())
+    with pytest.raises(ValueError, match="share a dtype"):
+        cuda_fa.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        cuda_fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="window"):
+        cuda_fa.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        cuda_fa.flash_attention(torch.randn((1, 8, 3, 16), device=cuda), q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_fa.flash_attention(q, q, q.transpose(2, 3).contiguous().transpose(2, 3))
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["tinyllama-1.1b", "h2o-danube-1.8b"])
+def test_cuda_lm_matches_cpu(cuda, arch_id):
+    """The smoke LM on the card (flash kernel in prefill) against the same
+    weights on the CPU (plain attention): fp32 prefill logits within 1e-4
+    and the same greedy decode stream past Danube smoke's window."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = configs.get_arch(arch_id).smoke_cfg
+    cpu_model = tf.init_params(cfg, seed=1, device="cpu")
+    gpu_model = tf.init_params(cfg, seed=1, device="cpu").to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab, (4, 96)))
+    ops.reset_launch_counts()
+    got = tf.prefill(gpu_model, toks.to(cuda))
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), tf.prefill(cpu_model, toks), rtol=1e-4, atol=1e-4)
+    a = serve.serve_lm(cpu_model, batch=3, tokens=20, max_len=32)
+    b = serve.serve_lm(gpu_model, batch=3, tokens=20, max_len=32)
+    assert torch.equal(a.tokens, b.tokens.cpu())

@@ -312,10 +312,13 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
                     ref.gather_adc_masked_ref(it, ct, lt, vt)):
         assert torch.equal(a, b)
     assert torch.equal(ops.pq_adc(ct, lt), ref.pq_adc_ref(ct, lt))
+    q = torch.randn((2, 16, 4, 8))
+    assert torch.equal(ops.flash_attention(q, q[:, :, :2], q[:, :, :2], window=4),
+                       ref.flash_attention_ref(q, q[:, :, :2], q[:, :, :2], window=4))
     assert ops.launch_counts() == before  # no kernel ran
     assert set(before) == {"gather_distance", "gather_distance_masked",
                            "distance_matrix", "gather_sq8_masked",
-                           "gather_adc_masked", "pq_adc"}
+                           "gather_adc_masked", "pq_adc", "flash_attention"}
 
 
 def test_adc_rejects_codes_past_the_lut():
@@ -418,7 +421,9 @@ def test_no_jax_or_repro_in_the_port():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 25, mods\n"
         "assert {'repro_torch.baselines.pq', 'repro_torch.kernels.gather_sq8',\n"
-        "        'repro_torch.kernels.gather_adc', 'repro_torch.kernels.pq_adc'} <= set(mods)\n"
+        "        'repro_torch.kernels.gather_adc', 'repro_torch.kernels.pq_adc',\n"
+        "        'repro_torch.kernels.flash_attention', 'repro_torch.models.transformer'\n"
+        "        } <= set(mods)\n"
         "assert not bad, bad\n"
     )
     src = os.path.join(os.path.dirname(__file__), "..", "src")

@@ -196,3 +196,28 @@ def test_build_pq_rejects_what_uint8_codes_cannot_hold():
         pq.build_pq(base, M=3)
     with pytest.raises(ValueError, match="k <= n"):
         pq.build_pq(base[:10], M=4, K=16)
+
+
+def test_kmeans_from_the_reference_draw_gives_its_codebooks():
+    """Given the reference's initial centroids (its ``jax.random.choice``
+    draw, ``repro/baselines/pq.py`` ``_kmeans``) on each sub-space of the
+    serving smoke world (n=20_000, d=32, M=8, K=256, 15 iterations, the
+    build-time key of seed 0), the port's k-means lands on the reference's
+    codebooks to 1e-5 (float32 sums in another order; no cluster empties, so
+    no re-seed draw is taken). The two differ only in their draws."""
+    from repro_torch.launch.serve import SMOKE_WORLD, numpy_world
+
+    n, d = SMOKE_WORLD
+    m_sub, k, iters = 8, 256, 15
+    base = numpy_world(n, d, 0)
+    key = jpq.derive_pq_key(jax.random.PRNGKey(0))
+    want = np.asarray(jpq._train(key, jnp.asarray(base), m_sub, k, iters))
+    subs = base.reshape(n, m_sub, d // m_sub)
+    for m, sub_key in enumerate(jax.random.split(key, m_sub)):
+        ids = np.asarray(jax.random.choice(sub_key, n, shape=(k,), replace=False))
+        x = _t(subs[:, m])
+        got = pq._kmeans(0, x, k, iters, init=x[torch.from_numpy(ids).long()])
+        np.testing.assert_allclose(got.numpy(), want[m], rtol=0, atol=1e-5,
+                                   err_msg=f"sub-space {m}")
+    with pytest.raises(ValueError, match="init must be"):
+        pq._kmeans(0, x, k, iters, init=x[:3])

@@ -18,8 +18,10 @@ from repro.core import bruteforce as jbrute
 from repro.core.engine import Searcher as JSearcher
 from repro.core.topk import recall_at_k as jrecall
 from repro_torch import resolve_device
+from repro_torch.configs import get_arch
 from repro_torch.core import convert
 from repro_torch.launch import serve
+from repro_torch.models.transformer import init_params
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, D, BATCH, BATCHES = 3000, 16, 64, 2
@@ -132,12 +134,17 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         serve.main(["--arch", "ann", "--smoke"])
     with pytest.raises(RuntimeError, match="is_available"):
+        serve.main(["--arch", "tinyllama-1.1b", "--smoke"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_params(get_arch("h2o-danube-1.8b").smoke_cfg)
+    with pytest.raises(RuntimeError, match="is_available"):
         convert.tensor(np.zeros(3), torch.float32)
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_serve_cli_rejects_other_archs():
+def test_serve_cli_rejects_other_archs(capsys):
     with pytest.raises(SystemExit):
-        serve.parser().parse_args(["--arch", "tinyllama-1.1b"])
+        serve.parser().parse_args(["--arch", "deepseek-v3-671b"])
+    assert "ROADMAP queue A item 14" in capsys.readouterr().err
