@@ -38,8 +38,10 @@ Phases (each prints its seconds):
    float32 near-tie (at most 1% of rows).
    flash_attention against its plain version (dense, chunked over batch
    so its (S, S) scores fit): fp32 and bf16; causal, causal + window,
-   non-causal, non-causal + window; GQA ratios 1 to 8; dh 64, 80 and 128;
-   a ragged tail; TinyLlama's layer shape (B=8, S=2048, 32/4, dh=64).
+   non-causal, non-causal + window; GQA ratios 1 to 8; dh 40, 64, 80 and
+   128; a ragged tail, S = 127 / 128 / 129 around the bf16 kernel's
+   128-row tile, S = 1, a window of 128 (a key-tile edge); TinyLlama's
+   layer shape (B=8, S=2048, 32/4, dh=64).
    fp32: rtol 2e-5, atol 2e-5 (the reference's own kernel tests); bf16:
    rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
    fp32 values that agree to ~1e-6.
@@ -48,7 +50,10 @@ Phases (each prints its seconds):
    device time from torch.profiler (CUPTI), so a tiny kernel is not billed
    the host's launch gaps; back-to-back wall per call (CUDA events) is
    printed beside it. Last, the device-busy share of one served batch
-   under the exact and the pq scorer.
+   under the exact and the pq scorer. flash_attention (bf16): one call runs
+   ``flash_attention_wgmma_kernel`` once (by symbol, under the profiler),
+   its SASS holds HGMMA (``cuobjdump``), and one layer at the reference's
+   prefill_32k shape (B=32, S=32768) is timed beside SDPA.
 6. LM serving at full width: TinyLlama-1.1B (22 layers, d=2048, GQA 32/4,
    bf16, random weights from seed 0) through ``repro_torch.models``: (a)
    init on the card; (b) ``prefill`` of 8 x 2048 tokens, whose attention
@@ -72,6 +77,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -157,11 +163,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, match: str | None = None) -> float:
+def device_ms(fn, reps: int, match: str | None = None,
+              launches: int | None = None) -> float:
     """Mean device milliseconds per ``fn`` call: the summed duration of the
     kernels (and copies) it ran on the card, read from torch.profiler
-    (CUPTI). ``match`` keeps only kernels whose name contains it. Unlike
-    event timing, this excludes the host's launch gaps."""
+    (CUPTI). ``match`` keeps only kernels whose name contains it. With
+    ``launches`` (matching kernels a call), the mean is taken per recorded
+    kernel: the profiler has been seen to leave one kernel of a window out
+    (9 of 10), which would bill the call for 10% less. Unlike event timing,
+    this excludes the host's launch gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -170,11 +180,40 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (match is None or match in e.key))
+    kept = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and (match is None or match in e.key)]
+    total_us = sum(e.self_device_time_total for e in kept)
     check(total_us > 0, f"the profiler recorded no device time for {match or fn}")
+    if launches is not None:
+        n = sum(e.count for e in kept)
+        check(0 < n <= launches * reps, f"{n} launches of {match} in {reps} calls")
+        if n < launches * reps:
+            print(f"  (the profiler recorded {n} of {launches * reps} {match} launches; "
+                  f"the mean is per recorded launch)")
+        return total_us / 1e3 / n * launches
     return total_us / 1e3 / reps
+
+
+def kernels_of_one_call(fn) -> list[str]:
+    """Names of the kernels one ``fn`` call runs on the card, one entry per
+    launch (torch.profiler, a window of one call after a warm-up call). The
+    window opens with a fill kernel: the profiler has been seen to leave the
+    first kernel of a window out, and the fill takes that place; fills are
+    not listed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.fill_(1.0)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.key
+            for _ in range(e.count)]
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
@@ -382,6 +421,14 @@ def check_flash_attention(errs: dict) -> None:
         ("B=3 S=64 8/2 dh=16 fp32 causal window 1 (diagonal only)",
          3, 64, 8, 2, 16, 16, f32, True, 1, None),
         ("tiny B=1 S=1 1/1 dh=1 fp32 causal", 1, 1, 1, 1, 1, 1, f32, True, None, None),
+        ("B=2 S=300 8/2 dh=40 bf16 causal (dh no multiple of 16)",
+         2, 300, 8, 2, 40, 40, bf16, True, None, None),
+        ("B=2 S=127 4/2 dh=64 bf16 causal", 2, 127, 4, 2, 64, 64, bf16, True, None, None),
+        ("B=2 S=128 4/2 dh=64 bf16 causal", 2, 128, 4, 2, 64, 64, bf16, True, None, None),
+        ("B=2 S=129 4/2 dh=64 bf16 causal", 2, 129, 4, 2, 64, 64, bf16, True, None, None),
+        ("B=2 S=512 8/2 dh=64 bf16 causal window 128 (a key-tile edge)",
+         2, 512, 8, 2, 64, 64, bf16, True, 128, None),
+        ("tiny B=1 S=1 1/1 dh=64 bf16 causal", 1, 1, 1, 1, 64, 64, bf16, True, None, None),
     ]
     for label, B, S, Hq, Hkv, dh, dhv, dt, causal, window, scale in cases:
         def rnd(*shape):
@@ -744,14 +791,52 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
     return rows
 
 
-def time_flash_attention(errs: dict) -> dict:
-    """flash_attention at one TinyLlama prefill layer (B=8, S=2048, 32/4,
-    dh=64, bf16, causal): the kernel, its plain version (dense, the whole
-    batch at once) and PyTorch's scaled_dot_product_attention. The row's
-    launches come from phase 6's prefill."""
+def hgmma_count(symbol: str) -> dict[str, int]:
+    """HGMMA instructions in each compiled instance of ``symbol`` in the
+    built flash_attention library (``cuobjdump -sass``)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(maxsplit=1)[0]
+        if symbol in name:   # ..._kernelILi64ELi128EE... -> "<64, 128>"
+            dims = re.search(r"kernelILi(\d+)ELi(\d+)E", name)
+            counts[f"<{dims[1]}, {dims[2]}>" if dims else name] = section.count("HGMMA")
+    return counts
+
+
+def _sdpa(q, k, v):
     import torch.nn.functional as F
 
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def _attention_flops(B, S, Hq, dh):
+    """QK^T and PV over the visible (q, k) pairs of a causal layer."""
+    return 2.0 * 2.0 * B * Hq * (S * (S + 1) / 2) * dh
+
+
+def time_flash_attention(errs: dict) -> dict:
+    """flash_attention at one TinyLlama prefill layer (B=8, S=2048, 32/4,
+    dh=64, bf16, causal): the tensor-core kernel (once a call, by its
+    symbol; HGMMA in its SASS), its plain version (dense, the whole batch at
+    once) and PyTorch's scaled_dot_product_attention; then one layer at the
+    reference's prefill_32k shape (B=32, S=32768) beside SDPA, where no plain
+    check fits. The row's launches come from phase 6's prefill."""
     from repro_torch.kernels import ops, ref
+
+    symbol = "flash_attention_wgmma_kernel"
+    hgmma = hgmma_count(symbol)
+    print(f"  HGMMA instructions in the SASS of {symbol}<DH, DV>: {hgmma}")
+    check(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()),
+          f"no HGMMA in the SASS of {symbol}")
 
     dev = torch.device("cuda")
     B, S, Hq, Hkv, dh = 8, 2048, 32, 4, 64
@@ -759,30 +844,50 @@ def time_flash_attention(errs: dict) -> dict:
     q = torch.randn((B, S, Hq, dh), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
-    k_ms = device_ms(lambda: ops.flash_attention(q, k, v), reps=10,
-                     match="flash_attention_kernel")
+    ran = kernels_of_one_call(lambda: ops.flash_attention(q, k, v))
+    print(f"  one bf16 flash_attention call runs: {ran}")
+    check(sum(symbol in name for name in ran) == 1 and len(ran) == 1,
+          f"a bf16 flash_attention call did not run {symbol} exactly once")
+    k_ms = device_ms(lambda: ops.flash_attention(q, k, v), reps=10, match=symbol,
+                     launches=1)
     call_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), reps=10)
     p_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v), reps=2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
     # CUDA events: torch.profiler records no device time for this call
-    l_ms = cuda_ms(sdpa, reps=10)
-    sdpa_err = max_abs_err(sdpa().float(), ops.flash_attention(q, k, v).float())
-    pairs = S * (S + 1) / 2                              # visible (q, k) pairs a head
-    flops = 2.0 * 2.0 * B * Hq * pairs * dh              # QK^T and PV
+    l_ms = cuda_ms(lambda: _sdpa(q, k, v), reps=10)
+    sdpa_err = max_abs_err(_sdpa(q, k, v).float(), ops.flash_attention(q, k, v).float())
+    flops = _attention_flops(B, S, Hq, dh)
     nbytes = 2.0 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)   # q, o; k, v
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     print(f"  flash_attention TinyLlama layer B={B} S={S} {Hq}/{Hkv} dh={dh} bf16 "
-          f"causal: kernel {k_ms:.3f} ms on the device ({call_ms:.3f} ms a call back "
-          f"to back; {flops / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.3f} ms, "
-          f"scaled_dot_product_attention {l_ms:.3f} ms a call back to back (max abs "
-          f"difference to the "
-          f"kernel {sdpa_err:.3g}), bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flops at "
-          f"the bf16 tensor-core peak; {flops / FP32_FLOP_PER_S * 1e3:.3f} ms at the "
-          f"fp32 peak; {nbytes / 1e6:.1f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+          f"causal: kernel {k_ms:.4f} ms on the device, 1 {symbol} launch a call "
+          f"({call_ms:.4f} ms a call back to back; {flops / k_ms / 1e9:.1f} TFLOP/s of "
+          f"visible-pair flops, {1.5 * flops / k_ms / 1e9:.1f} with the split P.V), plain "
+          f"{p_ms:.3f} ms, scaled_dot_product_attention {l_ms:.4f} ms a call back to back "
+          f"(kernel / SDPA {k_ms / l_ms:.2f}x; max abs difference to the kernel "
+          f"{sdpa_err:.3g}), bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flops at the bf16 "
+          f"tensor-core peak; {nbytes / 1e6:.1f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    del q, k, v
+
+    B, S = 32, 32768
+    q = torch.randn((B, S, Hq, dh), generator=g, device=dev, dtype=torch.bfloat16)
+    k = torch.randn((B, S, Hkv, dh), generator=g, device=dev, dtype=torch.bfloat16)
+    v = torch.randn((B, S, Hkv, dh), generator=g, device=dev, dtype=torch.bfloat16)
+    big_ms = cuda_ms(lambda: ops.flash_attention(q, k, v), reps=3, warmup=1)
+    got = ops.flash_attention(q, k, v)
+    check(bool(torch.isfinite(got).all()), "prefill_32k layer: non-finite output")
+    flops = _attention_flops(B, S, Hq, dh)
+    big_b_ms, big_b_by = bound(2.0 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh), flops,
+                               BF16_FLOP_PER_S)
+    s_ms = cuda_ms(lambda: _sdpa(q, k, v), reps=3, warmup=1)
+    want = _sdpa(q, k, v)
+    diff = max(max_abs_err(got[b].float(), want[b].float()) for b in range(B))
+    print(f"  flash_attention prefill_32k layer B={B} S={S} {Hq}/{Hkv} dh={dh} bf16 causal "
+          f"(q, k, v, o {(2 * q.numel() + 2 * k.numel()) * 2 / 1e9:.2f} GB): kernel "
+          f"{big_ms:.2f} ms a call ({flops / big_ms / 1e9:.1f} TFLOP/s, CUDA events, 3 "
+          f"reps), scaled_dot_product_attention {s_ms:.2f} ms (kernel / SDPA "
+          f"{big_ms / s_ms:.2f}x), max abs difference {diff:.3g}, bound {big_b_ms:.2f} ms "
+          f"({big_b_by}, {flops:.3e} flops)")
+    del q, k, v, got, want
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:125",
@@ -996,7 +1101,7 @@ def main(argv=None) -> int:
           f"in {time.perf_counter() - tb:.1f} s wall")
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "Performance Loss")):
                 print(f"  ptxas {name}: {line.strip()}")
     done(t0, "phase 1")
 

@@ -3,11 +3,13 @@
 Replaces the Pallas kernel ``flash_attention``
 (``src/repro/kernels/flash_attention.py``). The source is
 ``csrc/flash_attention.cu``; its header says what bounds the kernel on the
-H100 (operations: two products per tile) and how this first, simple design
-meets them (fp32 FMA over K/V tiles staged in shared memory, fully masked
-tiles skipped). Unlike the TPU wrapper, q, k and v are read in their
-(B, S, H, dh) layout through strides, with no transpose on the host. This
-wrapper takes CUDA tensors only; ``kernels.ops`` sends CPU tensors to
+H100 (operations: two products per tile) and how its two kernels meet
+them: bf16 runs ``flash_attention_wgmma_kernel`` on the tensor cores (TMA
+loads into a K/V ring, ``wgmma`` products, P split into bf16 hi + lo for
+the P.V product); fp32 runs ``flash_attention_kernel``, fp32 FMA on the
+CUDA cores. Unlike the TPU wrapper, q, k and v are read in their (B, S, H,
+dh) layout through strides, with no transpose on the host. This wrapper
+takes CUDA tensors only; ``kernels.ops`` sends CPU tensors to
 ``kernels.ref.flash_attention_ref``.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from . import _build
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Y_MAX = 65535
+_WGMMA_ROWS = 128   # query rows per block of the bf16 kernel
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -39,6 +42,37 @@ def _entry():
     return _fn
 
 
+def _tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """(b, s, h) element strides under which TMA reads ``t`` (B, S, H, d)
+    in place, or None. TMA needs a 16-byte-aligned base, strides that are
+    multiples of 16 bytes and, here, strides that grow outwards (h, s, b);
+    a dimension of size 1 is never stepped, so it takes the extent of the
+    dimension inside it."""
+    B, S, H, d = t.shape
+    sb, ss, sh = t.stride()[:3]
+    sh = sh if H > 1 else -(-d // 8) * 8
+    ss = ss if S > 1 else sh * H
+    sb = sb if B > 1 else ss * S
+    ok = (t.data_ptr() % 16 == 0 and sh % 8 == 0 and ss % 8 == 0 and sb % 8 == 0
+          and d <= sh <= ss <= sb)
+    return (sb, ss, sh) if ok else None
+
+
+def _tma_operand(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """``t`` and its strides when TMA can read it in place; otherwise an
+    explicit copy into rows padded to 8 elements (16 bytes), which it can.
+    The copy costs one read and one write of ``t``; the LM's projections
+    never need it."""
+    strides = _tma_strides(t)
+    if strides is not None:
+        return t, strides
+    d = t.shape[-1]
+    padded = torch.empty((*t.shape[:3], -(-d // 8) * 8), dtype=t.dtype, device=t.device)
+    copy = padded[..., :d]
+    copy.copy_(t)
+    return copy, _tma_strides(copy)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int | None = None,
                     softmax_scale: float | None = None) -> torch.Tensor:
@@ -46,7 +80,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dhv) in q's dtype; query head h reads KV head h // (Hq // Hkv). The
     scale is ``dh ** -0.5`` unless given; ``window`` keeps keys with
     ``q_pos - k_pos < window``. fp32 or bf16, dh and dhv <= 128, each
-    tensor's last dimension contiguous."""
+    tensor's last dimension contiguous. bf16 operands that TMA cannot read
+    in place (a base not 16-byte aligned, a stride not a multiple of 8
+    elements, strides out of (h, s, b) order) are copied first, see
+    ``_tma_operand``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
@@ -69,17 +106,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dims dh={dh}, dhv={dhv}: the kernel takes 1..{MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if B * Hq > _GRID_Y_MAX or S >= 2**31:
+    # grid y: heads for the fp32 kernel, query tiles for the bf16 one
+    grid_y = B * Hq if q.dtype == torch.float32 else -(-S // _WGMMA_ROWS)
+    if grid_y > _GRID_Y_MAX or B * Hq >= 2**31 or S >= 2**31:
         raise ValueError(f"shape exceeds the launch grid: B*Hq={B * Hq}, S={S}")
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
     out = torch.empty((B, S, Hq, dhv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        (q, qs), (k, ks), (v, vs) = map(_tma_operand, (q, k, v))
+    else:
+        qs, ks, vs = q.stride()[:3], k.stride()[:3], v.stride()[:3]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                          _DTYPES[q.dtype], B, S, Hq, Hkv, dh, dhv,
-                          *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                          _DTYPES[q.dtype], B, S, Hq, Hkv, dh, dhv, *qs, *ks, *vs,
                           float(scale), int(causal), 0 if window is None else int(window),
                           stream)
     _build.check(status, "flash_attention_fwd")

@@ -276,15 +276,21 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, None),
-                                           (False, 30)])
+                                           (False, 30), (True, 128)])
 @pytest.mark.parametrize("B,S,Hq,Hkv,dh,dhv", [(2, 256, 8, 8, 64, 64),
                                                (1, 300, 8, 1, 128, 128),
                                                (2, 200, 32, 8, 80, 80),
-                                               (1, 70, 4, 2, 128, 24)])
+                                               (1, 70, 4, 2, 128, 24),
+                                               (2, 300, 8, 2, 40, 40),
+                                               (2, 127, 4, 2, 64, 64),
+                                               (2, 128, 4, 2, 64, 64),
+                                               (2, 129, 4, 2, 64, 64),
+                                               (1, 1, 1, 1, 64, 64)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, window, B, S, Hq, Hkv,
                                             dh, dhv):
-    """Windows, GQA ratios 1 to 8, dh 64 / 80 / 128, dhv != dh, ragged
-    tails (S not a multiple of the 64-row tile)."""
+    """Windows (128: on the bf16 kernel's key-tile edge), GQA ratios 1 to 8,
+    dh 40 / 64 / 80 / 128 (40 is no multiple of 16), dhv != dh, ragged tails
+    and S = 127 / 128 / 129 around the bf16 kernel's 128-row tile, S = 1."""
     g = torch.Generator(device=cuda).manual_seed(S + Hq + dh)
     q = torch.randn((B, S, Hq, dh), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, S, Hkv, dh), generator=g, device=cuda).to(dtype)
@@ -293,6 +299,38 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, window, B, S, H
     want = ref.flash_attention_ref(q, k, v, causal, window)
     assert got.dtype == dtype and got.shape == (B, S, Hq, dhv)
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_runs_the_tensor_core_kernel(cuda):
+    """A bf16 call at TinyLlama's head layout (32/4, dh=64) launches the
+    wgmma kernel once and the fp32 FMA kernel never, by symbol under the
+    profiler; an fp32 call the other way round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for dtype, runs, never in ((torch.bfloat16, "flash_attention_wgmma_kernel",
+                                "flash_attention_kernel"),
+                               (torch.float32, "flash_attention_kernel",
+                                "flash_attention_wgmma_kernel")):
+        q = torch.randn((1, 256, 32, 64), generator=g, device=cuda).to(dtype)
+        kv = torch.randn((1, 256, 4, 64), generator=g, device=cuda).to(dtype)
+        cuda_fa.flash_attention(q, kv, kv)
+        marker = torch.zeros(1, device=cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the profiler may leave a window's first kernel out: a fill
+            # takes that place
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+            cuda_fa.flash_attention(q, kv, kv)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and runs in e.key) == 1, names
+        assert not any(never + "<" in n for n in names), names
 
 
 @pytest.mark.cuda
@@ -305,6 +343,28 @@ def test_cuda_flash_attention_reads_strided_layouts(cuda):
     got = cuda_fa.flash_attention(q, k, v, softmax_scale=0.3)
     want = ref.flash_attention_ref(q, k, v, softmax_scale=0.3)
     torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bf16_layouts(cuda):
+    """bf16: views of a fused projection are read in place by TMA; a
+    (B, H, S, d) tensor seen as (B, S, H, d), a row of 20 bf16 (40 bytes)
+    and a base 2 bytes off alignment are copied first. All match the plain
+    version."""
+    bf16 = torch.bfloat16
+    qkv = torch.randn((2, 130, 4, 3 * 32), device=cuda).to(bf16)
+    flat = torch.randn((2 * 130 * 4 * 32 + 1,), device=cuda).to(bf16)
+    layouts = [
+        (qkv[..., :32], qkv[..., 32:64], qkv[..., 64:]),
+        tuple(torch.randn((2, 4, 130, 32), device=cuda).to(bf16).transpose(1, 2)
+              for _ in range(3)),
+        tuple(torch.randn((2, 130, 4, 20), device=cuda).to(bf16) for _ in range(3)),
+        (flat[1:].view(2, 130, 4, 32),) * 3,
+    ]
+    for q, k, v in layouts:
+        got = cuda_fa.flash_attention(q, k, v, softmax_scale=0.3)
+        want = ref.flash_attention_ref(q, k, v, softmax_scale=0.3)
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[bf16])
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ tests/test_torch_cuda.py.
 Inputs are made with numpy from a seed; JAX stays on the CPU and data
 crosses between the two as numpy.
 """
+import math
 import os
 import subprocess
 import sys
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro.kernels import distance_matrix as pallas_dm
+from repro.kernels import flash_attention as pallas_fa  # the function
 from repro.kernels import gather_distance as pallas_gd
 from repro.kernels import gather_distance_masked as pallas_gdm
 from repro.kernels import pq_adc as pallas_pq_adc
@@ -26,6 +28,7 @@ from repro.kernels.gather_sq8 import gather_sq8_masked as pallas_gsm
 from repro_torch.core import convert
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import distance_matrix as cuda_dm
+from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import gather_adc as cuda_ga
 from repro_torch.kernels import gather_distance as cuda_gd
 from repro_torch.kernels import gather_sq8 as cuda_gs
@@ -41,6 +44,10 @@ GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
 MATRIX_TOL = dict(rtol=1e-5, atol=1e-4)
 # ADC scores are sums of M LUT entries: only the summation order may differ
 ADC_TOL = dict(rtol=1e-6, atol=1e-6)
+# bf16 attention outputs: one bf16 ulp (<= 2^-7 relative) of a cast from
+# fp32 values that agree to ~1e-6 (chip_smoke.py's and the card tests' bf16
+# FLASH_TOL)
+FLASH_BF16_TOL = dict(rtol=1e-2, atol=1e-5)
 
 
 def _world(Q, R, n, d, seed=0):
@@ -410,6 +417,98 @@ def test_bitmap_conversion_round_trips_bit_for_bit():
     t = convert.bitmap_from_uint32(words, "cpu")
     assert t.dtype == torch.int32 and int(t[0, 2]) == -2**31
     np.testing.assert_array_equal(convert.bitmap_to_uint32(t), words)
+
+
+def _wgmma_flash_arithmetic(q, k, v, causal, window, split_p=True, block=128):
+    """The bf16 tensor-core flash kernel's arithmetic (csrc/flash_attention.cu,
+    flash_attention_wgmma_kernel) in plain torch on the CPU: bf16 q . k
+    summed in fp32, times scale * log2(e) after the product, -1e30 on masked
+    scores, the online softmax over 128-key tiles on exp2 with (m, l, acc) in
+    fp32, and P . V as two bf16 products, P's hi = bf16(p) and lo = bf16(p -
+    hi), summed in fp32 (``split_p=False``: hi alone). Key tiles the kernel
+    skips are visited here: for a row that cannot see them they change
+    nothing (corr = 1, p = 0). A test helper, not a module of the port."""
+    B, S, Hq, dh = q.shape
+    G = Hq // k.shape[2]
+    c = dh ** -0.5 * math.log2(math.e)
+    neg = -1e30
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(G, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(G, 2).transpose(1, 2)
+    m = torch.full((B, Hq, S), neg)
+    l = torch.zeros((B, Hq, S))
+    acc = torch.zeros((B, Hq, S, v.shape[-1]))
+    q_pos = torch.arange(S)[:, None]
+    for k0 in range(0, S, block):
+        k_pos = torch.arange(k0, min(k0 + block, S))[None, :]
+        t = (qf @ kf[:, :, k0:k0 + block].transpose(-1, -2)) * c
+        visible = torch.ones((S, k_pos.shape[1]), dtype=torch.bool)
+        if causal:
+            visible &= k_pos <= q_pos
+        if window is not None:
+            visible &= q_pos - k_pos < window
+        t = t.masked_fill(~visible, neg)
+        m_new = torch.maximum(m, t.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.where((m_new == neg)[..., None], 0.0, torch.exp2(t - m_new[..., None]))
+        l = l * corr + p.sum(-1)
+        hi = p.bfloat16().float()
+        tile_v = vf[:, :, k0:k0 + block]
+        pv = hi @ tile_v
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ tile_v
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, 70)])
+@pytest.mark.parametrize("dh", [64, 80])
+def test_wgmma_flash_arithmetic_matches_reference(causal, window, dh):
+    """The bf16 kernel's split-P arithmetic against the port's plain version,
+    the JAX oracle and the JAX Pallas kernel (interpret mode), at FLASH_TOL;
+    P rounded to bf16 alone leaves outputs outside it."""
+    rng = np.random.default_rng(dh + (window or 0))
+    B, S, Hq, Hkv = 2, 256, 4, 2
+    q = rng.standard_normal((B, S, Hq, dh), dtype=np.float32)
+    k = rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)
+    v = rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)
+    tq, tk, tv = (_t(a).bfloat16() for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    got = _wgmma_flash_arithmetic(tq, tk, tv, causal, window).float().numpy()
+    wants = {
+        "ref.flash_attention_ref": ref.flash_attention_ref(tq, tk, tv, causal, window),
+        "jax ref.flash_attention_ref": jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                                window=window),
+        "pallas (interpret)": pallas_fa(jq, jk, jv, causal=causal,
+                                        window=window, interpret=True),
+    }
+    for name, want in wants.items():
+        want = want.float().numpy() if isinstance(want, torch.Tensor) else \
+            np.asarray(jnp.asarray(want, jnp.float32))
+        np.testing.assert_allclose(got, want, **FLASH_BF16_TOL, err_msg=name)
+    hi_only = _wgmma_flash_arithmetic(tq, tk, tv, causal, window, split_p=False)
+    want = wants["ref.flash_attention_ref"].float()
+    outside = (hi_only.float() - want).abs() > (FLASH_BF16_TOL["atol"]
+                                                + FLASH_BF16_TOL["rtol"] * want.abs())
+    assert int(outside.sum()) > 0
+
+
+def test_tma_operands_are_read_in_place_or_copied():
+    """The bf16 wrapper's TMA rule on the CPU: (B, S, H, d) layouts and a
+    fused projection's views are read in place; a transposed layout, a row
+    of 5 bf16 (10 bytes) and a misaligned base are copied into rows padded
+    to 8 elements, with the same values."""
+    fused = torch.randn((2, 130, 4, 96)).bfloat16()
+    assert cuda_fa._tma_strides(fused[..., 32:64]) == (49920, 384, 96)
+    assert cuda_fa._tma_strides(torch.randn((1, 1, 1, 64)).bfloat16()) == (64, 64, 64)
+    for t in (torch.randn((2, 4, 130, 64)).bfloat16().transpose(1, 2),
+              torch.randn((2, 70, 2, 5)).bfloat16(),
+              torch.randn((2 * 70 * 2 * 32 + 1,)).bfloat16()[1:].view(2, 70, 2, 32)):
+        assert cuda_fa._tma_strides(t) is None
+        copy, strides = cuda_fa._tma_operand(t)
+        assert torch.equal(copy, t) and strides == copy.stride()[:3]
+        assert strides[2] % 8 == 0 and copy.data_ptr() % 16 == 0
 
 
 def test_no_jax_or_repro_in_the_port():
