@@ -12,7 +12,14 @@ Phases (each prints its seconds):
 2. Each kernel against its plain PyTorch version on the card: l2/ip/cos,
    ragged shapes, ids < 0, all-invalid rows, visited words with bit 31 set
    and a partial last word, batched and unbatched matrices, M = 8 and 16,
-   aligned and offset code tables, and the main path's shapes. Gathers
+   aligned and offset code tables, and the main path's shapes. The
+   NN-Descent pass kernel (gather_distance_pool) also at ragged shapes (n
+   past one window, n = 1, C = 1, d = 5 / 8 / 17 / 128, ids past n,
+   all-INVALID rows), at shapes its plan sends to the direct kernel (d =
+   960 at n = 30001 and 1M, n = 5M at d = 8) and, bit for bit against the
+   generic gather kernel (1024 rows a launch), wherever d is a multiple
+   of 32 and at n=1M, C=240, d=64 on a uniform pool and on a real pool
+   drawn by ``nndescent._candidate_pool``. Gathers
    (float and sq8): rtol 1e-5, atol 1e-5, masked ids identical. ADC
    (gather_adc_masked, pq_adc): bit-identical, as kernel and plain version
    sum the M entries in the same order. Matrix: rtol 1e-4, atol 1e-4 (x d
@@ -49,8 +56,12 @@ Phases (each prints its seconds):
    versions' times and one library call where there is one. Times are
    device time from torch.profiler (CUPTI), so a tiny kernel is not billed
    the host's launch gaps; back-to-back wall per call (CUDA events) is
-   printed beside it. Last, the device-busy share of one served batch
-   under the exact and the pq scorer. flash_attention (bf16): one call runs
+   printed beside it. The NN-Descent scoring pass on both pools beside the
+   generic gather kernel in the same run, each of its four kernels per
+   recorded launch and summed, the bytes its design moves, and the generic
+   gather at the rerank shape. Last, the device-busy
+   share of one served batch under the exact and the pq scorer, and one
+   full-world NN-Descent round under the profiler. flash_attention (bf16): one call runs
    ``flash_attention_wgmma_kernel`` once (by symbol, under the profiler),
    its SASS holds HGMMA (``cuobjdump``), and one layer at the reference's
    prefill_32k shape (B=32, S=32768) is timed beside SDPA.
@@ -106,6 +117,14 @@ SMOKE_FLOORS = {"exact": (REF_SMOKE_RECALL10, RECALL_SLACK),
 SCORERS = ("exact", "sq8", "pq")
 PQ_SEARCH_RERANK = 64
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def gather_tol(d: int) -> dict:
+    """GATHER_TOL up to d = 128; past it the absolute tolerance grows as
+    d / 64, as the sums that kernel and plain version order differently do
+    (the generic gather kernel is 6.1e-5 from the plain version for ip at
+    d = 960)."""
+    return GATHER_TOL if d <= 128 else dict(rtol=1e-5, atol=1e-5 * d / 64)
 MATRIX_RTOL, MATRIX_ATOL = 1e-4, 1e-4
 NEAR_TIE_ROWS_MAX = 0.01
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
@@ -163,15 +182,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int, match: str | None = None,
-              launches: int | None = None) -> float:
-    """Mean device milliseconds per ``fn`` call: the summed duration of the
-    kernels (and copies) it ran on the card, read from torch.profiler
-    (CUPTI). ``match`` keeps only kernels whose name contains it. With
-    ``launches`` (matching kernels a call), the mean is taken per recorded
-    kernel: the profiler has been seen to leave one kernel of a window out
-    (9 of 10), which would bill the call for 10% less. Unlike event timing,
-    this excludes the host's launch gaps."""
+def device_events(fn, reps: int, match: str | None = None) -> list:
+    """The device ops (torch.profiler key averages, CUPTI) of ``reps`` calls
+    of ``fn`` after a warm-up call; ``match`` keeps only those whose name
+    contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -180,40 +194,78 @@ def device_ms(fn, reps: int, match: str | None = None,
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kept = [e for e in prof.key_averages()
+    return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and (match is None or match in e.key)]
+
+
+def mean_ms(kept: list, reps: int, label: str, launches: int | None = None) -> float:
+    """Mean device milliseconds a call of the ops ``kept`` from ``reps``
+    calls. With ``launches`` (ops a call), the mean is taken per recorded
+    op: the profiler has been seen to leave one kernel of a window out (9
+    of 10), which would bill the call for 10% less."""
     total_us = sum(e.self_device_time_total for e in kept)
-    check(total_us > 0, f"the profiler recorded no device time for {match or fn}")
-    if launches is not None:
-        n = sum(e.count for e in kept)
-        check(0 < n <= launches * reps, f"{n} launches of {match} in {reps} calls")
-        if n < launches * reps:
-            print(f"  (the profiler recorded {n} of {launches * reps} {match} launches; "
-                  f"the mean is per recorded launch)")
-        return total_us / 1e3 / n * launches
-    return total_us / 1e3 / reps
+    check(total_us > 0, f"the profiler recorded no device time for {label}")
+    if launches is None:
+        return total_us / 1e3 / reps
+    n = sum(e.count for e in kept)
+    check(0 < n <= launches * reps, f"{n} launches of {label} in {reps} calls")
+    if n < launches * reps:
+        print(f"  (the profiler recorded {n} of {launches * reps} {label} launches; "
+              f"the mean is per recorded launch)")
+    return total_us / 1e3 / n * launches
 
 
-def kernels_of_one_call(fn) -> list[str]:
+def device_ms(fn, reps: int, match: str | None = None,
+              launches: int | None = None) -> float:
+    """Mean device milliseconds per ``fn`` call: the summed duration of the
+    kernels (and copies) it ran on the card, read from torch.profiler
+    (CUPTI), per recorded launch with ``launches`` (:func:`mean_ms`).
+    Unlike event timing, this excludes the host's launch gaps."""
+    return mean_ms(device_events(fn, reps, match), reps, str(match or fn), launches)
+
+
+def device_ms_by_kernel(fn, reps: int, match: str,
+                        launches: dict[str, int]) -> dict[str, float]:
+    """:func:`device_ms` for each kernel of a call that launches several:
+    ``launches`` maps the part of a kernel's name after ``match`` to its
+    launches a call. Each mean is per recorded launch of that kernel, so a
+    launch the profiler drops is billed at its own kernel's mean; a kernel
+    of ``match`` outside ``launches`` fails the check."""
+    events = device_events(fn, reps, match)
+    parts = {part: [e for e in events if match + part in e.key] for part in launches}
+    check(sum(len(v) for v in parts.values()) == len(events),
+          f"{match} kernels outside {sorted(launches)}: {[e.key for e in events]}")
+    return {part: mean_ms(kept, reps, match + part, launches[part])
+            for part, kept in parts.items()}
+
+
+def kernels_of_one_call(fn, tries: int = 3) -> list[str]:
     """Names of the kernels one ``fn`` call runs on the card, one entry per
     launch (torch.profiler, a window of one call after a warm-up call). The
     window opens with a fill kernel: the profiler has been seen to leave the
     first kernel of a window out, and the fill takes that place; fills are
-    not listed."""
+    not listed. A window in which the profiler recorded none of the call's
+    kernels is lost and taken again, up to ``tries`` windows; the caller
+    checks the call's launch count apart from the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     marker = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        marker.fill_(1.0)
+    for _ in range(tries):
         torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "FillFunctor" not in e.key
-            for _ in range(e.count)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        called = [e.key for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "FillFunctor" not in e.key for _ in range(e.count)]
+        if called:
+            return called
+        print("  (the profiler recorded none of the call's kernels; taking the window again)")
+    return []
 
 
 def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
@@ -309,6 +361,112 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
         print(f"  distance_matrix {label}: l2/ip/cos agree (rtol {MATRIX_RTOL}, "
               f"atol {MATRIX_ATOL} x d for l2)")
 
+
+
+def gather_kernel_pass(base, pool, metric="l2", chunk=1024):
+    """The NN-Descent scoring pass on the generic gather kernel, as it ran
+    before the pool kernel: once per ``chunk`` rows, the rows' own base rows as queries."""
+    from repro_torch.kernels import gather_distance as kgd
+
+    return torch.cat([kgd.gather_distance(base[lo:lo + chunk],
+                                          pool[lo:lo + chunk].contiguous(), base, metric)
+                      for lo in range(0, base.shape[0], chunk)])
+
+
+def uniform_pool(n: int, C: int, seed: int) -> torch.Tensor:
+    """The stand-in candidate pool: uniform random ids, about 4% INVALID."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pool = torch.randint(-1, n, (n, C), generator=gen, device="cuda", dtype=torch.int32)
+    pool[:, ::24] = -1
+    return pool
+
+
+def nndescent_state(base: torch.Tensor, rounds: int):
+    """A full-world NN-Descent state after ``rounds`` rounds of the build's
+    own loop (default config, seed 0): (ids, dists, isnew, generator, cfg)."""
+    from repro_torch.core import nndescent as nd
+    from repro_torch.core.topk import dedup_by_id
+
+    cfg = nd.NNDescentConfig()
+    gen = torch.Generator(device=base.device).manual_seed(0)
+    ids = nd._random_init(gen, base.shape[0], cfg.k)
+    dists, ids = dedup_by_id(nd._score_chunked(base, ids, "l2", cfg.chunk), ids)
+    isnew = torch.ones_like(ids, dtype=torch.bool)
+    for _ in range(rounds):
+        ids, dists, isnew, _ = nd._round(base, ids, dists, isnew, gen, cfg, "l2")
+    return ids, dists, isnew, gen, cfg
+
+
+def real_pool(base: torch.Tensor) -> torch.Tensor:
+    """A candidate pool as a round draws it (``nndescent._candidate_pool``
+    through ``_round_pool``) from the full-world k-NN graph after 2 rounds."""
+    from repro_torch.core import nndescent as nd
+
+    ids, _, isnew, gen, cfg = nndescent_state(base, 2)
+    return nd._round_pool(ids, isnew, gen, cfg)
+
+
+def check_pool_kernel(full_base: torch.Tensor, errs: dict) -> None:
+    """gather_distance_pool against its plain version (``gather_tol``) at ragged
+    shapes, staged and direct (d = 960 at n = 30001 and 1M, GIST1M's width;
+    n = 5M, past 8192 buckets), and bit for bit against the generic gather
+    kernel (one launch per 1024 rows) wherever d is a multiple of 32: there
+    and at the NN-Descent pass shape on a uniform and on a real pool, for
+    l2 / ip / cos."""
+    from repro_torch.kernels import gather_distance_pool as kgp
+    from repro_torch.kernels import ref
+
+    dev = full_base.device
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    rng = np.random.default_rng(3)
+    cases = [(3000, 240, 8, "staged"), (3000, 20, 17, "staged"), (30001, 240, 64, "staged"),
+             (1, 1, 64, "staged"), (7, 3, 5, "staged"), (5000, 240, 128, "staged"),
+             (30001, 4, 960, "direct"), (1_000_000, 20, 960, "direct"),
+             (5_000_000, 20, 8, "direct")]
+    for n, C, d, route in cases:
+        check((kgp.pool_plan(n, d, C, l2) is None) == (route == "direct"),
+              f"gather_distance_pool n={n} C={C} d={d} is not {route}")
+        base = torch.randn((n, d), device=dev)
+        pool = torch.from_numpy(rng.integers(-1, n + 2, size=(n, C)).astype(np.int32)).to(dev)
+        if n > 3:
+            pool[3] = -1                                 # an all-INVALID row
+        for metric in METRICS:
+            got = kgp.gather_distance_pool(base, pool, metric)
+            want = ref.gather_distance_pool_ref(base, pool, metric)
+            torch.testing.assert_close(got, want, **gather_tol(d))
+            if d % 32 == 0:
+                check(torch.equal(got, gather_kernel_pass(base, pool, metric)),
+                      f"gather_distance_pool differs from the generic gather kernel: "
+                      f"n={n} C={C} d={d}")
+            if d <= 128:   # the kernels line reports GATHER_TOL's widths
+                errs["gather_distance_pool"] = max(errs["gather_distance_pool"],
+                                                   max_abs_err(got, want))
+        timing = ""
+        if n * C >= 1 << 24:   # a pass past L2: l2 beside the generic kernel, CUDA events
+            k_ms = cuda_ms(lambda: kgp.gather_distance_pool(base, pool), reps=2, warmup=1)
+            g_ms = cuda_ms(lambda: gather_kernel_pass(base, pool), reps=2, warmup=1)
+            timing = f"; a pass {k_ms:.3f} ms, the generic gather kernel {g_ms:.3f} ms"
+        del base, pool
+        print(f"  gather_distance_pool n={n} C={C} d={d} ({route}): l2/ip/cos agree (rtol "
+              f"{gather_tol(d)['rtol']}, atol {gather_tol(d)['atol']:.3g})"
+              + ("; bit-identical to the generic gather kernel" if d % 32 == 0 else "")
+              + timing)
+    n = full_base.shape[0]
+    for label, pool in (("uniform", uniform_pool(n, 240, 4)), ("real", real_pool(full_base))):
+        for metric in METRICS:
+            got = kgp.gather_distance_pool(full_base, pool, metric)
+            check(torch.equal(got, gather_kernel_pass(full_base, pool, metric)),
+                  f"gather_distance_pool differs from the generic gather kernel: "
+                  f"{label} pool {metric}")
+            if label == "uniform":
+                want = ref.gather_distance_pool_ref(full_base, pool, metric)
+                torch.testing.assert_close(got, want, **GATHER_TOL)
+                errs["gather_distance_pool"] = max(errs["gather_distance_pool"],
+                                                   max_abs_err(got, want))
+        print(f"  gather_distance_pool NN-Descent pass n={n} C={pool.shape[1]} d="
+              f"{full_base.shape[1]}, {label} pool ({float(pool.ge(0).float().mean()):.3f} "
+              f"valid): l2/ip/cos bit-identical to the generic gather kernel")
+        del pool
 
 def check_compressed_kernels(full_base: torch.Tensor, errs: dict) -> None:
     """gather_sq8_masked, gather_adc_masked and pq_adc against their plain
@@ -576,7 +734,7 @@ def lockstep_rung(searcher, spec, stream, seeds, served) -> None:
 
 
 def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
-    from repro_torch.core.nndescent import NNDescentConfig, _score_chunked
+    from repro_torch.core.nndescent import NNDescentConfig
     from repro_torch.kernels import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -618,38 +776,99 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
           f"the device ({call_ms:.4f} ms a call back to back, host-bound), plain "
           f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {hop_bytes / 1e6:.3f} MB)")
 
-    # gather_distance over one NN-Descent scoring pass: n x C=240 ids in
-    # 1024-row launches, as the local join issues them (uniform random ids,
-    # ~4% INVALID, stand in for the candidate pool)
-    C = 240
-    pool = torch.randint(-1, n, (n, C), generator=gen, device=dev, dtype=torch.int32)
-    pool[:, ::24] = -1
-    chunk = NNDescentConfig().chunk
-    n_launch = -(-n // chunk)
-    k_ms = device_ms(lambda: _score_chunked(base, pool, "l2", chunk), reps=3,
-                     match="gather_distance_kernel")
-    call_ms = cuda_ms(lambda: _score_chunked(base, pool, "l2", chunk), reps=3, warmup=1)
+    # gather_distance_pool over one NN-Descent scoring pass (n x C=240), on
+    # the uniform stand-in pool and on a real pool, beside the generic
+    # gather kernel (1024 rows a launch) on the same pools
+    from repro_torch.kernels import gather_distance_pool as kgp
 
-    def plain_pass():
-        for lo in range(0, n, chunk):
-            ref.gather_distance_ref(base[lo:lo + chunk], pool[lo:lo + chunk], base)
-    p_ms = device_ms(plain_pass, reps=1)
-    n_valid = float(pool.ge(0).sum())
-    # the queries are base rows (base[lo:hi]), so the base is read once;
-    # then the ids in and the distances out
-    pass_bytes = n * d * 4 + 2 * n * C * 4
-    b_ms, b_by = bound(pass_bytes, n_valid * 3 * d)
+    C = 240
+    chunk = NNDescentConfig().chunk
+    plan = kgp.pool_plan(n, d, C, torch.cuda.get_device_properties(dev).L2_cache_size)
+    check(plan is not None, "the NN-Descent pass shape is not staged")
+    pools = {"uniform": uniform_pool(n, C, 5), "real": real_pool(base)}
+    before = kgp.LAUNCHES["gather_distance_pool"]
+    ops.gather_distance_pool(base, pools["uniform"])
+    pass_launches = kgp.LAUNCHES["gather_distance_pool"] - before
+    calls = len(plan.calls())
+    check(pass_launches == kgp.KERNELS_A_CALL * calls,
+          f"{pass_launches} launches a pass, not {kgp.KERNELS_A_CALL} x {calls}")
+    old_launches = -(-n // chunk)
+    print(f"  NN-Descent pass plan: {plan}; {pass_launches} launches a pass "
+          f"({calls} calls of hist, scan, scatter, score)")
+    pass_row = None
+    for label, pool in pools.items():
+        by_kernel = device_ms_by_kernel(
+            lambda: ops.gather_distance_pool(base, pool), reps=3,
+            match="gather_distance_pool_",
+            launches={k: calls for k in ("hist", "scan", "scatter", "score")})
+        k_ms = sum(by_kernel.values())
+        print(f"  gather_distance_pool pass by kernel, {label} pool (ms a pass, each per "
+              f"recorded launch of {calls}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()))
+        call_ms = cuda_ms(lambda: ops.gather_distance_pool(base, pool), reps=3, warmup=1)
+        o_ms = device_ms(lambda: gather_kernel_pass(base, pool), reps=3,
+                         match="gather_distance_kernel", launches=old_launches)
+        o_call = cuda_ms(lambda: gather_kernel_pass(base, pool), reps=3, warmup=1)
+        n_valid = float(pool.ge(0).sum())
+        # the queries are base rows, so the base is read once; then the ids in
+        # and the distances out
+        pass_bytes = n * d * 4 + 2 * n * C * 4
+        b_ms, b_by = bound(pass_bytes, n_valid * 3 * d)
+        # what the design moves through HBM: each window stages the buckets
+        # it touches, the pool is read twice, the entries written and read
+        # once, the distances written once, the query rows read once
+        staged = 0.0
+        for w in range(plan.n_windows):
+            ids = pool[w * plan.window:(w + 1) * plan.window]
+            ids = ids[ids >= 0].clamp(max=n - 1) >> plan.log_rows
+            staged += float(torch.unique(ids).numel()) * (1 << plan.log_rows) * d * 4
+        design = staged + 2 * n * C * 4 + 2 * n_valid * 4 + n * C * 4 + n * d * 4
+        print(f"  gather_distance_pool NN-Descent pass, {label} pool n={n} C={C} d={d} "
+              f"({n_valid / (n * C):.3f} valid): kernel {k_ms:.3f} ms on the device over "
+              f"{pass_launches} launches ({call_ms:.3f} ms CUDA-event wall); the generic "
+              f"gather kernel {o_ms:.3f} ms over {old_launches} launches ({o_call:.3f} ms wall), "
+              f"{o_ms / k_ms:.2f}x; bound {b_ms:.3f} ms ({b_by}); the design moves "
+              f"{design / 1e9:.2f} GB through HBM ({staged / 1e9:.2f} GB of staged buckets), "
+              f"{design / k_ms / 1e6:.0f} GB/s; rows read a pair {n_valid * 4 * d / 1e9:.1f} GB")
+        if label == "uniform":
+            def plain_pass():
+                ref.gather_distance_pool_ref(base, pool, "l2", chunk)
+            p_ms = device_ms(plain_pass, reps=1)
+            pass_row = dict(name="gather_distance_pool", route="cuda",
+                            source="src/repro_torch/kernels/csrc/gather_distance_pool.cu",
+                            replaces="src/repro/kernels/gather_distance.py:176",
+                            launches=launches["gather_distance_pool"],
+                            max_abs_err=errs["gather_distance_pool"], ms=k_ms,
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            print(f"  gather_distance_pool plain version, uniform pool: {p_ms:.3f} ms")
+    rows.append(pass_row)
+    del pools
+
+    # gather_distance at the rerank shape (beam_search._finalize, pq_search):
+    # 64 queries x their ef=64 candidates, a fresh id set per launch
+    Q, R = 64, 64
+    sets = [torch.randint(0, n, (Q, R), generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(64)]
+
+    def rerank():
+        return ops.gather_distance(q, sets[next(it) % 64], base)
+
+    def rerank_plain():
+        return ref.gather_distance_ref(q, sets[next(it) % 64], base)
+    k_ms = device_ms(rerank, reps=640, match="gather_distance_kernel")
+    call_ms = cuda_ms(rerank, reps=640)
+    p_ms = device_ms(rerank_plain, reps=64)
+    rr_bytes = Q * d * 4 + Q * R * 4 + Q * R * 4 * d + Q * R * 4
+    b_ms, b_by = bound(rr_bytes, Q * R * 3 * d)
     rows.append(dict(name="gather_distance", route="cuda",
                      source="src/repro_torch/kernels/csrc/gather_distance.cu",
                      replaces="src/repro/kernels/gather_distance.py:176",
                      launches=launches["gather_distance"],
                      max_abs_err=errs["gather_distance"], ms=k_ms, plain_ms=p_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"  gather_distance NN-Descent pass n={n} C={C} ({n_launch} launches): "
-          f"kernel {k_ms:.3f} ms on the device ({call_ms:.3f} ms wall), plain "
-          f"{p_ms:.3f} ms, bound {b_ms:.3f} ms "
-          f"({b_by}, {pass_bytes / 1e9:.2f} GB once; rows actually gathered "
-          f"{n_valid * 4 * d / 1e9:.1f} GB)")
+    print(f"  gather_distance rerank Q={Q} R={R} d={d}: kernel {k_ms:.4f} ms on the device "
+          f"({call_ms:.4f} ms a call back to back), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}, {rr_bytes / 1e6:.3f} MB)")
 
     # distance_matrix over the ground-truth scan: 512 queries x 1M in
     # 16384-row chunks, as exact_search issues them
@@ -844,6 +1063,10 @@ def time_flash_attention(errs: dict) -> dict:
     q = torch.randn((B, S, Hq, dh), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    before = ops.launch_counts()["flash_attention"]
+    ops.flash_attention(q, k, v)
+    check(ops.launch_counts()["flash_attention"] == before + 1,
+          "a bf16 flash_attention call did not launch its kernel exactly once")
     ran = kernels_of_one_call(lambda: ops.flash_attention(q, k, v))
     print(f"  one bf16 flash_attention call runs: {ran}")
     check(sum(symbol in name for name in ran) == 1 and len(ran) == 1,
@@ -898,9 +1121,10 @@ def time_flash_attention(errs: dict) -> dict:
 # -- phase 6 -----------------------------------------------------------------
 
 
-def device_profile(fn, label: str, calls: int = 1, top: int = 6) -> None:
+def device_profile(fn, label: str, calls: int = 1, top: int = 6) -> tuple[list, float]:
     """Wall and device time of ``calls`` runs of ``fn`` under torch.profiler
-    (CUPTI): the busy share and the device ops that take most of it."""
+    (CUPTI): the busy share and the device ops that take most of it.
+    Returns the device ops and their total microseconds."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -922,6 +1146,25 @@ def device_profile(fn, label: str, calls: int = 1, top: int = 6) -> None:
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.key[:70]:70s} {e.self_device_time_total / calls / 1e3:9.3f} ms "
               f"({e.self_device_time_total / dev_us:.1%}) x{e.count / calls:.0f}")
+    return on_card, dev_us
+
+
+def round_profile(base: torch.Tensor) -> None:
+    """One full-world NN-Descent round (the third, from the state after two)
+    under the profiler: device-busy share, the scoring pass's share and the
+    device ops that lead."""
+    from repro_torch.core import nndescent as nd
+
+    ids, dists, isnew, gen, cfg = nndescent_state(base, 2)
+    on_card, dev_us = device_profile(
+        lambda: nd._round(base, ids, dists, isnew, gen, cfg, "l2"),
+        "one full-world NN-Descent round (n=1M, k=20, C=240)", top=10)
+    mine = [e for e in on_card if "gather_distance_pool_" in e.key]
+    us = sum(e.self_device_time_total for e in mine)
+    print(f"  the scoring pass (gather_distance_pool_*): {us / 1e3:.3f} ms "
+          f"({us / dev_us:.1%} of the round's device time), "
+          f"{sum(e.count for e in mine)} launches")
+    del ids, dists, isnew
 
 
 @contextlib.contextmanager
@@ -1110,6 +1353,7 @@ def main(argv=None) -> int:
     full_base = torch.from_numpy(serve.numpy_world(n_full, d_full, 0)).to(dev)
     errs = {name: 0.0 for name in ops.launch_counts()}
     check_kernels(full_base, errs)
+    check_pool_kernel(full_base, errs)
     check_compressed_kernels(full_base, errs)
     check_flash_attention(errs)
     print(f"  max abs error against the plain versions: {errs}")
@@ -1209,7 +1453,8 @@ def main(argv=None) -> int:
           f"recall@10 {pq_r10:.4f}, comps/query {float(pq_comps.float().mean()):.1f}")
     check(0.0 < pq_r10 <= 1.0, "pq_search recall@10 out of range")
 
-    for path, kernels in (("pq", ("gather_distance", "distance_matrix", "gather_adc_masked")),
+    for path, kernels in (("pq", ("gather_distance_pool", "gather_distance", "distance_matrix",
+                                  "gather_adc_masked")),
                           ("exact", ("gather_distance_masked",)),
                           ("sq8", ("gather_sq8_masked", "gather_distance")),
                           ("pq_search", ("pq_adc", "gather_distance"))):
@@ -1233,6 +1478,7 @@ def main(argv=None) -> int:
     rows += time_compressed_kernels(run, errs, kernel_launches)
     busy_share(run, specs["exact"])
     busy_share(run, specs["pq"])
+    round_profile(run.searcher.base)
     del run
     flash_row = time_flash_attention(errs)
     done(t0, "phase 5")

@@ -7,8 +7,8 @@ as in the reference:
   2. expand to neighbor-of-neighbor candidates (S x S2 ids per vertex),
   3. add reverse-edge candidates via a random-slot scatter (collisions drop
      entries — NN-Descent is stochastic already),
-  4. score all candidates with the fused gather + distance kernel
-     (``ops.gather_distance``), ``cfg.chunk`` rows per launch,
+  4. score all candidates in one call (``ops.gather_distance_pool``; only
+     its plain version reads ``cfg.chunk``, rows a step),
   4b. push every scored edge (v -> c, d) back into c's incoming buffer,
   5. merge into the sorted K-list with fixed-shape dedup.
 
@@ -74,17 +74,11 @@ def _random_init(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
 
 def _score_chunked(base: torch.Tensor, pool: torch.Tensor, metric: str,
                    chunk: int) -> torch.Tensor:
-    """pool (n, C) ids -> (n, C) distances to each row's own vertex, one
-    kernel launch per ``chunk`` rows (the query rows are the base rows)."""
+    """pool (n, C) ids -> (n, C) distances to each row's own vertex: one
+    call a pass on the card; the plain version takes ``chunk`` rows a step."""
     from ..kernels import ops
 
-    n, C = pool.shape
-    out = torch.empty((n, C), dtype=torch.float32, device=pool.device)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        out[lo:hi] = ops.gather_distance(base[lo:hi], pool[lo:hi].contiguous(),
-                                         base, metric=metric)
-    return out
+    return ops.gather_distance_pool(base, pool.contiguous(), metric, chunk)
 
 
 def _candidate_pool(ids, isnew, rev, lo, hi, gen, cfg: NNDescentConfig):
@@ -114,8 +108,8 @@ def _candidate_pool(ids, isnew, rev, lo, hi, gen, cfg: NNDescentConfig):
     return torch.where(pool == own, torch.full_like(pool, INVALID), pool)
 
 
-def _round(base, ids, dists, isnew, gen: torch.Generator,
-           cfg: NNDescentConfig, metric: str):
+def _round_pool(ids, isnew, gen: torch.Generator, cfg: NNDescentConfig):
+    """Steps 1-3 of a round for every vertex: the (n, C) candidate pool."""
     n, k = ids.shape
     dev = ids.device
 
@@ -128,12 +122,17 @@ def _round(base, ids, dists, isnew, gen: torch.Generator,
     rev.scatter_reduce_(0, (ids.long() * cfg.reverse + slots)[valid], src[valid],
                         reduce="amax")
     rev = rev.view(n, cfg.reverse)
-
-    pool = torch.cat([
+    return torch.cat([
         _candidate_pool(ids, isnew, rev, lo, min(lo + ROW_BLOCK, n), gen, cfg)
         for lo in range(0, n, ROW_BLOCK)
-    ])                                                              # (n, C)
-    del rev
+    ])
+
+
+def _round(base, ids, dists, isnew, gen: torch.Generator,
+           cfg: NNDescentConfig, metric: str):
+    n, k = ids.shape
+    dev = ids.device
+    pool = _round_pool(ids, isnew, gen, cfg)                        # (n, C)
 
     # 4. score
     cand_d = _score_chunked(base, pool, metric, cfg.chunk)

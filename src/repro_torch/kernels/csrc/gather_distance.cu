@@ -12,8 +12,8 @@
 // (256 B at d = 64) and 3*d flops, far below the card's flop rate. At the
 // beam's hop shape (Q = 64, R = 20) the whole call moves ~0.35 MB, well
 // under the launch latency, so the beam loop is launch- and sync-bound.
-// In the NN-Descent local join the same kernel gathers ~61 GB of random
-// rows per pass at n = 1M, C = 240, against a 50 MB L2.
+// The NN-Descent local join scores its pool with gather_distance_pool.cu,
+// which gives the same bits.
 //
 // Design: one block per (query, tile of 32 ids); the query row sits in
 // shared memory. One warp scores one id at a time: lanes stride over d, so a

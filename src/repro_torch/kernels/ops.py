@@ -14,12 +14,13 @@ from . import distance_matrix as _dm
 from . import flash_attention as _fa
 from . import gather_adc as _ga
 from . import gather_distance as _gd
+from . import gather_distance_pool as _gp
 from . import gather_sq8 as _gs
 from . import pq_adc as _pa
 from . import ref
 
-_COUNTERS = (_gd.LAUNCHES, _dm.LAUNCHES, _gs.LAUNCHES, _ga.LAUNCHES, _pa.LAUNCHES,
-             _fa.LAUNCHES)
+_COUNTERS = (_gd.LAUNCHES, _gp.LAUNCHES, _dm.LAUNCHES, _gs.LAUNCHES, _ga.LAUNCHES,
+             _pa.LAUNCHES, _fa.LAUNCHES)
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -42,6 +43,15 @@ def gather_distance(queries, ids, base, metric: str = "l2"):
     if _on_cpu(queries):
         return ref.gather_distance_ref(queries, ids, base, metric)
     return _gd.gather_distance(queries, ids, base, metric)
+
+
+def gather_distance_pool(base, pool, metric: str = "l2", chunk: int = 1024):
+    """base (n, d), pool (n, C) ids -> (n, C): each row's distances to its
+    own candidates (the NN-Descent scoring pass); ids < 0 -> +inf. Only the
+    plain version reads ``chunk`` (rows a step, to bound its memory)."""
+    if _on_cpu(base):
+        return ref.gather_distance_pool_ref(base, pool, metric, chunk)
+    return _gp.gather_distance_pool(base, pool, metric)
 
 
 def gather_distance_masked(queries, ids, base, visited, metric: str = "l2"):

@@ -58,6 +58,20 @@ def gather_distance_ref(queries: torch.Tensor, ids: torch.Tensor,
     return _distances_from_rows(queries, ids, rows, metric)
 
 
+def gather_distance_pool_ref(base: torch.Tensor, pool: torch.Tensor,
+                             metric: str = "l2", chunk: int = 1024) -> torch.Tensor:
+    """base (n, d), pool (n, C) ids -> (n, C): the distance from base[v] to
+    base[pool[v, j]], i.e. :func:`gather_distance_ref` with the base's own
+    rows as queries. Runs ``chunk`` rows at a time only to bound the memory
+    of the gathered rows."""
+    n, C = pool.shape
+    out = torch.empty((n, C), dtype=torch.float32, device=pool.device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        out[lo:hi] = gather_distance_ref(base[lo:hi], pool[lo:hi], base, metric)
+    return out
+
+
 def visited_mask_ref(ids: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
     """ids (Q, R) against a bit-packed (Q, ceil(n/32)) int32 visited bitmap
     -> ids with padding (< 0) and visited entries set to -1.

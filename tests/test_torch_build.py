@@ -78,6 +78,31 @@ def test_nndescent_is_deterministic_given_the_seed(small_world):
     assert torch.equal(a.dists, b.dists)
 
 
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+def test_round_pool_scores_match_reference(small_world, metric):
+    """One round's candidate pool (steps 1-3) scored by the port's
+    _score_chunked (one ops.gather_distance_pool call) against the
+    reference's live _score_chunked on the same pool, within 1e-5; the pool
+    has the reference's width and no self ids."""
+    base = small_world[0]
+    cfg = nndescent.NNDescentConfig(**SMALL_CFG)
+    gen = torch.Generator().manual_seed(3)
+    bt = _t(base)
+    ids = nndescent._random_init(gen, base.shape[0], cfg.k)
+    isnew = torch.ones_like(ids, dtype=torch.bool)
+    pool = nndescent._round_pool(ids, isnew, gen, cfg)
+    n = base.shape[0]
+    assert pool.shape == (n, cfg.sample * cfg.sample_nn + cfg.reverse
+                          + max(2, cfg.reverse // 4) * cfg.sample_nn)
+    assert not (pool == torch.arange(n, dtype=torch.int32)[:, None]).any()
+    assert bool((pool < 0).any()) and bool((pool >= 0).any())
+    got = nndescent._score_chunked(bt, pool, metric, cfg.chunk)
+    assert torch.equal(got, ref.gather_distance_pool_ref(bt, pool, metric, cfg.chunk))
+    want = jnd._score_chunked(jnp.asarray(base), jnp.asarray(pool.numpy()), metric,
+                              cfg.chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
 def _near_tie_rows(base, ids, dists, rows, rtol=1e-5):
     """Rows whose candidate set holds a pair with |d(s, c) - d(v, c)| <
     rtol * d(v, c): the occlusion test there may go either way in float32."""

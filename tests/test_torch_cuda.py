@@ -10,18 +10,28 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import convert
+from repro_torch.core import convert, nndescent
 from repro_torch.kernels import distance_matrix as cuda_dm
 from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import gather_adc as cuda_ga
 from repro_torch.kernels import gather_distance as cuda_gd
+from repro_torch.kernels import gather_distance_pool as cuda_gp
 from repro_torch.kernels import gather_sq8 as cuda_gs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pq_adc as cuda_pa
+from torch_pool import chunked_pass, pool_world
 
 METRICS = ["l2", "ip", "cos"]
 # float32 sums in another order than the plain version's
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _gather_tol(d):
+    """GATHER_TOL up to d = 128; past it the absolute tolerance grows as
+    d / 64, as the sums that kernel and plain version order differently do
+    (the generic gather kernel is 6.1e-5 from the plain version for ip at
+    d = 960, on the H100)."""
+    return GATHER_TOL if d <= 128 else dict(rtol=1e-5, atol=1e-5 * d / 64)
 
 
 def _world(Q, R, n, d, seed=0):
@@ -66,6 +76,87 @@ def test_cuda_gather_kernels_match_plain(cuda, metric, Q, R, n, d):
     assert torch.equal(got_i, want_i)
     torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
 
+
+def _gather_kernel_pass(base, pool, metric, chunk=1024):
+    """The scoring pass as the generic gather kernel ran it: one launch per
+    ``chunk`` rows."""
+    return chunked_pass(cuda_gd.gather_distance, base, pool, metric, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", ["card", "many"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_pool_kernel_is_bit_identical_to_the_gather_kernel(cuda, monkeypatch,
+                                                                 windows, metric, d):
+    """Same bits as the generic gather kernel, for windows planned from the
+    card's L2 and for ~40-row windows one call each (many calls)."""
+    if windows == "many":
+        monkeypatch.setattr(cuda_gp, "L2_SHARE", 1e-3)
+        monkeypatch.setattr(cuda_gp, "GROUP_PAIRS", 1 << 14)
+    base, pool = pool_world(5000, 240, d)
+    bt, pt = _c(base, cuda), _c(pool, cuda, torch.int32)
+    got = cuda_gp.gather_distance_pool(bt, pt, metric)
+    assert torch.equal(got, _gather_kernel_pass(bt, pt, metric))
+    torch.testing.assert_close(got, ref.gather_distance_pool_ref(bt, pt, metric),
+                               **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("n,C,d", [(3000, 240, 8), (3000, 20, 17), (1, 1, 64),
+                                   (30001, 240, 64), (7, 3, 5), (30001, 4, 960)])
+def test_cuda_pool_kernel_matches_plain(cuda, metric, n, C, d):
+    """Other d within GATHER_TOL of the plain version; n = 1, C = 1; n past
+    one window of the card's L2 with a ragged tail; all-INVALID rows; a
+    shape the plan sends to the direct kernel (d = 960, C = 4; _gather_tol)."""
+    base, pool = pool_world(n, C, d, seed=1)
+    bt, pt = _c(base, cuda), _c(pool, cuda, torch.int32)
+    got = cuda_gp.gather_distance_pool(bt, pt, metric)
+    torch.testing.assert_close(got, ref.gather_distance_pool_ref(bt, pt, metric),
+                               **_gather_tol(d))
+    if d % 32 == 0:
+        assert torch.equal(got, _gather_kernel_pass(bt, pt, metric))
+    none = torch.full_like(pt, -1)
+    assert torch.isinf(cuda_gp.gather_distance_pool(bt, none, metric)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,C,d", [(1_000_000, 20, 960), (5_000_000, 20, 8)])
+def test_cuda_pool_kernel_takes_the_generic_gathers_shapes(cuda, n, C, d):
+    """GIST1M's width at n = 1M and a base past 8192 buckets of 512 rows go
+    to the direct kernel (one launch a pass): within _gather_tol(d) of the
+    plain version, bit-identical to the generic gather kernel where d is a
+    multiple of 32."""
+    g = torch.Generator(device=cuda).manual_seed(n + d)
+    bt = torch.randn((n, d), generator=g, device=cuda)
+    pt = torch.randint(-1, n, (n, C), generator=g, device=cuda, dtype=torch.int32)
+    assert cuda_gp.pool_plan(n, d, C, torch.cuda.get_device_properties(cuda).L2_cache_size) \
+        is None
+    for metric in METRICS:
+        before = cuda_gp.LAUNCHES["gather_distance_pool"]
+        got = cuda_gp.gather_distance_pool(bt, pt, metric)
+        assert cuda_gp.LAUNCHES["gather_distance_pool"] == before + 1
+        torch.testing.assert_close(got, ref.gather_distance_pool_ref(bt, pt, metric),
+                                   **_gather_tol(d))
+        if d % 32 == 0:
+            assert torch.equal(got, _gather_kernel_pass(bt, pt, metric))
+
+
+@pytest.mark.cuda
+def test_cuda_nndescent_graph_is_the_gather_kernels(cuda, monkeypatch):
+    """A smoke-world NN-Descent build scored by the pool kernel gives the
+    graph of the same build scored by the generic gather kernel."""
+    base = _c(np.random.default_rng(0).standard_normal((20000, 32), dtype=np.float32),
+              cuda)
+    cfg = nndescent.NNDescentConfig(rounds=4)
+    got, got_stats = nndescent.build_knn_graph_with_stats(base, cfg, seed=0)
+    monkeypatch.setattr(nndescent, "_score_chunked",
+                        lambda b, p, metric, chunk: _gather_kernel_pass(b, p, metric, chunk))
+    want, want_stats = nndescent.build_knn_graph_with_stats(base, cfg, seed=0)
+    assert got_stats == want_stats
+    assert torch.equal(got.neighbors, want.neighbors)
+    assert torch.equal(got.dists, want.dists)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("metric", METRICS)
@@ -163,7 +254,9 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     ops.pq_adc(pq_codes, luts)
     q = torch.randn((1, 16, 4, 8), device=cuda)
     ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
-    assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_masked": 1,
+    ops.gather_distance_pool(bt, it.repeat(25, 1))
+    assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_pool": 4,
+                                   "gather_distance_masked": 1,
                                    "distance_matrix": 1, "gather_sq8_masked": 1,
                                    "gather_adc_masked": 1, "pq_adc": 1,
                                    "flash_attention": 1}

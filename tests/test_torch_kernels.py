@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import nndescent as jnd
 from repro.kernels import distance_matrix as pallas_dm
 from repro.kernels import flash_attention as pallas_fa  # the function
 from repro.kernels import gather_distance as pallas_gd
@@ -31,9 +32,11 @@ from repro_torch.kernels import distance_matrix as cuda_dm
 from repro_torch.kernels import flash_attention as cuda_fa
 from repro_torch.kernels import gather_adc as cuda_ga
 from repro_torch.kernels import gather_distance as cuda_gd
+from repro_torch.kernels import gather_distance_pool as cuda_gp
 from repro_torch.kernels import gather_sq8 as cuda_gs
 from repro_torch.kernels import pq_adc as cuda_pa
 from repro_torch.kernels import ref
+from torch_pool import chunked_pass, pool_world
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 METRICS = ["l2", "ip", "cos"]
@@ -162,6 +165,172 @@ def test_plain_versions_match_pallas_interpret(metric):
                        interpret=True)
     np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), **MATRIX_TOL)
 
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("C", [20, 240])
+def test_gather_distance_pool_ref_matches_loop_and_reference(metric, C):
+    """The pool pass's plain version is the chunked gather_distance_ref loop
+    bit for bit, and agrees with the reference's live _score_chunked (its
+    plain kernels on the CPU) within 1e-5; n = 1037 is a multiple of no
+    window or chunk."""
+    n, d, chunk = 1037, 16, 256
+    base, pool = pool_world(n, C, d)
+    bt, pt = _t(base), _t(pool, torch.int32)
+    got = ref.gather_distance_pool_ref(bt, pt, metric, chunk)
+    assert torch.equal(got, chunked_pass(ref.gather_distance_ref, bt, pt, metric, chunk))
+    assert torch.isinf(got[3]).all() and torch.equal(torch.isinf(got), pt < 0)
+    assert torch.equal(got[5, : C // 2], got[5, C // 2: 2 * (C // 2)])
+    assert torch.equal(got[6, -1], ref.gather_distance_ref(bt[6:7], pt.new_full(
+        (1, 1), n - 1), bt, metric)[0, 0])
+    want = jnd._score_chunked(jnp.asarray(base), jnp.asarray(pool), metric, chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,C,l2", [(1037, 16, 240, 1 << 20), (5, 3, 1, 256),
+                                      (70001, 64, 240, 50 << 20),
+                                      (1000, 17, 20, 1 << 16), (33, 700, 7, 1 << 16),
+                                      (1 << 20, 64, 20, 50 << 20),
+                                      (30001, 960, 20, 50 << 20)])
+def test_pool_plan_covers_every_pair_once(n, d, C, l2):
+    """The host schedule of the pool kernel: the calls' windows tile the
+    rows, each window's hist / scatter chunks tile its pairs, every id maps
+    to one (bucket, row) that packs into a non-negative entry, and every
+    buffer index stays in int32."""
+    plan = cuda_gp.pool_plan(n, d, C, l2)
+    R = 1 << plan.log_rows
+    assert plan.window * C <= 1 << plan.pos_bits and plan.chunk <= plan.window * C
+    assert plan.window * C >= n
+    assert plan.pos_bits + plan.log_rows == 31
+    assert plan.n_buckets <= cuda_gp.MAX_BUCKETS and (n - 1) >> plan.log_rows < plan.n_buckets
+    assert R * d * 4 <= cuda_gp.MAX_STAGE_BYTES and R <= 512
+    assert plan.group * plan.window * C < 2**31
+    # shared memory: the scatter's sort, the score's staged rows + entry tile
+    assert 4 * (2 * plan.n_buckets + plan.chunk) + 128 <= 232448
+    assert R * d * 4 + 4 * 1024 <= 232448
+    seen = np.zeros(n * C, np.uint8)
+    windows = []
+    for w0, g in plan.calls():
+        assert 1 <= g <= plan.group
+        windows += range(w0, w0 + g)
+        chunks = -(-plan.window * C // plan.chunk)
+        for w in range(w0, w0 + g):
+            pairs = min(plan.window, n - w * plan.window) * C
+            for b in range(chunks):       # as the kernels bound their blocks
+                lo = b * plan.chunk
+                if lo < pairs:
+                    seen[w * plan.window * C + lo: w * plan.window * C
+                         + min(lo + plan.chunk, pairs)] += 1
+    assert windows == list(range(plan.n_windows))
+    assert (seen == 1).all()
+    ids = np.arange(n, dtype=np.int64)
+    bucket, row = ids >> plan.log_rows, ids & (R - 1)
+    assert np.array_equal(bucket * R + row, ids)
+    assert ((row << plan.pos_bits) | (plan.window * C - 1)).max() < 2**31
+
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 7, 20, 240, 241, 1000, 65535, 1 << 22])
+@pytest.mark.parametrize("bits", [22, 24, 31])
+def test_pool_division_magic_is_exact(C, bits):
+    """The score kernel finds a pair's row as (pair * m) >> s in 64 bits:
+    exact for every pair < 2**bits, at the edges and at random."""
+    m, s = cuda_gp.div_magic(C, bits)
+    rng = np.random.default_rng(C + bits)
+    xs = [0, 1, C - 1, C, C + 1, (1 << bits) - 1, (1 << bits) - 2]
+    xs += [k * C + r for k in (1, 5, ((1 << bits) - 1) // C) for r in (-1, 0, 1)]
+    xs += rng.integers(0, 1 << bits, 2000).tolist()
+    for x in xs:
+        if 0 <= x < 1 << bits:
+            assert (x * m) >> s == x // C and x * m < 2**64, (x, C)
+
+def test_pool_plan_raises_on_shapes_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_gp.pool_plan(10, cuda_gd.MAX_D + 1, 4, 50 << 20)
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_gp.pool_plan(2**31, 8, 4, 50 << 20)
+    with pytest.raises(ValueError, match="empty shape"):
+        cuda_gp.pool_plan(0, 8, 4, 50 << 20)
+
+
+@pytest.mark.parametrize("n,d,C,staged", [
+    (1_000_000, 64, 240, True), (1_000_000, 64, 20, True),   # the build's passes
+    (30001, 960, 20, True),
+    (30001, 960, 4, False),          # a window holds fewer pairs than n rows
+    (1_000_000, 960, 20, False),     # GIST1M: > 8192 buckets of rows that stage
+    (1_000_000, 960, 240, False),
+    (5_000_000, 8, 20, False),       # > 8192 buckets of 512 rows
+    (10_000_000, 32, 240, False),    # RAND10M4D-32D
+    (10, 8, (1 << 22) + 1, False),   # C past an entry's pair bits
+    (5, 3, 1, True), (1, 1, 1, True)])
+def test_pool_plan_goes_direct_where_staging_does_not_pay(n, d, C, staged):
+    """On a 50 MiB L2, the plan stages a shape only where its windows hold
+    at least n pairs, its buckets stage in shared memory and number at most
+    MAX_BUCKETS; every other shape the generic gather takes (d <= MAX_D)
+    gets None, one launch of the direct kernel, and no exception."""
+    plan = cuda_gp.pool_plan(n, d, C, 50 << 20)
+    assert (plan is not None) == staged
+    if plan is not None:
+        assert plan.window * C >= n and plan.n_buckets <= cuda_gp.MAX_BUCKETS
+        assert (4 * d) << plan.log_rows <= cuda_gp.MAX_STAGE_BYTES
+
+
+def test_group_tree_adds_the_plain_trees_pairs():
+    """The pool kernel holds a row's 32 lane partials in 8 lanes (lane u:
+    partials 4u..4u+3) and sums them with group_tree
+    (csrc/gather_distance_pool.cu); emulated in float32, every lane ends with
+    the bits of the plain xor tree (common.cuh warp_sum)."""
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    for _ in range(200):
+        part = (rng.standard_normal(32) * 10.0 ** rng.integers(-4, 5, 32)).astype(f32)
+        v = part.copy()
+        for o in (16, 8, 4, 2, 1):
+            v = (v + v[np.arange(32) ^ o]).astype(f32)
+        lanes = np.arange(8)
+        p = part.reshape(8, 4)                       # p[u, c] = partial 4u + c
+        hi4 = (lanes & 4) != 0
+        keep0, send0 = np.where(hi4, p[:, 2], p[:, 0]), np.where(hi4, p[:, 0], p[:, 2])
+        keep1, send1 = np.where(hi4, p[:, 3], p[:, 1]), np.where(hi4, p[:, 1], p[:, 3])
+        a0 = (keep0 + send0[lanes ^ 4]).astype(f32)
+        a1 = (keep1 + send1[lanes ^ 4]).astype(f32)
+        hi2 = (lanes & 2) != 0
+        b = (np.where(hi2, a1, a0) + np.where(hi2, a0, a1)[lanes ^ 2]).astype(f32)
+        for x in (1, 4, 2):
+            b = (b + b[lanes ^ x]).astype(f32)
+        assert all(b[u].tobytes() == v[0].tobytes() for u in range(8))
+
+
+@pytest.mark.parametrize("case", ["unknown metric", "float64 base", "int64 pool",
+                                  "3-D base", "rows differ", "non-contiguous pool",
+                                  "non-contiguous base", "cpu tensors"])
+def test_pool_wrapper_rejects_what_it_does_not_take(case):
+    """The CUDA wrapper raises on each of these before it builds or launches
+    anything."""
+    base, pool = pool_world(40, 6, 8)
+    bt, pt, metric = _t(base), _t(pool, torch.int32), "l2"
+    match = {"unknown metric": "unknown metric", "float64 base": "float32",
+             "int64 pool": "int32", "3-D base": "2-D", "rows differ": "2-D",
+             "non-contiguous pool": "pool must be contiguous",
+             "non-contiguous base": "base must be contiguous",
+             "cpu tensors": "CUDA tensor"}[case]
+    if case == "unknown metric":
+        metric = "hamming"
+    elif case == "float64 base":
+        bt = bt.double()
+    elif case == "int64 pool":
+        pt = pt.long()
+    elif case == "3-D base":
+        bt = bt[None]
+    elif case == "rows differ":
+        pt = pt[:-1]
+    elif case == "non-contiguous pool":
+        pt = _t(pool.T.copy(), torch.int32).t()
+    elif case == "non-contiguous base":
+        bt = _t(base.T.copy()).t()
+    with pytest.raises(ValueError, match=match):
+        cuda_gp.gather_distance_pool(bt, pt, metric)
+    assert cuda_gp._fn is None and cuda_gp.LAUNCHES["gather_distance_pool"] == 0
 
 def _codes_world(Q, R, n, d, M, K, seed=0):
     """ids with padding, an all-invalid row and ids on bit 31 and in the
@@ -322,8 +491,12 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
     q = torch.randn((2, 16, 4, 8))
     assert torch.equal(ops.flash_attention(q, q[:, :, :2], q[:, :, :2], window=4),
                        ref.flash_attention_ref(q, q[:, :, :2], q[:, :, :2], window=4))
+    pool = _t(ids, torch.int32)[:, :4].repeat(25, 1)
+    assert torch.equal(ops.gather_distance_pool(bt, pool, "cos", chunk=7),
+                       ref.gather_distance_pool_ref(bt, pool, "cos"))
     assert ops.launch_counts() == before  # no kernel ran
-    assert set(before) == {"gather_distance", "gather_distance_masked",
+    assert set(before) == {"gather_distance", "gather_distance_pool",
+                           "gather_distance_masked",
                            "distance_matrix", "gather_sq8_masked",
                            "gather_adc_masked", "pq_adc", "flash_attention"}
 
@@ -366,6 +539,8 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
                                        convert.bitmap_from_uint32(visited, "cpu"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_dm.distance_matrix(qt, bt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_gp.gather_distance_pool(bt, _t(np.zeros((40, 3), np.int32), torch.int32))
     w = _codes_world(2, 3, 40, 8, 4, 16)
     it, vt = _t(w["ids"], torch.int32), convert.bitmap_from_uint32(w["visited"], "cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -375,7 +550,8 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
         cuda_ga.gather_adc_masked(it, _u8(w["pq_codes"]), _t(w["luts"]), vt)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_pa.pq_adc(_u8(w["pq_codes"]), _t(w["luts"]))
-    assert all(m._fn is None for m in (cuda_gd, cuda_dm, cuda_gs, cuda_ga, cuda_pa))
+    assert all(m._fn is None for m in (cuda_gd, cuda_gp, cuda_dm, cuda_gs, cuda_ga,
+                                       cuda_pa))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -520,6 +696,7 @@ def test_no_jax_or_repro_in_the_port():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 25, mods\n"
         "assert {'repro_torch.baselines.pq', 'repro_torch.kernels.gather_sq8',\n"
+        "        'repro_torch.kernels.gather_distance_pool',\n"
         "        'repro_torch.kernels.gather_adc', 'repro_torch.kernels.pq_adc',\n"
         "        'repro_torch.kernels.flash_attention', 'repro_torch.models.transformer'\n"
         "        } <= set(mods)\n"
