@@ -19,7 +19,13 @@ Phases (each prints its seconds):
    960 at n = 30001 and 1M, n = 5M at d = 8) and, bit for bit against the
    generic gather kernel (1024 rows a launch), wherever d is a multiple
    of 32 and at n=1M, C=240, d=64 on a uniform pool and on a real pool
-   drawn by ``nndescent._candidate_pool``. Gathers
+   drawn by ``nndescent._candidate_pool``. The beam's hop kernel
+   (gather_distance_masked) also bit for bit against the generic masked
+   kernel wherever d is a multiple of 32, the n=1M hop included, with a
+   row of visited ids and ids past n - 1. distance_matrix on both routes:
+   ground-truth chunks (the last one ragged), the GD batch, ragged q / n /
+   d, d = 960, a batch on the 128 tile, zero rows, an operand at a 4-byte
+   offset. Gathers
    (float and sq8): rtol 1e-5, atol 1e-5, masked ids identical. ADC
    (gather_adc_masked, pq_adc): bit-identical, as kernel and plain version
    sum the M entries in the same order. Matrix: rtol 1e-4, atol 1e-4 (x d
@@ -42,7 +48,10 @@ Phases (each prints its seconds):
    Then every batch again per scorer, kernel path and plain path in
    lock-step from the same graph, entries and scorer state: ids, n_comps
    and n_steps must be identical except rows whose first divergence is a
-   float32 near-tie (at most 1% of rows).
+   float32 near-tie (at most 1% of rows). The exact rung once more with
+   the generic masked kernel scoring every hop: ids, dists, n_comps and
+   n_steps bit-identical. Ground truth through the plain distance matrix
+   on the card: ids that differ are near-ties within the matrix tolerance.
    flash_attention against its plain version (dense, chunked over batch
    so its (S, S) scores fit): fp32 and bf16; causal, causal + window,
    non-causal, non-causal + window; GQA ratios 1 to 8; dh 40, 64, 80 and
@@ -56,7 +65,12 @@ Phases (each prints its seconds):
    versions' times and one library call where there is one. Times are
    device time from torch.profiler (CUPTI), so a tiny kernel is not billed
    the host's launch gaps; back-to-back wall per call (CUDA events) is
-   printed beside it. The NN-Descent scoring pass on both pools beside the
+   printed beside it. Every row is timed per recorded launch of its
+   kernel's symbol (the profiler has been seen to drop a launch from a
+   window), and one call of the hop, of a ground-truth chunk and of a GD
+   block is checked to run its symbol once. The hop beside the generic
+   masked kernel, ground truth (62 launches) beside ``cdist**2``, the GD
+   block on the 32 x 32 tile. The NN-Descent scoring pass on both pools beside the
    generic gather kernel in the same run, each of its four kernels per
    recorded launch and summed, the bytes its design moves, and the generic
    gather at the rerank shape. Last, the device-busy
@@ -141,6 +155,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 METRICS = ("l2", "ip", "cos")
+# the kernels' symbols, as the profiler names them (phase 5 matches on them)
+HOP_KERNEL = "gather_distance_hop_kernel"
+GENERIC_GATHER_KERNEL = "gather_distance_kernel"
+MATRIX_KERNEL = "distance_matrix_large_kernel"
+SMALL_MATRIX_KERNEL = "distance_matrix_kernel"
 
 
 def phase(name: str):
@@ -167,6 +186,37 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def _kernel_name(mangled: str) -> str:
+    """The ``..._kernel`` identifier of a mangled symbol (length-prefixed,
+    the length perhaps run together with a hash before it) with its
+    integer template arguments, e.g. ``gather_sq8_kernelILi0ELb1EE``."""
+    for m in re.finditer(r"\d+", mangled):
+        for cut in range(len(m[0])):
+            end = m.end() + int(m[0][cut:])
+            name = mangled[m.end():end]
+            if name.endswith("_kernel") and name[:1].isalpha():
+                args = re.match(r"I(?:L[a-z]\d+E)+E", mangled[end:])
+                return name + (args[0] if args else "")
+    return mangled[:72]
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output: its
+    name, registers and spills."""
+    out, fn, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = _kernel_name(m[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{fn}: {line.split(':', 1)[-1].strip()}; {spill}")
+        elif "Performance Loss" in line:
+            out.append(line.strip())
+    return out
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` calls, CUDA events."""
     for _ in range(warmup):
@@ -182,21 +232,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_events(fn, reps: int, match: str | None = None) -> list:
+def device_events(fn, reps: int, match: str | None = None, tries: int = 3) -> list:
     """The device ops (torch.profiler key averages, CUPTI) of ``reps`` calls
     of ``fn`` after a warm-up call; ``match`` keeps only those whose name
-    contains it."""
+    contains it. The profiler has been seen to record none of a window's
+    kernels: such a window is taken again, up to ``tries`` windows, and the
+    caller fails if the last one is empty too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and (match is None or match in e.key)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kept = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (match is None or match in e.key)]
+        if sum(e.self_device_time_total for e in kept) > 0:
+            return kept
+        print(f"  (the profiler recorded no device time for {match or fn}; "
+              f"taking the window again)")
+    return kept
 
 
 def mean_ms(kept: list, reps: int, label: str, launches: int | None = None) -> float:
@@ -321,6 +379,10 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
         queries = (base[:Q].contiguous() if from_base
                    else torch.randn((Q, d), device=dev))
         ids, visited = _ids_and_bitmap(rng, Q, R, n, dev)
+        if Q > 3:   # the hop kernel's masking: every id visited, ids past n - 1
+            visited[2] = -1
+            ids[3, ::2] = n + torch.arange(ids[3, ::2].numel(), device=dev,
+                                           dtype=torch.int32) % 40
         for metric in METRICS:
             got = kgd.gather_distance(queries, ids, base, metric)
             want = ref.gather_distance_ref(queries, ids, base, metric)
@@ -329,28 +391,50 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
             wd_, wi_ = ref.gather_distance_masked_ref(queries, ids, base, visited, metric)
             check(torch.equal(gi_, wi_), f"masked ids differ: {label} {metric}")
             torch.testing.assert_close(gd_, wd_, **GATHER_TOL)
+            ed_, ei_ = kgd.gather_distance_masked_generic(queries, ids, base, visited, metric)
+            check(torch.equal(ei_, wi_), f"generic masked ids differ: {label} {metric}")
+            torch.testing.assert_close(ed_, wd_, **GATHER_TOL)
+            if d % 32 == 0:
+                check(torch.equal(gd_, ed_) and torch.equal(gi_, ei_),
+                      f"the hop kernel differs from the generic masked kernel: {label} {metric}")
             errs["gather_distance"] = max(errs["gather_distance"], max_abs_err(got, want))
             errs["gather_distance_masked"] = max(errs["gather_distance_masked"],
                                                  max_abs_err(gd_, wd_))
-        print(f"  gather_distance(_masked) {label}: l2/ip/cos agree "
-              f"(rtol {GATHER_TOL['rtol']}, atol {GATHER_TOL['atol']})")
+        print(f"  gather_distance, gather_distance_masked (hop and generic kernels) {label}: "
+              f"l2/ip/cos agree (rtol {GATHER_TOL['rtol']}, atol {GATHER_TOL['atol']})"
+              + ("; the hop kernel bit-identical to the generic masked kernel"
+                 if d % 32 == 0 else ""))
 
     gd_ids = torch.randint(0, n_full, (65536, 20), device=dev)
+
+    def rnd(*shape, zero_row=None):
+        t = torch.randn(shape, device=dev)
+        if zero_row is not None:
+            t[..., zero_row, :] = 0.0
+        return t
+    offset = torch.zeros(512 * d_full + 1, device=dev)
+    offset[1:] = torch.randn(512 * d_full, device=dev)
     matrix_cases = [  # (label, x, y)
-        ("ground truth 512 x 16384 x 64",
-         torch.randn((512, d_full), device=dev), full_base[:16384]),
+        ("ground truth 512 x 16384 x 64", rnd(512, d_full), full_base[:16384]),
+        ("ground truth's last chunk 512 x 576 x 64", rnd(512, d_full),
+         full_base[-(n_full % 16384):]),
         ("GD batch 65536 x 20 x 20 x 64", full_base[gd_ids], full_base[gd_ids]),
-        ("ragged 37 x 101 x 24", torch.randn((37, 24), device=dev),
-         torch.randn((101, 24), device=dev)),
-        ("ragged batch 5 x 7 x 3 x 130", torch.randn((5, 7, 130), device=dev),
-         torch.randn((5, 3, 130), device=dev)),
-        ("tile edges 3 x 33 x 65 x 16", torch.randn((3, 33, 16), device=dev),
-         torch.randn((3, 65, 16), device=dev)),
-        ("tiny 1 x 1 x 1", torch.randn((1, 1), device=dev),
-         torch.randn((1, 1), device=dev)),
+        ("ragged 37 x 101 x 24", rnd(37, 24), rnd(101, 24)),
+        ("ragged 129 x 257 x 130, zero rows", rnd(129, 130, zero_row=1),
+         rnd(257, 130, zero_row=-1)),
+        ("GIST1M width 300 x 1000 x 960, zero rows", rnd(300, 960, zero_row=0),
+         rnd(1000, 960, zero_row=7)),
+        ("batch on the 128 tile 3 x 200 x 150 x 64", rnd(3, 200, 64), rnd(3, 150, 64)),
+        ("x at a 4-byte offset 512 x 16384 x 64", offset[1:].view(512, d_full),
+         full_base[:16384]),
+        ("ragged batch 5 x 7 x 3 x 130", rnd(5, 7, 130), rnd(5, 3, 130)),
+        ("tile edges 3 x 33 x 65 x 16", rnd(3, 33, 16), rnd(3, 65, 16)),
+        ("tiny 1 x 1 x 1", rnd(1, 1), rnd(1, 1)),
     ]
     for label, x, y in matrix_cases:
         d = x.shape[-1]
+        tile = kdm.matrix_route(x.shape[0] if x.dim() == 3 else 1, x.shape[-2],
+                                y.shape[-2], d)[0]
         for metric in METRICS:
             got = kdm.distance_matrix(x, y, metric)
             want = ref.distance_matrix_ref(x, y, metric)
@@ -358,8 +442,8 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
                 got, want, rtol=MATRIX_RTOL,
                 atol=MATRIX_ATOL * (d if metric == "l2" else 1))
             errs["distance_matrix"] = max(errs["distance_matrix"], max_abs_err(got, want))
-        print(f"  distance_matrix {label}: l2/ip/cos agree (rtol {MATRIX_RTOL}, "
-              f"atol {MATRIX_ATOL} x d for l2)")
+        print(f"  distance_matrix {label} (tile {tile}): l2/ip/cos agree (rtol "
+              f"{MATRIX_RTOL}, atol {MATRIX_ATOL} x d for l2)")
 
 
 
@@ -616,14 +700,14 @@ def check_flash_attention(errs: dict) -> None:
 
 
 class _PlainScorer:
-    """A registered scorer's accounting with its plain version's scoring:
-    "<name>-plain" beside the kernel's "<name>"."""
+    """A registered scorer's accounting with other scoring: "<name>-plain"
+    (its plain version) or "<name>-<suffix>" beside the kernel's "<name>"."""
 
-    def __init__(self, name: str, score_fn):
+    def __init__(self, name: str, score_fn, suffix: str = "plain"):
         from repro_torch.core.scorers import get_scorer
 
         self.kernel = get_scorer(name)
-        self.name = f"{name}-plain"
+        self.name = f"{name}-{suffix}"
         self.needs_rerank = self.kernel.needs_rerank
         self.needs_base = self.kernel.needs_base
         self.score_fn = score_fn
@@ -649,6 +733,58 @@ def register_plain_scorers():
     }
     for name, fn in plain.items():
         register_scorer(_PlainScorer(name, fn))
+
+
+def generic_hop_rung(searcher, spec, stream, seeds, served) -> None:
+    """The exact rung again with the generic masked kernel scoring every
+    hop (scorer "exact-generic"): ids, dists, n_comps and n_steps must equal
+    the served run's, bit for bit, as the hop kernel's distances are the
+    generic kernel's."""
+    from repro_torch.core.scorers import register_scorer
+    from repro_torch.kernels import gather_distance as kgd
+
+    register_scorer(_PlainScorer(
+        "exact", lambda st, q, b, i, v, m: kgd.gather_distance_masked_generic(q, i, b, v, m),
+        suffix="generic"))
+    spec_g = spec._replace(scorer="exact-generic")
+    for q, seed, res in zip(stream, seeds, served):
+        got = searcher.search(q, spec_g, seed)
+        check(torch.equal(got.ids, res.ids) and torch.equal(got.dists, res.dists)
+              and torch.equal(got.n_comps, res.n_comps)
+              and int(got.n_steps) == int(res.n_steps),
+              f"the exact rung on the generic masked kernel differs (batch seed {seed})")
+    print(f"exact rung on the generic masked kernel: {len(stream)} batches, ids, dists, "
+          f"n_comps and n_steps bit-identical to the hop kernel's")
+
+
+def ground_truth_against_plain(run) -> None:
+    """Ground truth at full width through the kernel and through the
+    distance matrix's plain version on the card: the ids must agree except
+    near-ties, where the k-th distances agree within the matrix tolerance."""
+    from repro_torch.core import bruteforce
+    from repro_torch.kernels import ops, ref
+
+    qs = torch.cat(run.stream)
+    base = run.searcher.base
+    k, d = run.spec.k, base.shape[1]
+    kd, ki = bruteforce.exact_search(qs, base, k)
+    check(torch.equal(ki, run.ground_truth), "ground truth differs from the served run's")
+    kernel = ops.distance_matrix
+    ops.distance_matrix = ref.distance_matrix_ref
+    try:
+        pd, pi = bruteforce.exact_search(qs, base, k)
+    finally:
+        ops.distance_matrix = kernel
+    differ = ki != pi
+    tie = torch.isclose(kd, pd, rtol=MATRIX_RTOL, atol=MATRIX_ATOL * d)
+    worst = float((kd - pd).abs()[differ].max()) if bool(differ.any()) else 0.0
+    print(f"ground truth {qs.shape[0]} x {base.shape[0]} x {d}, top-{k}: kernel vs plain "
+          f"distance matrix, {int(differ.sum())} of {ki.numel()} ids differ in "
+          f"{int(differ.any(1).sum())} rows, each a near-tie (largest distance gap at a "
+          f"differing id {worst:.3g}; tolerance rtol {MATRIX_RTOL}, atol {MATRIX_ATOL} x d); "
+          f"largest gap over all {float((kd - pd).abs().max()):.3g}")
+    check(bool(tie.all()), "the kernel's ground-truth distances differ from the plain version's")
+    check(bool(tie[differ].all()), "a ground-truth id differs without a near-tie")
 
 
 def lockstep(searcher, spec, queries, entries, state):
@@ -733,8 +869,18 @@ def lockstep_rung(searcher, spec, stream, seeds, served) -> None:
 # -- phase 5 -----------------------------------------------------------------
 
 
+def one_kernel(fn, symbol: str, label: str) -> None:
+    """Check under the profiler that one ``fn`` call runs ``symbol`` once
+    and nothing else on the card, so a per-launch time matched on the
+    symbol times what the path runs."""
+    ran = kernels_of_one_call(fn)
+    print(f"  {label} runs: {[name[:90] for name in ran]}")
+    check(len(ran) == 1 and symbol in ran[0], f"{label} did not run {symbol} exactly once")
+
+
 def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
     from repro_torch.core.nndescent import NNDescentConfig
+    from repro_torch.kernels import gather_distance as kgd
     from repro_torch.kernels import ops, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -758,9 +904,14 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
     def hop():
         return ops.gather_distance_masked(q, sets[next(it) % 64], base, visited)
 
+    def hop_generic():
+        return kgd.gather_distance_masked_generic(q, sets[next(it) % 64], base, visited)
+
     def hop_plain():
         return ref.gather_distance_masked_ref(q, sets[next(it) % 64], base, visited)
-    k_ms = device_ms(hop, reps=640, match="gather_distance_kernel")
+    one_kernel(hop, HOP_KERNEL, "a hop")
+    k_ms = device_ms(hop, reps=640, match=HOP_KERNEL, launches=1)
+    g_ms = device_ms(hop_generic, reps=640, match=GENERIC_GATHER_KERNEL, launches=1)
     call_ms = cuda_ms(hop, reps=640)
     p_ms = device_ms(hop_plain, reps=64)
     valid = float(torch.stack(sets).ge(0).sum()) / len(sets)
@@ -772,9 +923,11 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      launches=launches["gather_distance_masked"],
                      max_abs_err=errs["gather_distance_masked"], ms=k_ms,
                      plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print(f"  gather_distance_masked hop Q=64 R={R} d={d}: kernel {k_ms:.4f} ms on "
-          f"the device ({call_ms:.4f} ms a call back to back, host-bound), plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {hop_bytes / 1e6:.3f} MB)")
+    print(f"  gather_distance_masked hop Q=64 R={R} d={d} ({valid:.1f} valid ids a hop): "
+          f"{HOP_KERNEL} {k_ms:.4f} ms on the device per recorded launch, the generic "
+          f"masked kernel {g_ms:.4f} ms in the same run ({g_ms / k_ms:.2f}x); "
+          f"{call_ms:.4f} ms a call back to back, host-bound; plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}, {hop_bytes / 1e6:.3f} MB)")
 
     # gather_distance_pool over one NN-Descent scoring pass (n x C=240), on
     # the uniform stand-in pool and on a real pool, beside the generic
@@ -807,7 +960,7 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
               + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()))
         call_ms = cuda_ms(lambda: ops.gather_distance_pool(base, pool), reps=3, warmup=1)
         o_ms = device_ms(lambda: gather_kernel_pass(base, pool), reps=3,
-                         match="gather_distance_kernel", launches=old_launches)
+                         match=GENERIC_GATHER_KERNEL, launches=old_launches)
         o_call = cuda_ms(lambda: gather_kernel_pass(base, pool), reps=3, warmup=1)
         n_valid = float(pool.ge(0).sum())
         # the queries are base rows, so the base is read once; then the ids in
@@ -855,7 +1008,7 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
 
     def rerank_plain():
         return ref.gather_distance_ref(q, sets[next(it) % 64], base)
-    k_ms = device_ms(rerank, reps=640, match="gather_distance_kernel")
+    k_ms = device_ms(rerank, reps=640, match=GENERIC_GATHER_KERNEL, launches=1)
     call_ms = cuda_ms(rerank, reps=640)
     p_ms = device_ms(rerank_plain, reps=64)
     rr_bytes = Q * d * 4 + Q * R * 4 + Q * R * 4 * d + Q * R * 4
@@ -867,6 +1020,7 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      max_abs_err=errs["gather_distance"], ms=k_ms, plain_ms=p_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
     print(f"  gather_distance rerank Q={Q} R={R} d={d}: kernel {k_ms:.4f} ms on the device "
+          f"per recorded launch "
           f"({call_ms:.4f} ms a call back to back), plain {p_ms:.4f} ms, bound "
           f"{b_ms:.5f} ms ({b_by}, {rr_bytes / 1e6:.3f} MB)")
 
@@ -878,8 +1032,9 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
 
     def scan(fn):
         return lambda: [fn(c) for c in chunks]
+    one_kernel(lambda: ops.distance_matrix(qs, chunks[0]), MATRIX_KERNEL, "a ground-truth chunk")
     k_ms = device_ms(scan(lambda c: ops.distance_matrix(qs, c)), reps=3,
-                     match="distance_matrix_kernel")
+                     match=MATRIX_KERNEL, launches=len(chunks))
     p_ms = device_ms(scan(lambda c: ref.distance_matrix_ref(qs, c)), reps=3)
     l_ms = device_ms(scan(lambda c: torch.cdist(qs, c) ** 2), reps=3)
     nq = qs.shape[0]
@@ -892,22 +1047,45 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      max_abs_err=errs["distance_matrix"], ms=k_ms, plain_ms=p_ms,
                      bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
     print(f"  distance_matrix ground truth {nq} x {n} x {d} ({len(chunks)} launches): "
-          f"kernel {k_ms:.3f} ms ({2.0 * nq * n * d / k_ms / 1e9:.1f} TFLOP/s), "
-          f"plain {p_ms:.3f} ms, cdist**2 {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+          f"{MATRIX_KERNEL} {k_ms:.3f} ms per recorded launch x {len(chunks)} "
+          f"({2.0 * nq * n * d / k_ms / 1e9:.1f} TFLOP/s, {k_ms / b_ms:.2f}x its bound), "
+          f"plain {p_ms:.3f} ms, cdist**2 {l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+          f"bytes {gt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+
+    # what bounds the 128 tile: its FMA rate where the per-tile costs
+    # (first loads, 64 KB of stores a tile) are spread over 128 k-steps, not
+    # 8, beside PyTorch's fp32 product (TF32 off) at both widths
+    mm_ms = device_ms(scan(lambda c: qs @ c.T), reps=3)
+    wide = 1024
+    xw = torch.randn((nq, wide), generator=gen, device=dev)
+    yw = torch.randn((gt_chunk, wide), generator=gen, device=dev)
+    w_ms = device_ms(lambda: ops.distance_matrix(xw, yw), reps=10, match=MATRIX_KERNEL,
+                     launches=1)
+    wmm_ms = device_ms(lambda: xw @ yw.T, reps=10)
+    w_flops = 2.0 * nq * gt_chunk * wide
+    print(f"  what bounds {MATRIX_KERNEL}: the product alone through torch.mm (fp32, TF32 "
+          f"off) over the same scan {mm_ms:.3f} ms ({2.0 * nq * n * d / mm_ms / 1e9:.1f} "
+          f"TFLOP/s); one {nq} x {gt_chunk} x {wide} launch {w_ms:.3f} ms "
+          f"({w_flops / w_ms / 1e9:.1f} TFLOP/s, {w_flops / w_ms / 1e9 / FP32_FLOP_PER_S * 1e12:.0%} "
+          f"of the fp32 peak), torch.mm {wmm_ms:.3f} ms ({w_flops / wmm_ms / 1e9:.1f} TFLOP/s)")
+    del xw, yw
 
     # distance_matrix at the GD shape: one 65536-vertex block of (20, 20)
-    # matrices over gathered candidate rows (printed, not in the JSON line)
+    # matrices over gathered candidate rows, the 32 x 32 tile (printed, not
+    # in the JSON line)
     L = 20
     cand = nbrs[:65536].clamp(min=0).long()
     rows_g = base[cand]
+    one_kernel(lambda: ops.distance_matrix(rows_g, rows_g), SMALL_MATRIX_KERNEL, "a GD block")
     k_ms = device_ms(lambda: ops.distance_matrix(rows_g, rows_g), reps=20,
-                     match="distance_matrix_kernel")
+                     match=SMALL_MATRIX_KERNEL, launches=1)
     p_ms = device_ms(lambda: ref.distance_matrix_ref(rows_g, rows_g), reps=20)
     l_ms = device_ms(lambda: torch.cdist(rows_g, rows_g) ** 2, reps=20)
     B = rows_g.shape[0]
     gd_bytes = B * L * d * 4 + B * L * L * 4   # x is y: rows in once, matrices out
     b_ms2, b_by2 = bound(gd_bytes, 2.0 * B * L * L * d)
-    print(f"  distance_matrix GD block {B} x {L} x {L} x {d}: kernel {k_ms:.4f} ms, "
+    print(f"  distance_matrix GD block {B} x {L} x {L} x {d}: {SMALL_MATRIX_KERNEL} "
+          f"{k_ms:.4f} ms per recorded launch, "
           f"plain {p_ms:.4f} ms, cdist**2 {l_ms:.4f} ms, bound {b_ms2:.4f} ms "
           f"({b_by2}); a full 1M pass is {n / B:.2f} such blocks")
     return rows
@@ -967,7 +1145,7 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
          valid * M, "src/repro/kernels/gather_adc.py:119", "gather_adc.cu"),
     ]
     for name, kern, plain, match, nbytes, flops, replaces, src in hops:
-        k_ms = device_ms(lambda: kern(sets[next(it) % 64]), reps=640, match=match)
+        k_ms = device_ms(lambda: kern(sets[next(it) % 64]), reps=640, match=match, launches=1)
         call_ms = cuda_ms(lambda: kern(sets[next(it) % 64]), reps=640)
         p_ms = device_ms(lambda: plain(sets[next(it) % 64]), reps=64)
         b_ms, b_by = bound(nbytes, flops)
@@ -977,7 +1155,8 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
                          max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
         print(f"  {name} hop Q={Q} R={R} d={d} M={M}: kernel {k_ms:.4f} ms on the "
-              f"device ({call_ms:.4f} ms a call back to back, host-bound), plain "
+              f"device per recorded launch ({call_ms:.4f} ms a call back to back, "
+              f"host-bound), plain "
               f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.3f} MB)")
     print(f"  gather_adc_masked hop reads {entries:.1f} distinct LUT entries of "
           f"{Q * M * K}: {entries * 4 / 1e3:.2f} KB at 4 B each, "
@@ -988,7 +1167,7 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
     all_luts = build_adc_luts(qs, idx.codebooks).contiguous()
     chunks = [all_luts[lo:lo + 64] for lo in range(0, qs.shape[0], 64)]
     k_ms = device_ms(lambda: [ops.pq_adc(idx.codes, c) for c in chunks], reps=3,
-                     match="pq_adc_kernel")
+                     match="pq_adc_kernel", launches=len(chunks))
     call_ms = cuda_ms(lambda: [ops.pq_adc(idx.codes, c) for c in chunks], reps=3)
     p_ms = device_ms(lambda: [ref.pq_adc_ref(idx.codes, c) for c in chunks], reps=1)
     nq = qs.shape[0]
@@ -1001,7 +1180,8 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                      library_ms=None))
     print(f"  pq_adc pq_search pass {nq} x {n} x M={M} ({len(chunks)} launches): "
-          f"kernel {k_ms:.3f} ms on the device ({call_ms:.3f} ms wall, "
+          f"kernel {k_ms:.3f} ms on the device per recorded launch x {len(chunks)} "
+          f"({call_ms:.3f} ms wall, "
           f"{nq * n * 4 / k_ms / 1e9:.2f} TB/s of scores), plain {p_ms:.3f} ms, "
           f"bound {b_ms:.3f} ms ({b_by}, {pass_bytes / 1e9:.3f} GB once)")
     print("  library_ms is null for gather_sq8_masked, gather_adc_masked and "
@@ -1343,9 +1523,8 @@ def main(argv=None) -> int:
     print(f"built {', '.join(f'{k} ({v:.1f} s)' for k, v in secs.items())} "
           f"in {time.perf_counter() - tb:.1f} s wall")
     for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "Performance Loss")):
-                print(f"  ptxas {name}: {line.strip()}")
+        for line in ptxas_report(log):
+            print(f"  ptxas {name}: {line}")
     done(t0, "phase 1")
 
     t0 = phase("phase 2: kernels against plain versions")
@@ -1471,6 +1650,8 @@ def main(argv=None) -> int:
     register_plain_scorers()
     for scorer in SCORERS:
         lockstep_rung(run.searcher, specs[scorer], run.stream, run.seeds, served[scorer])
+    generic_hop_rung(run.searcher, specs["exact"], run.stream, run.seeds, served["exact"])
+    ground_truth_against_plain(run)
     done(t0, "phase 4")
 
     t0 = phase("phase 5: per-kernel times at the main path's shapes")

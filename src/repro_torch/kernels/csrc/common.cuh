@@ -1,5 +1,8 @@
 // Pieces shared by the gather kernels: the metric codes, the warp sum, the
-// visited-bitmap test of the mask epilogue, and the distance epilogue.
+// visited-bitmap test of the mask epilogue, the distance epilogue, and the
+// 8-lane group layout (load4, group_tree, group_distances) in which the
+// NN-Descent pass (gather_distance_pool.cu) and the beam's hop
+// (gather_distance.cu) score rows with the generic gather kernel's bits.
 //
 // The visited bitmap is (Q, ceil(n/32)) int32 words holding the reference's
 // uint32 bits; a word is read as int32 and shifted unsigned, so bit 31 is
@@ -49,6 +52,148 @@ __device__ __forceinline__ float finish_distance(float acc, float rr, float qq) 
   if (METRIC == kL2) return acc;
   if (METRIC == kIp) return -acc;
   return 1.f - acc * rsqrtf(fmaxf(qq, 1e-12f)) * rsqrtf(fmaxf(rr, 1e-12f));
+}
+
+// The plain xor tree (warp_sum: 16, 8, 4, 2, 1) over a row's 32 lane
+// partials when 8 lanes hold them, lane u of the group partials 4u..4u+3 in
+// p[0..3]. Partial m's partner at step o is m ^ o: at 16 it lives in lane
+// u ^ 4 (each lane keeps two sums and sends two), at 8 in u ^ 2 (one kept,
+// one sent); lane u then holds the sum for m = 4(u & 1) + 2((u >> 2) & 1) +
+// ((u >> 1) & 1), and the last three steps pair lanes u ^ 1, u ^ 4, u ^ 2.
+// Every lane of the group ends with warp_sum's value, in 6 shuffles that
+// serve 4 rows (one a group). ``mask`` names the lanes that take part: the
+// whole warp, or only the calling group where other groups have left.
+__device__ __forceinline__ float group_tree(const float (&p)[4], int u,
+                                           unsigned mask = 0xffffffffu) {
+  const bool hi4 = (u & 4) != 0;
+  const float a0 = (hi4 ? p[2] : p[0]) + __shfl_xor_sync(mask, hi4 ? p[0] : p[2], 4);
+  const float a1 = (hi4 ? p[3] : p[1]) + __shfl_xor_sync(mask, hi4 ? p[1] : p[3], 4);
+  const bool hi2 = (u & 2) != 0;
+  float b = (hi2 ? a1 : a0) + __shfl_xor_sync(mask, hi2 ? a0 : a1, 2);
+  b += __shfl_xor_sync(mask, b, 1);
+  b += __shfl_xor_sync(mask, b, 4);
+  b += __shfl_xor_sync(mask, b, 2);
+  return b;
+}
+
+// 4 consecutive values from ``src`` at column ``col`` (of d): one 16-byte
+// load when VEC (d % 4 == 0, aligned), else guarded scalar loads.
+template <bool VEC, bool GLOBAL>
+__device__ __forceinline__ float4 load4(const float* src, int col, int d) {
+  if (VEC) {
+    if (col >= d) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return GLOBAL ? __ldg(reinterpret_cast<const float4*>(src + col))
+                  : *reinterpret_cast<const float4*>(src + col);
+  }
+  float4 v;
+  v.x = col < d ? (GLOBAL ? __ldg(src + col) : src[col]) : 0.f;
+  v.y = col + 1 < d ? (GLOBAL ? __ldg(src + col + 1) : src[col + 1]) : 0.f;
+  v.z = col + 2 < d ? (GLOBAL ? __ldg(src + col + 2) : src[col + 2]) : 0.f;
+  v.w = col + 3 < d ? (GLOBAL ? __ldg(src + col + 3) : src[col + 3]) : 0.f;
+  return v;
+}
+
+template <int METRIC>
+__device__ __forceinline__ void add4(float4 x, float4 y, int col, int d, float (&acc)[4],
+                                     float (&rr)[4], float (&qq)[4]) {
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+  const float ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (col + c < d) {
+      accumulate<METRIC>(xs[c], ys[c], acc[c], rr[c]);
+      if (METRIC == kCos) qq[c] = fmaf(ys[c], ys[c], qq[c]);
+    }
+  }
+}
+
+// The distances of an 8-lane group's ROWS pairs: xs + xo[i] is the
+// candidate row of pair i (shared memory when XS, else global), qs + qo[i]
+// its query row (global). Lane u loads columns 32k + 4u .. 32k + 4u + 3 of a
+// row as one float4 (a group reads a 128-byte segment, the warp four), so it
+// holds gather_distance.cu's generic lane partials 4u..4u+3, each summed in
+// increasing column order; group_tree adds them as warp_sum does. All loads
+// of a KB-chunk of columns are issued before any sum. Every lane of the
+// group gets every distance; ``mask`` as group_tree's.
+template <int METRIC, int KB, bool VEC, bool XS, int ROWS, typename Off>
+__device__ __forceinline__ void group_distances(const float* xs, const Off (&xo)[ROWS],
+                                                const float* qs, const Off (&qo)[ROWS],
+                                                int d, int u, float (&dist)[ROWS],
+                                                unsigned mask = 0xffffffffu) {
+  float acc[ROWS][4], rr[ROWS][4], qq[ROWS][4];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = rr[i][c] = qq[i][c] = 0.f;
+  }
+  for (int jb = 0; jb < d; jb += 32 * KB) {
+    float4 y[ROWS][KB], xg[ROWS][KB];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+      for (int k = 0; k < KB; ++k) {
+        y[i][k] = load4<VEC, true>(qs + qo[i], jb + 32 * k + 4 * u, d);
+        if (!XS) xg[i][k] = load4<VEC, true>(xs + xo[i], jb + 32 * k + 4 * u, d);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+      for (int k = 0; k < KB; ++k) {
+        const int col = jb + 32 * k + 4 * u;
+        add4<METRIC>(XS ? load4<VEC, false>(xs + xo[i], col, d) : xg[i][k], y[i][k], col, d,
+                     acc[i], rr[i], qq[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const float a = group_tree(acc[i], u, mask);
+    const float r2 = METRIC == kCos ? group_tree(rr[i], u, mask) : 0.f;
+    const float q2 = METRIC == kCos ? group_tree(qq[i], u, mask) : 0.f;
+    // cos as the generic gather kernel compiles finish_distance: (acc * rq) *
+    // rr subtracted from 1 in one fma. Spelled out here: whether nvcc
+    // contracts the expression depends on the code around it, and here it
+    // did not.
+    dist[i] = METRIC != kCos
+                  ? finish_distance<METRIC>(a, r2, q2)
+                  : __fmaf_rn(-__fmul_rn(a, rsqrtf(fmaxf(q2, 1e-12f))),
+                              rsqrtf(fmaxf(r2, 1e-12f)), 1.f);
+  }
+}
+
+// The instance of the group layout for a row of d columns: KB
+// 32-column chunks a step (1 up to d = 32, 2 up to 64, else 4), float4
+// loads when VEC. ``l.run<METRIC, KB, VEC>()`` launches the instance.
+template <int METRIC, bool VEC, typename L>
+void by_d(const L& l, int d) {
+  if (d <= 32) {
+    l.template run<METRIC, 1, VEC>();
+  } else if (d <= 64) {
+    l.template run<METRIC, 2, VEC>();
+  } else {
+    l.template run<METRIC, 4, VEC>();
+  }
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// ``by_d`` for a metric code; VEC when d % 4 == 0 and every row pointer
+// given is 16-byte aligned.
+template <typename L>
+void dispatch_group(const L& l, int metric, int d, bool aligned) {
+  const bool vec = d % 4 == 0 && aligned;
+  switch (metric) {
+    case kL2:
+      vec ? by_d<kL2, true>(l, d) : by_d<kL2, false>(l, d);
+      break;
+    case kIp:
+      vec ? by_d<kIp, true>(l, d) : by_d<kIp, false>(l, d);
+      break;
+    default:
+      vec ? by_d<kCos, true>(l, d) : by_d<kCos, false>(l, d);
+      break;
+  }
 }
 
 }  // namespace repro_kernels

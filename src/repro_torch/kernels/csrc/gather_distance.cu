@@ -6,22 +6,33 @@
 // diff form sum((r - q)^2), ip as -dot, cos as 1 - dot * rsqrt(qq) *
 // rsqrt(rr) with both norms clamped at 1e-12. Padding ids (< 0) give
 // (+inf, -1); the masked variant also drops ids whose bit is set in the
-// query's bit-packed visited row.
+// query's bit-packed visited row. Ids past n - 1 read row n - 1.
 //
 // What bounds it: bytes. Each scored id costs one random 4*d-byte row
 // (256 B at d = 64) and 3*d flops, far below the card's flop rate. At the
-// beam's hop shape (Q = 64, R = 20) the whole call moves ~0.35 MB, well
-// under the launch latency, so the beam loop is launch- and sync-bound.
-// The NN-Descent local join scores its pool with gather_distance_pool.cu,
-// which gives the same bits.
+// beam's hop shape (Q = 64, R = 20) the whole call moves ~0.35 MB, so the
+// bound is tens of nanoseconds and the kernel's time is the latency of its
+// dependent loads. The NN-Descent local join scores its pool with
+// gather_distance_pool.cu, which gives the same bits.
 //
-// Design: one block per (query, tile of 32 ids); the query row sits in
-// shared memory. One warp scores one id at a time: lanes stride over d, so a
-// row is read as one coalesced 128-byte segment per 32 floats, and the sum
-// is a warp-shuffle reduction. The ragged R edge is handled in the kernel:
-// no padding to a tile. The l2 diff form needs no extra precision (the
-// expanded form cancels for near-duplicate rows). The visited test and the
-// distance epilogue are common.cuh's, shared with the sq8 and ADC gathers.
+// Two kernels:
+//   - gather_distance_kernel, the generic one: one block per (query,
+//     tile of 32 ids), the query row in shared memory, one warp per id at a
+//     time and 4 ids a warp in series: lanes stride over d (lane l sums
+//     columns l, l + 32, ...) and a warp_sum adds the 32 partials. It serves
+//     gather_distance (the rerank, pq_search) and is the yardstick of the
+//     hop kernel.
+//   - gather_distance_hop_kernel, the beam's masked hop: the Q x R pairs
+//     flattened over the grid, one 8-lane group a pair (common.cuh's group
+//     layout: lane u holds the generic lane partials 4u..4u+3, read as
+//     float4, added by group_tree), so its distances have the generic
+//     kernel's bits. A group loads its id; a padding id (most of a hop's
+//     slots) stores (+inf, -1) at once; otherwise the visited word and the
+//     row's float4 loads go out together, the query row's from L1, so a hop
+//     is one dependent chain (id, then row) and not four.
+// The l2 diff form needs no extra precision (the expanded form cancels for
+// near-duplicate rows). The visited test and the distance epilogue are
+// common.cuh's, shared with the sq8 and ADC gathers.
 
 #include "common.cuh"
 
@@ -32,6 +43,8 @@ using namespace repro_kernels;
 constexpr int kWarps = 8;
 constexpr int kIdsPerWarp = 4;
 constexpr int kIdsPerBlock = kWarps * kIdsPerWarp;
+constexpr int kHopThreads = 128;
+constexpr int kHopPairs = kHopThreads / 8;   // (query, slot) pairs a hop block
 
 template <int METRIC, bool MASKED>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -80,6 +93,42 @@ gather_distance_kernel(const float* __restrict__ queries,
   }
 }
 
+// The hop: one 8-lane group per (query, slot) pair o = q * R + r.
+template <int METRIC, int KB, bool VEC>
+__global__ void __launch_bounds__(kHopThreads)
+gather_distance_hop_kernel(const float* __restrict__ queries,
+                           const int32_t* __restrict__ ids,
+                           const float* __restrict__ base,
+                           const int32_t* __restrict__ visited,
+                           float* __restrict__ out_d, int32_t* __restrict__ out_i,
+                           int64_t pairs, int R, int n, int d, int W) {
+  const int lane = threadIdx.x & 31;
+  const int u = lane & 7;
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * kHopPairs + (threadIdx.x >> 3);
+  if (o >= pairs) return;          // group-uniform
+  const int32_t id = __ldg(ids + o);
+  if (id < 0) {                    // group-uniform: a padding slot
+    if (u == 0) {
+      out_d[o] = INFINITY;
+      out_i[o] = -1;
+    }
+    return;
+  }
+  const int64_t q = o / R;
+  // the visited word goes out with the row's loads; its bit is read last
+  const uint32_t word = static_cast<uint32_t>(__ldg(visited + q * W + min(id >> 5, W - 1)));
+  const int64_t xo[1] = {static_cast<int64_t>(min(id, n - 1)) * d};
+  const int64_t qo[1] = {q * d};
+  float dist[1];
+  group_distances<METRIC, KB, VEC, false>(base, xo, queries, qo, d, u, dist,
+                                          0xffu << (lane & 24));
+  if (u == 0) {
+    const bool seen = ((word >> (id & 31)) & 1u) != 0u;
+    out_d[o] = seen ? INFINITY : dist[0];
+    out_i[o] = seen ? -1 : id;
+  }
+}
+
 template <bool MASKED>
 void launch(int metric, dim3 grid, size_t smem, cudaStream_t stream,
             const float* queries, const int32_t* ids, const float* base,
@@ -102,6 +151,24 @@ void launch(int metric, dim3 grid, size_t smem, cudaStream_t stream,
   }
 }
 
+struct HopLaunch {
+  unsigned blocks;
+  cudaStream_t s;
+  const float* queries;
+  const int32_t* ids;
+  const float* base;
+  const int32_t* visited;
+  float* out_d;
+  int32_t* out_i;
+  int64_t pairs;
+  int R, n, d, W;
+  template <int METRIC, int KB, bool VEC>
+  void run() const {
+    gather_distance_hop_kernel<METRIC, KB, VEC><<<blocks, kHopThreads, 0, s>>>(
+        queries, ids, base, visited, out_d, out_i, pairs, R, n, d, W);
+  }
+};
+
 }  // namespace
 
 // queries (Q, d) f32, ids (Q, R) i32, base (n, d) f32, visited (Q, W) i32 or
@@ -123,6 +190,24 @@ extern "C" int gather_distance_f32(const float* queries, const int32_t* ids,
       launch<false>(metric, grid, smem, s, queries, ids, base, visited, out_d,
                     out_i, R, n, d, W);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The beam's masked hop on gather_distance_hop_kernel: queries (Q, d) f32,
+// ids (Q, R) i32, base (n, d) f32, visited (Q, W) i32 -> out_d (Q, R) f32,
+// out_i (Q, R) i32, as gather_distance_f32 with masked != 0 gives them. All
+// contiguous, on one device. Returns cudaGetLastError() after the launch.
+extern "C" int gather_distance_hop_f32(const float* queries, const int32_t* ids,
+                                       const float* base, const int32_t* visited,
+                                       float* out_d, int32_t* out_i, int Q, int R,
+                                       int n, int d, int W, int metric, void* stream) {
+  const int64_t pairs = static_cast<int64_t>(Q) * R;
+  if (pairs > 0) {
+    const unsigned blocks = static_cast<unsigned>((pairs + kHopPairs - 1) / kHopPairs);
+    dispatch_group(HopLaunch{blocks, static_cast<cudaStream_t>(stream), queries, ids, base,
+                             visited, out_d, out_i, pairs, R, n, d, W},
+                   metric, d, aligned16(queries) && aligned16(base));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,11 +2,17 @@
 
 Replace the Pallas kernels ``gather_distance`` and ``gather_distance_masked``
 (``src/repro/kernels/gather_distance.py``). The source is
-``csrc/gather_distance.cu``; its header says what bounds the kernel on the
-H100 (bytes: one random 4*d-byte row per scored id) and how its design
-answers that (one warp per id, coalesced row reads, warp-shuffle sums, the
-mask epilogue fused). These wrappers take CUDA tensors only; ``kernels.ops``
-sends CPU tensors to the plain versions in ``kernels.ref``.
+``csrc/gather_distance.cu``; its header says what bounds the kernels on
+the H100 (bytes: one random 4*d-byte row per scored id; at the beam's hop,
+the latency of dependent loads) and how their design answers that.
+:func:`gather_distance` runs the generic kernel (one warp per id, lanes
+striding over d, a warp-shuffle sum). :func:`gather_distance_masked`, the
+beam's hop, runs the hop kernel: one 8-lane group per (query, slot) pair
+over the whole grid, with the generic kernel's bits.
+:func:`gather_distance_masked_generic` runs the generic kernel's masked
+form, the hop kernel's yardstick; no path of the port calls it. These
+wrappers take CUDA tensors only; ``kernels.ops`` sends CPU tensors to the
+plain versions in ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -19,12 +25,15 @@ from . import _build
 METRIC_CODES = {"l2": 0, "ip": 1, "cos": 2}
 MAX_D = 12288          # the query row is staged in 48 KB of shared memory
 MAX_R_TILES = 65535    # gridDim.y = ceil(R / 32)
+HOP_PAIRS = 16         # (query, slot) pairs a hop block: gridDim.x = ceil(Q R / 16)
 _INT_MAX = 2**31 - 1
 
 # kernel launches by entry point (read and reset by chip_smoke.py)
-LAUNCHES = {"gather_distance": 0, "gather_distance_masked": 0}
+LAUNCHES = {"gather_distance": 0, "gather_distance_masked": 0,
+            "gather_distance_masked_generic": 0}
 
 _fn = None
+_hop_fn = None
 
 
 def _entry():
@@ -35,6 +44,16 @@ def _entry():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _hop_entry():
+    global _hop_fn
+    if _hop_fn is None:
+        fn = _build.load("gather_distance").gather_distance_hop_f32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _hop_fn = fn
+    return _hop_fn
 
 
 def _check(queries, ids, base, metric, visited=None):
@@ -65,7 +84,7 @@ def _check(queries, ids, base, metric, visited=None):
     if n < 1 or d > MAX_D or -(-R // 32) > MAX_R_TILES:
         raise ValueError(f"unsupported shape: n={n} (>= 1), d={d} (<= {MAX_D}), "
                          f"R={R} (<= {32 * MAX_R_TILES})")
-    if max(Q, R, n, d) > _INT_MAX:
+    if max(Q, R, n, d) > _INT_MAX or -(-Q * R // HOP_PAIRS) > _INT_MAX:
         raise ValueError("dimension exceeds the kernel's int32 indexing")
     W = 0
     if visited is not None:
@@ -106,11 +125,32 @@ def gather_distance_masked(queries: torch.Tensor, ids: torch.Tensor,
                            metric: str = "l2"):
     """As :func:`gather_distance`, plus the visited (Q, ceil(n/32)) int32
     bitmap: padding and visited ids come back as (+inf, -1). Returns
-    (dists (Q, R) f32, masked ids (Q, R) i32)."""
+    (dists (Q, R) f32, masked ids (Q, R) i32). Runs the hop kernel."""
+    Q, R, n, d, W = _check(queries, ids, base, metric, visited)
+    out_d = torch.empty(ids.shape, dtype=torch.float32, device=queries.device)
+    out_i = torch.empty(ids.shape, dtype=torch.int32, device=queries.device)
+    if Q * R == 0:
+        return out_d, out_i
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        status = _hop_entry()(queries.data_ptr(), ids.data_ptr(), base.data_ptr(),
+                              visited.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                              Q, R, n, d, W, METRIC_CODES[metric], stream)
+    _build.check(status, "gather_distance_hop_f32")
+    LAUNCHES["gather_distance_masked"] += 1
+    return out_d, out_i
+
+
+def gather_distance_masked_generic(queries: torch.Tensor, ids: torch.Tensor,
+                                   base: torch.Tensor, visited: torch.Tensor,
+                                   metric: str = "l2"):
+    """:func:`gather_distance_masked` on the generic kernel (one warp per
+    id, 4 ids a warp in series): the hop kernel's yardstick, bit for bit
+    and in time. No path of the port calls it."""
     dims = _check(queries, ids, base, metric, visited)
     out_d = torch.empty(ids.shape, dtype=torch.float32, device=queries.device)
     out_i = torch.empty(ids.shape, dtype=torch.int32, device=queries.device)
     with torch.cuda.device(queries.device):
         _launch(queries, ids, base, visited, out_d, out_i, dims, metric)
-    LAUNCHES["gather_distance_masked"] += 1
+    LAUNCHES["gather_distance_masked_generic"] += 1
     return out_d, out_i

@@ -71,10 +71,65 @@ def test_cuda_gather_kernels_match_plain(cuda, metric, Q, R, n, d):
     got = cuda_gd.gather_distance(qt, it, bt, metric)
     want = ref.gather_distance_ref(qt, it, bt, metric)
     torch.testing.assert_close(got, want, **GATHER_TOL)
+    want_d, want_i = ref.gather_distance_masked_ref(qt, it, bt, vt, metric)
+    for masked in (cuda_gd.gather_distance_masked, cuda_gd.gather_distance_masked_generic):
+        got_d, got_i = masked(qt, it, bt, vt, metric)
+        assert torch.equal(got_i, want_i)
+        torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+
+
+def _hop_world(Q, R, n, d, seed):
+    """_world's hop inputs with what the beam's hop kernel must mask: an
+    all-padding row (0), a row whose every id is visited (2), ids past
+    n - 1 (row 3), bit 31 and the last word (row 1)."""
+    queries, base, ids, visited = _world(Q, R, n, d, seed)
+    if Q > 2:
+        visited[2] = np.uint32(0xFFFFFFFF)
+    if Q > 3:
+        ids[3, ::2] = n + np.arange(len(ids[3, ::2]), dtype=np.int32) % 40
+    return queries, base, ids, visited
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("Q,R,n", [(64, 20, 5000), (7, 33, 1000), (5, 3, 70), (1, 1, 1)])
+def test_cuda_hop_kernel_is_bit_identical_to_the_generic_kernel(cuda, metric, d, Q, R, n):
+    """The beam's hop kernel (one 8-lane group a pair) gives the generic
+    masked kernel's distances and ids bit for bit where d is a multiple of
+    32: R not a multiple of a block's 16 pairs, an all-padding row, a row
+    with every id visited, ids past n - 1."""
+    queries, base, ids, visited = _hop_world(Q, R, n, d, seed=8)
+    qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
+    vt = convert.bitmap_from_uint32(visited, cuda)
     got_d, got_i = cuda_gd.gather_distance_masked(qt, it, bt, vt, metric)
+    gen_d, gen_i = cuda_gd.gather_distance_masked_generic(qt, it, bt, vt, metric)
+    assert torch.equal(got_i, gen_i) and torch.equal(got_d, gen_d)
     want_d, want_i = ref.gather_distance_masked_ref(qt, it, bt, vt, metric)
     assert torch.equal(got_i, want_i)
     torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+    if Q > 3:
+        assert (got_i[0] == -1).all() and torch.isinf(got_d[0]).all()
+        assert (got_i[2] == -1).all() and torch.isinf(got_d[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [1, 5, 17, 50, 130, 960])
+def test_cuda_hop_kernel_matches_plain_at_ragged_d(cuda, metric, d):
+    """Other d (scalar loads where d % 4 != 0): ids identical, distances
+    within _gather_tol(d) of the plain version; a query row at a 4-byte
+    offset takes the scalar path too."""
+    queries, base, ids, visited = _hop_world(9, 37, 700, d, seed=9)
+    it, bt = _c(ids, cuda, torch.int32), _c(base, cuda)
+    vt = convert.bitmap_from_uint32(visited, cuda)
+    flat = torch.zeros(queries.size + 1, device=cuda)
+    flat[1:] = _c(queries, cuda).flatten()
+    for qt in (_c(queries, cuda), flat[1:].view(queries.shape)):
+        got_d, got_i = cuda_gd.gather_distance_masked(qt, it, bt, vt, metric)
+        want_d, want_i = ref.gather_distance_masked_ref(qt, it, bt, vt, metric)
+        assert torch.equal(got_i, want_i)
+        torch.testing.assert_close(got_d, want_d, **_gather_tol(d))
 
 
 def _gather_kernel_pass(base, pool, metric, chunk=1024):
@@ -178,6 +233,34 @@ def test_cuda_distance_matrix_matches_plain(cuda, metric, shape):
                                    got[0], rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", [(1, 129, 257, 130), (1, 300, 1000, 960),
+                                   (2, 130, 260, 64), (3, 200, 150, 64), (1, 33, 5, 7),
+                                   (1, 640, 16500, 64)])
+def test_cuda_distance_matrix_large_route_matches_plain(cuda, metric, shape):
+    """The 128 x 128 route: ragged q / n / d (scalar loads and stores), d =
+    960, B > 1, q one past the small route, a ground-truth chunk with ragged
+    tiles; zero rows in x and y (cos clamps their norms); an operand at a
+    4-byte offset. The tolerance is test_cuda_distance_matrix_matches_plain's."""
+    B, q, n, d = shape
+    assert cuda_dm.matrix_route(B, q, n, d)[0] == cuda_dm.LARGE_TILE
+    rng = np.random.default_rng(B * q + n + d)
+    x = _c(rng.standard_normal((B, q, d), dtype=np.float32), cuda)
+    y = _c(rng.standard_normal((B, n, d), dtype=np.float32), cuda)
+    x[:, 1] = 0.0
+    y[:, -1] = 0.0
+    flat = torch.zeros(x.numel() + 1, device=cuda)
+    flat[1:] = x.flatten()
+    tol = dict(rtol=1e-4, atol=1e-4 * (d if metric == "l2" else 1))
+    want = ref.distance_matrix_ref(x, y, metric)
+    for xs in (x, flat[1:].view(x.shape)):
+        got = cuda_dm.distance_matrix(xs, y, metric)
+        torch.testing.assert_close(got, want, **tol)
+    if metric == "cos":
+        assert torch.equal(got[:, 1], torch.ones_like(got[:, 1]))
+
+
 def _codes(rng, n, d, M, K, dev):
     """sq8 codes with scale/mn (dimension 0 zero-range: scale 1) and PQ
     codes, on ``dev``."""
@@ -257,6 +340,7 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     ops.gather_distance_pool(bt, it.repeat(25, 1))
     assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_pool": 4,
                                    "gather_distance_masked": 1,
+                                   "gather_distance_masked_generic": 0,
                                    "distance_matrix": 1, "gather_sq8_masked": 1,
                                    "gather_adc_masked": 1, "pq_adc": 1,
                                    "flash_attention": 1}

@@ -301,6 +301,147 @@ def test_group_tree_adds_the_plain_trees_pairs():
         assert all(b[u].tobytes() == v[0].tobytes() for u in range(8))
 
 
+def _fma(a, b, c):
+    """fmaf emulated in float64: the product of two float32 values is exact
+    there, then one rounding to float32."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _xor_tree(v):
+    """common.cuh warp_sum over the last axis of (..., 32) float32 lane
+    partials: every lane's value after 16, 8, 4, 2, 1."""
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., np.arange(32) ^ o]).astype(np.float32)
+    return v
+
+
+def _emulated_group_tree(p):
+    """group_tree (csrc/common.cuh) on (..., 8, 4) partials, lane u holding
+    4u..4u+3; returns (..., 8), one value a lane."""
+    lanes = np.arange(8)
+    hi4 = (lanes & 4) != 0
+    keep0 = np.where(hi4, p[..., 2], p[..., 0])
+    send0 = np.where(hi4, p[..., 0], p[..., 2])
+    keep1 = np.where(hi4, p[..., 3], p[..., 1])
+    send1 = np.where(hi4, p[..., 1], p[..., 3])
+    a0 = (keep0 + send0[..., lanes ^ 4]).astype(np.float32)
+    a1 = (keep1 + send1[..., lanes ^ 4]).astype(np.float32)
+    hi2 = (lanes & 2) != 0
+    b = (np.where(hi2, a1, a0) + np.where(hi2, a0, a1)[..., lanes ^ 2]).astype(np.float32)
+    for x in (1, 4, 2):
+        b = (b + b[..., lanes ^ x]).astype(np.float32)
+    return b
+
+
+def _emulated_sums(rows, qrows, metric, lane_of):
+    """(acc, rr, qq), each (P, 32) lane partials of P (row, query) pairs: the
+    partial lane_of(col) adds column col's term with fmaf, columns visited in
+    the order ``lane_of`` yields them."""
+    P, d = rows.shape
+    acc, rr, qq = (np.zeros((P, 32), np.float32) for _ in range(3))
+    for col, m in lane_of(d):
+        x, y = rows[:, col], qrows[:, col]
+        if metric == "l2":
+            df = (x - y).astype(np.float32)
+            acc[:, m] = _fma(df, df, acc[:, m])
+        else:
+            acc[:, m] = _fma(x, y, acc[:, m])
+            rr[:, m] = _fma(x, x, rr[:, m])
+            qq[:, m] = _fma(y, y, qq[:, m])
+    return acc, rr, qq
+
+
+def _generic_lanes(d):
+    """gather_distance_kernel: lane l adds columns l, l + 32, ... < d."""
+    for j in range(d):
+        yield j, j % 32
+
+
+def _hop_lanes(d):
+    """gather_distance_hop_kernel (common.cuh group_distances, one row a
+    group): KB 32-column chunks a step; lane u's float4 covers columns
+    jb + 32k + 4u .. + 3, held as partials 4u + c; columns past d skipped."""
+    kb = 1 if d <= 32 else 2 if d <= 64 else 4
+    for jb in range(0, d, 32 * kb):
+        for k in range(kb):
+            for u in range(8):
+                for c in range(4):
+                    col = jb + 32 * k + 4 * u + c
+                    if col < d:
+                        yield col, 4 * u + c
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [1, 5, 17, 50, 100, 130])
+def test_hop_lane_layout_gives_the_plain_sum(metric, d):
+    """The hop kernel's lane layout, emulated in float32 at ragged d: its
+    partials are the generic kernel's, summed in the same column order, and
+    group_tree gives warp_sum's bits in every lane; the distance lies within
+    GATHER_TOL of the plain version and of the JAX reference (diff-form l2,
+    as both)."""
+    queries, base, ids, _ = _world(6, 9, 300, d, seed=5)
+    ids[ids >= 0] = np.minimum(ids[ids >= 0] + 5, 299)   # a few ids at n - 1
+    ok = ids >= 0
+    rows = base[ids[ok]]
+    qrows = np.repeat(queries, ids.shape[1], axis=0)[ok.ravel()]
+    hop = _emulated_sums(rows, qrows, metric, _hop_lanes)
+    generic = _emulated_sums(rows, qrows, metric, _generic_lanes)
+    for h, g in zip(hop, generic):
+        assert h.tobytes() == g.tobytes()
+    sums = []
+    for part in hop:
+        tree = _emulated_group_tree(part.reshape(-1, 8, 4))
+        assert (tree == tree[:, :1]).all()
+        assert tree[:, 0].tobytes() == _xor_tree(part)[:, 0].tobytes()
+        sums.append(tree[:, 0])
+    acc, rr, qq = sums
+    if metric == "l2":
+        dist = acc
+    elif metric == "ip":
+        dist = -acc
+    else:
+        rq = (1.0 / np.sqrt(np.maximum(qq, np.float32(1e-12)))).astype(np.float32)
+        rs = (1.0 / np.sqrt(np.maximum(rr, np.float32(1e-12)))).astype(np.float32)
+        dist = (1.0 - acc * rq * rs).astype(np.float32)
+    got = np.full(ids.shape, np.inf, np.float32)
+    got[ok] = dist
+    want = ref.gather_distance_ref(_t(queries), _t(ids, torch.int32), _t(base), metric)
+    np.testing.assert_allclose(got, want.numpy(), **GATHER_TOL)
+    jwant = jref.gather_distance_ref(jnp.asarray(queries), jnp.asarray(ids),
+                                     jnp.asarray(base), metric)
+    np.testing.assert_allclose(got, np.asarray(jwant), **GATHER_TOL)
+
+
+@pytest.mark.parametrize("shape,tile,grid", [
+    ((1, 512, 16384, 64), 128, (128, 4)),        # a ground-truth chunk
+    ((1, 512, 576, 64), 128, (5, 4)),            # its last chunk at n = 1M
+    ((65536, 20, 20, 64), 32, (65536, 1)),       # a GD block
+    ((1000, 32, 32, 64), 32, (1000, 1)),         # the small route's edge
+    ((1000, 33, 32, 64), 128, (1000, 1)),
+    ((1, 32, 33, 8), 128, (1, 1)),
+    ((5, 7, 3, 130), 32, (5, 1)),
+    ((3, 200, 150, 64), 128, (6, 2)),            # B > 1 on the large route
+    ((1, 129, 257, 960), 128, (3, 2)),
+    ((1, 1, 1, 1), 32, (1, 1)),
+    ((1, 0, 5, 4), 32, (1, 0))])
+def test_matrix_route_picks_the_tile_and_grid(shape, tile, grid):
+    """The 32 x 32 tile only where both sides are at most 32 wide (the GD
+    batch); else the 128 x 128 tile. Grid x holds B x the n-tiles, y the
+    q-tiles."""
+    assert cuda_dm.matrix_route(*shape) == (tile, grid)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 65535 * 128 + 1, 64, 8),       # q-tiles past gridDim.y
+    (2**20, 64, 2**18, 8),             # B x n-tiles past gridDim.x
+    (1, 64, 64, 2**31),                # d past int32
+    (1, -1, 4, 4)])
+def test_matrix_route_rejects_what_the_grid_cannot_take(shape):
+    with pytest.raises(ValueError, match="launch grid|negative"):
+        cuda_dm.matrix_route(*shape)
+    assert cuda_dm.matrix_route(1, 65535 * 128, 64, 8) == (128, (1, 65535))
+
+
 @pytest.mark.parametrize("case", ["unknown metric", "float64 base", "int64 pool",
                                   "3-D base", "rows differ", "non-contiguous pool",
                                   "non-contiguous base", "cpu tensors"])
@@ -496,7 +637,7 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
                        ref.gather_distance_pool_ref(bt, pool, "cos"))
     assert ops.launch_counts() == before  # no kernel ran
     assert set(before) == {"gather_distance", "gather_distance_pool",
-                           "gather_distance_masked",
+                           "gather_distance_masked", "gather_distance_masked_generic",
                            "distance_matrix", "gather_sq8_masked",
                            "gather_adc_masked", "pq_adc", "flash_attention"}
 
@@ -538,6 +679,9 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
         cuda_gd.gather_distance_masked(qt, it, bt,
                                        convert.bitmap_from_uint32(visited, "cpu"))
     with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_gd.gather_distance_masked_generic(qt, it, bt,
+                                               convert.bitmap_from_uint32(visited, "cpu"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_dm.distance_matrix(qt, bt)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_gp.gather_distance_pool(bt, _t(np.zeros((40, 3), np.int32), torch.int32))
@@ -552,6 +696,7 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
         cuda_pa.pq_adc(_u8(w["pq_codes"]), _t(w["luts"]))
     assert all(m._fn is None for m in (cuda_gd, cuda_gp, cuda_dm, cuda_gs, cuda_ga,
                                        cuda_pa))
+    assert cuda_gd._hop_fn is None
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
