@@ -22,10 +22,13 @@ Phases (each prints its seconds):
    drawn by ``nndescent._candidate_pool``. The beam's hop kernel
    (gather_distance_masked) also bit for bit against the generic masked
    kernel wherever d is a multiple of 32, the n=1M hop included, with a
-   row of visited ids and ids past n - 1. distance_matrix on both routes:
-   ground-truth chunks (the last one ragged), the GD batch, ragged q / n /
-   d, d = 960, a batch on the 128 tile, zero rows, an operand at a 4-byte
-   offset. Gathers
+   row of visited ids and ids past n - 1. The sq8 hop kernel
+   (gather_sq8_masked) also bit for bit against the generic sq8 kernel, on
+   the word path and on the byte path (a table at a d-byte offset, odd d).
+   distance_matrix on both routes: ground-truth chunks (the last one
+   ragged), the GD batch (x is y and x != y), ragged q / n / d, d = 960, a
+   batch on the 128 tile, zero rows, an operand at a 4-byte offset; every
+   small-route case also bit for bit against the 32 x 32 tile. Gathers
    (float and sq8): rtol 1e-5, atol 1e-5, masked ids identical. ADC
    (gather_adc_masked, pq_adc): bit-identical, as kernel and plain version
    sum the M entries in the same order. Matrix: rtol 1e-4, atol 1e-4 (x d
@@ -48,9 +51,11 @@ Phases (each prints its seconds):
    Then every batch again per scorer, kernel path and plain path in
    lock-step from the same graph, entries and scorer state: ids, n_comps
    and n_steps must be identical except rows whose first divergence is a
-   float32 near-tie (at most 1% of rows). The exact rung once more with
-   the generic masked kernel scoring every hop: ids, dists, n_comps and
-   n_steps bit-identical. Ground truth through the plain distance matrix
+   float32 near-tie (at most 1% of rows). The exact and the sq8 rung once
+   more with their generic kernels scoring every hop: ids, dists, n_comps
+   and n_steps bit-identical. ``gd_prune`` of the build's k-NN graph
+   through the small route and through the 32 x 32 tile: kept ids
+   identical. Ground truth through the plain distance matrix
    on the card: ids that differ are near-ties within the matrix tolerance.
    flash_attention against its plain version (dense, chunked over batch
    so its (S, S) scores fit): fp32 and bf16; causal, causal + window,
@@ -67,10 +72,12 @@ Phases (each prints its seconds):
    the host's launch gaps; back-to-back wall per call (CUDA events) is
    printed beside it. Every row is timed per recorded launch of its
    kernel's symbol (the profiler has been seen to drop a launch from a
-   window), and one call of the hop, of a ground-truth chunk and of a GD
-   block is checked to run its symbol once. The hop beside the generic
-   masked kernel, ground truth (62 launches) beside ``cdist**2``, the GD
-   block on the 32 x 32 tile. The NN-Descent scoring pass on both pools beside the
+   window), and one call of the hop, of the sq8 hop, of a ground-truth
+   chunk and of a GD block is checked to run its symbol once. The hop
+   beside the generic masked kernel, the sq8 hop beside the generic sq8
+   kernel, ground truth (62 launches) beside ``cdist**2``, the GD block
+   (65,536 x 20 x 20 x 64, x is y) on the small route beside the 32 x 32
+   tile and ``cdist**2``. The NN-Descent scoring pass on both pools beside the
    generic gather kernel in the same run, each of its four kernels per
    recorded launch and summed, the bytes its design moves, and the generic
    gather at the rerank shape. Last, the device-busy
@@ -159,7 +166,10 @@ METRICS = ("l2", "ip", "cos")
 HOP_KERNEL = "gather_distance_hop_kernel"
 GENERIC_GATHER_KERNEL = "gather_distance_kernel"
 MATRIX_KERNEL = "distance_matrix_large_kernel"
-SMALL_MATRIX_KERNEL = "distance_matrix_kernel"
+SMALL_MATRIX_KERNEL = "distance_matrix_small_kernel"
+TILE32_MATRIX_KERNEL = "distance_matrix_kernel"
+SQ8_HOP_KERNEL = "gather_sq8_hop_kernel"
+GENERIC_SQ8_KERNEL = "gather_sq8_kernel"
 
 
 def phase(name: str):
@@ -406,6 +416,7 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
                  if d % 32 == 0 else ""))
 
     gd_ids = torch.randint(0, n_full, (65536, 20), device=dev)
+    gd_rows = full_base[gd_ids]
 
     def rnd(*shape, zero_row=None):
         t = torch.randn(shape, device=dev)
@@ -418,7 +429,15 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
         ("ground truth 512 x 16384 x 64", rnd(512, d_full), full_base[:16384]),
         ("ground truth's last chunk 512 x 576 x 64", rnd(512, d_full),
          full_base[-(n_full % 16384):]),
-        ("GD batch 65536 x 20 x 20 x 64", full_base[gd_ids], full_base[gd_ids]),
+        ("GD batch 65536 x 20 x 20 x 64, x is y", gd_rows, gd_rows),
+        ("GD batch 65536 x 20 x 20 x 64, x != y", gd_rows, full_base[gd_ids.flip(1)]),
+        ("small route 1000 x 20 x 20 x 64, zero rows", rnd(1000, 20, 64, zero_row=3),
+         rnd(1000, 20, 64, zero_row=-1)),
+        ("small route 3 x 32 x 32 x 960", rnd(3, 32, 960), rnd(3, 32, 960)),
+        ("small route x at a 4-byte offset 300 x 20 x 20 x 64",
+         torch.cat([torch.zeros(1, device=dev), rnd(300 * 20 * 64)])[1:].view(300, 20, 64),
+         rnd(300, 20, 64)),
+        ("small route 2 x 1 x 1 x 1", rnd(2, 1, 1), rnd(2, 1, 1)),
         ("ragged 37 x 101 x 24", rnd(37, 24), rnd(101, 24)),
         ("ragged 129 x 257 x 130, zero rows", rnd(129, 130, zero_row=1),
          rnd(257, 130, zero_row=-1)),
@@ -435,15 +454,22 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
         d = x.shape[-1]
         tile = kdm.matrix_route(x.shape[0] if x.dim() == 3 else 1, x.shape[-2],
                                 y.shape[-2], d)[0]
+        small = tile == kdm.SMALL_TILE
+        key = "distance_matrix_small" if small else "distance_matrix"
         for metric in METRICS:
             got = kdm.distance_matrix(x, y, metric)
             want = ref.distance_matrix_ref(x, y, metric)
             torch.testing.assert_close(
                 got, want, rtol=MATRIX_RTOL,
                 atol=MATRIX_ATOL * (d if metric == "l2" else 1))
-            errs["distance_matrix"] = max(errs["distance_matrix"], max_abs_err(got, want))
-        print(f"  distance_matrix {label} (tile {tile}): l2/ip/cos agree (rtol "
-              f"{MATRIX_RTOL}, atol {MATRIX_ATOL} x d for l2)")
+            if small:
+                check(torch.equal(got, kdm.distance_matrix_tile32(x, y, metric)),
+                      f"the small route differs from the 32 x 32 tile: {label} {metric}")
+            errs[key] = max(errs[key], max_abs_err(got, want))
+        print(f"  distance_matrix {label} ({'small route' if small else 'tile 128'}): "
+              f"l2/ip/cos agree (rtol {MATRIX_RTOL}, atol {MATRIX_ATOL} x d for l2)"
+              + ("; bit-identical to the 32 x 32 tile" if small else ""))
+    del gd_rows
 
 
 
@@ -570,24 +596,38 @@ def check_compressed_kernels(full_base: torch.Tensor, errs: dict) -> None:
         ("ragged Q=7 R=33 n=1000 d=17", 7, 33, torch.randn((1001, 17), device=dev)),
         ("partial word Q=5 R=40 n=70 d=8", 5, 40, torch.randn((71, 8), device=dev)),
         ("tiny Q=1 R=1 n=1 d=1", 1, 1, torch.randn((2, 1), device=dev)),
+        ("ragged Q=9 R=37 n=700 d=130", 9, 37, torch.randn((701, 130), device=dev)),
+        ("words, no 16-byte loads Q=6 R=70 n=300 d=100", 6, 70,
+         torch.randn((301, 100), device=dev)),
     ]
     for label, Q, R, rows in sq8_cases:
         codes, scale, mn = build_sq8(rows)
         n = codes.shape[0] - 1
         queries = torch.randn((Q, codes.shape[1]), device=dev)
         ids, visited = _ids_and_bitmap(rng, Q, R, n, dev)
+        if Q > 3:   # the hop kernel's masking: every id visited, ids past n - 1
+            visited[2] = -1
+            ids[3, ::2] = n + torch.arange(ids[3, ::2].numel(), device=dev,
+                                           dtype=torch.int32) % 40
         for table in (codes[:n], codes[1:]):
             for metric in METRICS:
                 gd_, gi_ = kgs.gather_sq8_masked(queries, ids, table, scale, mn,
                                                  visited, metric)
                 wd_, wi_ = ref.gather_sq8_masked_ref(queries, ids, table, scale, mn,
                                                      visited, metric)
+                ed_, ei_ = kgs.gather_sq8_masked_generic(queries, ids, table, scale, mn,
+                                                         visited, metric)
                 check(torch.equal(gi_, wi_), f"sq8 masked ids differ: {label} {metric}")
                 torch.testing.assert_close(gd_, wd_, **GATHER_TOL)
+                torch.testing.assert_close(ed_, wd_, **GATHER_TOL)
+                check(torch.equal(gd_, ed_) and torch.equal(gi_, ei_),
+                      f"the sq8 hop kernel differs from the generic sq8 kernel: {label} "
+                      f"{metric} (table at {table.data_ptr() % 16} bytes past 16)")
                 errs["gather_sq8_masked"] = max(errs["gather_sq8_masked"],
                                                 max_abs_err(gd_, wd_))
         print(f"  gather_sq8_masked {label}: l2/ip/cos agree (rtol "
-              f"{GATHER_TOL['rtol']}, atol {GATHER_TOL['atol']}), aligned and offset")
+              f"{GATHER_TOL['rtol']}, atol {GATHER_TOL['atol']}), aligned and offset; "
+              f"the hop kernel bit-identical to the generic sq8 kernel")
 
     adc_cases = [  # (label, Q, R, n, M, K)
         ("hop Q=64 R=20 n=1M M=8 K=256", 64, 20, n_full, 8, 256),
@@ -736,25 +776,77 @@ def register_plain_scorers():
 
 
 def generic_hop_rung(searcher, spec, stream, seeds, served) -> None:
-    """The exact rung again with the generic masked kernel scoring every
-    hop (scorer "exact-generic"): ids, dists, n_comps and n_steps must equal
-    the served run's, bit for bit, as the hop kernel's distances are the
-    generic kernel's."""
+    """The rung of ``spec.scorer`` (exact or sq8) again with its generic
+    kernel scoring every hop (scorer "<name>-generic"): ids, dists, n_comps
+    and n_steps must equal the served run's, bit for bit, as the hop
+    kernel's distances are the generic kernel's."""
     from repro_torch.core.scorers import register_scorer
     from repro_torch.kernels import gather_distance as kgd
+    from repro_torch.kernels import gather_sq8 as kgs
 
-    register_scorer(_PlainScorer(
-        "exact", lambda st, q, b, i, v, m: kgd.gather_distance_masked_generic(q, i, b, v, m),
-        suffix="generic"))
-    spec_g = spec._replace(scorer="exact-generic")
+    if spec.scorer == "sq8":   # the searcher builds no state for "sq8-generic"
+        sq = tuple(searcher.sq8_index())
+
+        def generic(st, q, b, i, v, m):
+            return kgs.gather_sq8_masked_generic(q, i, *sq, v, m)
+    else:
+        def generic(st, q, b, i, v, m):
+            return kgd.gather_distance_masked_generic(q, i, b, v, m)
+    register_scorer(_PlainScorer(spec.scorer, generic, suffix="generic"))
+    spec_g = spec._replace(scorer=f"{spec.scorer}-generic")
     for q, seed, res in zip(stream, seeds, served):
         got = searcher.search(q, spec_g, seed)
         check(torch.equal(got.ids, res.ids) and torch.equal(got.dists, res.dists)
               and torch.equal(got.n_comps, res.n_comps)
               and int(got.n_steps) == int(res.n_steps),
-              f"the exact rung on the generic masked kernel differs (batch seed {seed})")
-    print(f"exact rung on the generic masked kernel: {len(stream)} batches, ids, dists, "
+              f"the {spec.scorer} rung on its generic kernel differs (batch seed {seed})")
+    print(f"{spec.scorer} rung on its generic kernel: {len(stream)} batches, ids, dists, "
           f"n_comps and n_steps bit-identical to the hop kernel's")
+
+
+@contextlib.contextmanager
+def kept_knn_graph(holder: dict):
+    """The GD diversifier keeps the k-NN graph it prunes in ``holder``
+    while the block runs."""
+    from repro_torch.core import build as cbuild
+
+    gd = cbuild.DIVERSIFIERS["gd"]
+
+    def keep(base, graph, spec):
+        holder["graph"] = graph
+        return gd(base, graph, spec)
+    cbuild.DIVERSIFIERS["gd"] = keep
+    try:
+        yield
+    finally:
+        cbuild.DIVERSIFIERS["gd"] = gd
+
+
+def gd_prune_on_both_routes(base, graph) -> None:
+    """``gd_prune`` of the full world's k-NN graph through the small route
+    and again through the 32 x 32 tile: the kept ids must be identical."""
+    from repro_torch.core.diversify import gd_prune
+    from repro_torch.kernels import distance_matrix as kdm
+    from repro_torch.kernels import ops
+
+    before = kdm.LAUNCHES["distance_matrix_small"]
+    kept = gd_prune(base, graph)
+    small = kdm.LAUNCHES["distance_matrix_small"] - before
+    kernel = ops.distance_matrix
+    ops.distance_matrix = kdm.distance_matrix_tile32
+    try:
+        before = kdm.LAUNCHES["distance_matrix_tile32"]
+        kept32 = gd_prune(base, graph)
+        tile32 = kdm.LAUNCHES["distance_matrix_tile32"] - before
+    finally:
+        ops.distance_matrix = kernel
+    check(small > 0 and tile32 == small, f"gd_prune launched the small route {small} times "
+          f"and the 32 x 32 tile {tile32}")
+    check(torch.equal(kept, kept32), "gd_prune keeps other ids on the small route than on "
+          "the 32 x 32 tile")
+    print(f"gd_prune of the full world's k-NN graph ({tuple(graph.neighbors.shape)}): "
+          f"{small} launches of each route, kept ids identical "
+          f"({int(kept.ge(0).sum())} kept)")
 
 
 def ground_truth_against_plain(run) -> None:
@@ -924,8 +1016,8 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      max_abs_err=errs["gather_distance_masked"], ms=k_ms,
                      plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
     print(f"  gather_distance_masked hop Q=64 R={R} d={d} ({valid:.1f} valid ids a hop): "
-          f"{HOP_KERNEL} {k_ms:.4f} ms on the device per recorded launch, the generic "
-          f"masked kernel {g_ms:.4f} ms in the same run ({g_ms / k_ms:.2f}x); "
+          f"{HOP_KERNEL} {k_ms * 1e3:.3f} us on the device per recorded launch, the generic "
+          f"masked kernel {g_ms * 1e3:.3f} us in the same run ({g_ms / k_ms:.2f}x); "
           f"{call_ms:.4f} ms a call back to back, host-bound; plain {p_ms:.4f} ms, bound "
           f"{b_ms:.5f} ms ({b_by}, {hop_bytes / 1e6:.3f} MB)")
 
@@ -1071,23 +1163,36 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
     del xw, yw
 
     # distance_matrix at the GD shape: one 65536-vertex block of (20, 20)
-    # matrices over gathered candidate rows, the 32 x 32 tile (printed, not
-    # in the JSON line)
-    L = 20
+    # matrices over gathered candidate rows (x is y, as gd_prune calls it),
+    # the small route beside the 32 x 32 tile
+    from repro_torch.kernels import distance_matrix as kdm
+
+    L = nbrs.shape[1]
     cand = nbrs[:65536].clamp(min=0).long()
     rows_g = base[cand]
     one_kernel(lambda: ops.distance_matrix(rows_g, rows_g), SMALL_MATRIX_KERNEL, "a GD block")
     k_ms = device_ms(lambda: ops.distance_matrix(rows_g, rows_g), reps=20,
                      match=SMALL_MATRIX_KERNEL, launches=1)
+    t_ms = device_ms(lambda: kdm.distance_matrix_tile32(rows_g, rows_g), reps=20,
+                     match=TILE32_MATRIX_KERNEL, launches=1)
+    call_ms = cuda_ms(lambda: ops.distance_matrix(rows_g, rows_g), reps=20)
     p_ms = device_ms(lambda: ref.distance_matrix_ref(rows_g, rows_g), reps=20)
     l_ms = device_ms(lambda: torch.cdist(rows_g, rows_g) ** 2, reps=20)
     B = rows_g.shape[0]
     gd_bytes = B * L * d * 4 + B * L * L * 4   # x is y: rows in once, matrices out
-    b_ms2, b_by2 = bound(gd_bytes, 2.0 * B * L * L * d)
+    b_ms2, b_by2 = bound(gd_bytes, 2.0 * B * L * L * d + 3.0 * B * L * L)
+    rows.append(dict(name="distance_matrix_small", route="cuda",
+                     source="src/repro_torch/kernels/csrc/distance_matrix.cu",
+                     replaces="src/repro/kernels/distance_matrix.py:62",
+                     launches=launches["distance_matrix_small"],
+                     max_abs_err=errs["distance_matrix_small"], ms=k_ms, plain_ms=p_ms,
+                     bound_ms=b_ms2, bound_by=b_by2, library_ms=l_ms))
     print(f"  distance_matrix GD block {B} x {L} x {L} x {d}: {SMALL_MATRIX_KERNEL} "
-          f"{k_ms:.4f} ms per recorded launch, "
-          f"plain {p_ms:.4f} ms, cdist**2 {l_ms:.4f} ms, bound {b_ms2:.4f} ms "
-          f"({b_by2}); a full 1M pass is {n / B:.2f} such blocks")
+          f"{k_ms:.4f} ms per recorded launch ({call_ms:.4f} ms a call back to back; "
+          f"{gd_bytes / k_ms / 1e9:.2f} TB/s, {k_ms / b_ms2:.2f}x its bound), the 32 x 32 "
+          f"tile {t_ms:.4f} ms in the same run ({t_ms / k_ms:.2f}x); plain {p_ms:.4f} ms, "
+          f"cdist**2 {l_ms:.4f} ms, bound {b_ms2:.4f} ms ({b_by2}); a full 1M pass is "
+          f"{n / B:.2f} such blocks")
     return rows
 
 
@@ -1096,6 +1201,7 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
     pq_search pass. No single PyTorch call computes any of the three, so
     ``library_ms`` is null."""
     from repro_torch.baselines.pq import build_adc_luts
+    from repro_torch.kernels import gather_sq8 as kgs
     from repro_torch.kernels import ops, ref
 
     s = run.searcher
@@ -1129,7 +1235,7 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
         ("gather_sq8_masked",
          lambda ids: ops.gather_sq8_masked(q, ids, *sq, visited),
          lambda ids: ref.gather_sq8_masked_ref(q, ids, *sq, visited),
-         "gather_sq8_kernel",
+         SQ8_HOP_KERNEL,
          # queries, scale + mn, ids in; one d-byte row and one visited word
          # per valid id; dists and ids out
          Q * d * 4 + 2 * d * 4 + Q * R * 4 + valid * (d + 4) + Q * R * 8,
@@ -1144,8 +1250,18 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
          Q * R * 4 + valid * (M + 4) + entries * 4 + Q * R * 8,
          valid * M, "src/repro/kernels/gather_adc.py:119", "gather_adc.cu"),
     ]
+    def sq8_generic(ids):
+        return kgs.gather_sq8_masked_generic(q, ids, *sq, visited)
+    one_kernel(lambda: ops.gather_sq8_masked(q, sets[0], *sq, visited), SQ8_HOP_KERNEL,
+               "an sq8 hop")
     for name, kern, plain, match, nbytes, flops, replaces, src in hops:
         k_ms = device_ms(lambda: kern(sets[next(it) % 64]), reps=640, match=match, launches=1)
+        if name == "gather_sq8_masked":
+            g_ms = device_ms(lambda: sq8_generic(sets[next(it) % 64]), reps=640,
+                             match=GENERIC_SQ8_KERNEL, launches=1)
+            print(f"  gather_sq8_masked hop: {SQ8_HOP_KERNEL} {k_ms * 1e3:.3f} us per recorded "
+                  f"launch, the generic sq8 kernel {g_ms * 1e3:.3f} us in the same run "
+                  f"({g_ms / k_ms:.2f}x)")
         call_ms = cuda_ms(lambda: kern(sets[next(it) % 64]), reps=640)
         p_ms = device_ms(lambda: plain(sets[next(it) % 64]), reps=64)
         b_ms, b_by = bound(nbytes, flops)
@@ -1559,9 +1675,11 @@ def main(argv=None) -> int:
 
     t0 = phase("phase 4: full-width world (n=1_000_000, d=64)")
     launches = {}
+    knn = {}
     ops.reset_launch_counts()
-    run = serve.serve_ann(serve.parser().parse_args(
-        ["--arch", "ann", "--device", "cuda", "--scorer", "pq"]))
+    with kept_knn_graph(knn):
+        run = serve.serve_ann(serve.parser().parse_args(
+            ["--arch", "ann", "--device", "cuda", "--scorer", "pq"]))
     torch.cuda.synchronize()
     launches["pq"] = ops.launch_counts()
     rep = run.build.report
@@ -1633,7 +1751,7 @@ def main(argv=None) -> int:
     check(0.0 < pq_r10 <= 1.0, "pq_search recall@10 out of range")
 
     for path, kernels in (("pq", ("gather_distance_pool", "gather_distance", "distance_matrix",
-                                  "gather_adc_masked")),
+                                  "distance_matrix_small", "gather_adc_masked")),
                           ("exact", ("gather_distance_masked",)),
                           ("sq8", ("gather_sq8_masked", "gather_distance")),
                           ("pq_search", ("pq_adc", "gather_distance"))):
@@ -1651,6 +1769,8 @@ def main(argv=None) -> int:
     for scorer in SCORERS:
         lockstep_rung(run.searcher, specs[scorer], run.stream, run.seeds, served[scorer])
     generic_hop_rung(run.searcher, specs["exact"], run.stream, run.seeds, served["exact"])
+    generic_hop_rung(run.searcher, specs["sq8"], run.stream, run.seeds, served["sq8"])
+    gd_prune_on_both_routes(run.searcher.base, knn.pop("graph"))
     ground_truth_against_plain(run)
     done(t0, "phase 4")
 

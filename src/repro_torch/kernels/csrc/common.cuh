@@ -2,7 +2,9 @@
 // visited-bitmap test of the mask epilogue, the distance epilogue, and the
 // 8-lane group layout (load4, group_tree, group_distances) in which the
 // NN-Descent pass (gather_distance_pool.cu) and the beam's hop
-// (gather_distance.cu) score rows with the generic gather kernel's bits.
+// (gather_distance.cu) score rows with the generic gather kernel's bits,
+// and the sq8 hop (gather_sq8.cu) uint8 rows with the generic sq8 kernel's
+// (group_sq8_distance).
 //
 // The visited bitmap is (Q, ceil(n/32)) int32 words holding the reference's
 // uint32 bits; a word is read as int32 and shifted unsigned, so bit 31 is
@@ -107,6 +109,21 @@ __device__ __forceinline__ void add4(float4 x, float4 y, int col, int d, float (
   }
 }
 
+// The distance from a group's partials (group_tree each; rr and qq for
+// cos only). cos as the generic kernels compile finish_distance: (acc *
+// rq) * rr subtracted from 1 in one fma. Spelled out here: whether nvcc
+// contracts the expression depends on the code around it, and in the
+// group layout it did not.
+template <int METRIC>
+__device__ __forceinline__ float group_finish(const float (&acc)[4], const float (&rr)[4],
+                                              const float (&qq)[4], int u, unsigned mask) {
+  const float a = group_tree(acc, u, mask);
+  if (METRIC != kCos) return finish_distance<METRIC>(a, 0.f, 0.f);
+  const float r2 = group_tree(rr, u, mask);
+  const float q2 = group_tree(qq, u, mask);
+  return __fmaf_rn(-__fmul_rn(a, rsqrtf(fmaxf(q2, 1e-12f))), rsqrtf(fmaxf(r2, 1e-12f)), 1.f);
+}
+
 // The distances of an 8-lane group's ROWS pairs: xs + xo[i] is the
 // candidate row of pair i (shared memory when XS, else global), qs + qo[i]
 // its query row (global). Lane u loads columns 32k + 4u .. 32k + 4u + 3 of a
@@ -147,19 +164,112 @@ __device__ __forceinline__ void group_distances(const float* xs, const Off (&xo)
     }
   }
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const float a = group_tree(acc[i], u, mask);
-    const float r2 = METRIC == kCos ? group_tree(rr[i], u, mask) : 0.f;
-    const float q2 = METRIC == kCos ? group_tree(qq[i], u, mask) : 0.f;
-    // cos as the generic gather kernel compiles finish_distance: (acc * rq) *
-    // rr subtracted from 1 in one fma. Spelled out here: whether nvcc
-    // contracts the expression depends on the code around it, and here it
-    // did not.
-    dist[i] = METRIC != kCos
-                  ? finish_distance<METRIC>(a, r2, q2)
-                  : __fmaf_rn(-__fmul_rn(a, rsqrtf(fmaxf(q2, 1e-12f))),
-                              rsqrtf(fmaxf(r2, 1e-12f)), 1.f);
+  for (int i = 0; i < ROWS; ++i) dist[i] = group_finish<METRIC>(acc[i], rr[i], qq[i], u, mask);
+}
+
+// How a group reads a uint8 row (group_sq8_distance). kWords16 and kWords4
+// sum in the generic sq8 kernel's 4-byte-word order (d % 4 == 0 and the
+// code table 4-byte aligned): kWords16 with 16-byte code loads and float4
+// loads of query, scale and mn (d % 16 == 0, every pointer 16-byte
+// aligned), kWords4 with 4-byte code loads and scalar float loads. kBytes
+// sums in its byte order, with byte loads.
+enum Sq8Loads { kWords16 = 0, kWords4 = 1, kBytes = 2 };
+
+// Byte B of ``w`` as a float, exactly static_cast<float> of the byte: the
+// bits of 2^23 + byte (one PRMT) less 2^23 (one FADD), no I2F.
+template <int B>
+__device__ __forceinline__ float byte_float(uint32_t w) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u | B)) - 8388608.f;
+}
+
+// The dequantized distance of one (uint8 row, query) pair in an 8-lane
+// group, with gather_sq8.cu's generic kernel's bits: every lane of the
+// group gets it. A dimension j dequantizes as fmaf(code, scale[j], mn[j]).
+// In the word order the generic kernel's lane l sums columns 4w .. 4w + 3
+// of each word w = l, l + 32, ...; so lane u of the group holds lane
+// partials 4u + c' (c' = 0..3): bytes 128t + 16u + 4c' .. + 3 of each
+// 128-byte chunk t, one 16-byte load. In the byte order lane l sums columns
+// l, l + 32, ...: lane u holds columns 32t + 4u + c, as group_distances.
+// The query's norm (cos) is summed in the byte order on both paths, as the
+// generic kernel sums it from the float row. group_tree adds each set of
+// 32 partials in warp_sum's pairs.
+template <int METRIC, int LOADS>
+__device__ __forceinline__ float group_sq8_distance(const uint8_t* __restrict__ row,
+                                                    const float* __restrict__ qrow,
+                                                    const float* __restrict__ scale,
+                                                    const float* __restrict__ mn, int d,
+                                                    int u, unsigned mask) {
+  float acc[4], rr[4], qq[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] = rr[c] = qq[c] = 0.f;
+  if (LOADS != kBytes) {
+    for (int jb = 0; jb < d; jb += 128) {
+      const int col0 = jb + 16 * u;
+      uint32_t w[4];
+      float4 y[4], s[4], m[4];
+      if (LOADS == kWords16) {   // d % 16 == 0: columns col0 .. col0 + 15 all in or all out
+        const uint4 v = col0 < d ? __ldg(reinterpret_cast<const uint4*>(row + col0))
+                                 : make_uint4(0u, 0u, 0u, 0u);
+        w[0] = v.x;
+        w[1] = v.y;
+        w[2] = v.z;
+        w[3] = v.w;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = col0 + 4 * c;
+        if (LOADS == kWords4) {
+          w[c] = col < d ? __ldg(reinterpret_cast<const uint32_t*>(row + col)) : 0u;
+        }
+        y[c] = load4<LOADS == kWords16, true>(qrow, col, d);
+        s[c] = load4<LOADS == kWords16, true>(scale, col, d);
+        m[c] = load4<LOADS == kWords16, true>(mn, col, d);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (col0 + 4 * c < d) {   // d % 4 == 0: the word's 4 columns are in
+          accumulate<METRIC>(fmaf(byte_float<0>(w[c]), s[c].x, m[c].x), y[c].x, acc[c], rr[c]);
+          accumulate<METRIC>(fmaf(byte_float<1>(w[c]), s[c].y, m[c].y), y[c].y, acc[c], rr[c]);
+          accumulate<METRIC>(fmaf(byte_float<2>(w[c]), s[c].z, m[c].z), y[c].z, acc[c], rr[c]);
+          accumulate<METRIC>(fmaf(byte_float<3>(w[c]), s[c].w, m[c].w), y[c].w, acc[c], rr[c]);
+        }
+      }
+    }
+    if (METRIC == kCos) {
+      for (int jb = 0; jb < d; jb += 32) {
+        const int col = jb + 4 * u;
+        const float4 v = load4<LOADS == kWords16, true>(qrow, col, d);
+        const float ys[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (col + c < d) qq[c] = fmaf(ys[c], ys[c], qq[c]);
+        }
+      }
+    }
+  } else {
+    for (int jb = 0; jb < d; jb += 32) {
+      const int col = jb + 4 * u;
+      float code[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        code[c] = col + c < d ? static_cast<float>(__ldg(row + col + c)) : 0.f;
+      }
+      const float4 y4 = load4<false, true>(qrow, col, d);
+      const float4 s4 = load4<false, true>(scale, col, d);
+      const float4 m4 = load4<false, true>(mn, col, d);
+      const float ys[4] = {y4.x, y4.y, y4.z, y4.w};
+      const float ss[4] = {s4.x, s4.y, s4.z, s4.w};
+      const float ms[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (col + c < d) {
+          accumulate<METRIC>(fmaf(code[c], ss[c], ms[c]), ys[c], acc[c], rr[c]);
+          if (METRIC == kCos) qq[c] = fmaf(ys[c], ys[c], qq[c]);
+        }
+      }
+    }
   }
+  return group_finish<METRIC>(acc, rr, qq, u, mask);
 }
 
 // The instance of the group layout for a row of d columns: KB

@@ -10,17 +10,38 @@
 // What bounds it: for ground truth (q = 512 against n = 1M at d = 64) the
 // flops, 2*q*n*d = 67 GFLOP, about 1.0 ms at the 67 TFLOP/s fp32 peak (the
 // 2.1 GB of output is 0.63 ms at 3.35 TB/s). For the GD occlusion test
-// (B = 65,536 matrices of 20 x 20 at d = 64 a block) the bytes of the
-// gathered candidate rows. On an H100 SXM the 128 tile's FMA loop stays
-// well below the fp32 peak even at d = 1024, and at d = 64 a tile's 8
-// k-steps also carry its first loads and its 64 KB of stores. chip_smoke.py
-// phase 5 prints both rates beside PyTorch's fp32 product (torch.mm, TF32
-// off); PERF.md records them.
+// (B = 65,536 matrices of 20 x 20 at d = 64 a call, x is y) the bytes: the
+// gathered rows once (335.5 MB) and the matrices out (104.9 MB), 0.13 ms
+// at 3.35 TB/s; its 3.4 GFLOP are 0.05 ms. chip_smoke.py phase 5 prints
+// both rates beside PyTorch's calls; PERF.md records them.
 //
-// Two routes; the wrapper picks one (distance_matrix.matrix_route) and the
-// batch index and the n-tile share gridDim.x, so B is not limited by
-// gridDim.z. The ragged q, n and d edges are masked in the kernels.
+// Three kernels. The wrapper picks the route (distance_matrix.matrix_route
+// and small_plan); the ragged q, n and d edges are handled in the kernels.
 //
+//   - distance_matrix_small_kernel, the route wherever q, n <= 32 (the GD
+//     batch): one warp a matrix, 8 warps a block, a persistent grid whose
+//     warps walk over the matrices. A warp stages its matrix's rows in
+//     shared memory with cp.async (16-byte copies where d % 4 == 0 and x, y
+//     are 16-byte aligned, else 4-byte ones), every copy of a stage sent
+//     before any wait, double-buffered per warp so the next stage's copies
+//     are in flight under this stage's FMAs; a stage is a chunk of kc
+//     columns of one matrix (kc = 64 at the GD shape, the whole row). When
+//     x and y are one tensor (the GD call) one copy serves both sides.
+//     Rows are padded to a stride with stride / 4 odd, so the float4 reads
+//     of neighbouring rows fall in different bank groups. Lane t holds the
+//     4 x 4 outputs (rows bi + RB*i, columns bj + CB*j) of block t of the
+//     RB x CB blocks (RB = ceil(q/4), CB = ceil(n/4); a second block t + 32
+//     where RB*CB > 32), none on padding. Where x is y and q <= 20 (the GD
+//     call) the dot products are symmetric bit for bit, so lane t sums a 4
+//     x 2 half of one block on or above the diagonal and writes each sum to
+//     (r, c) and (c, r), each with its own epilogue: 30 of 32 lanes at 20 x
+//     20 and half the FMAs. Lane r sums row r's norm. The outputs go
+//     through shared memory and out as float4 stores across the warp: a
+//     matrix's q*n outputs are contiguous. Its sums are the 32 x 32 tile's:
+//     each dot product and norm one fmaf chain over k = 0..d-1, the same
+//     epilogue, so the two give the same bits. At the GD shape loads and
+//     stores alone take about as long as the FMAs alone (PERF.md), and the
+//     two overlap across the 16 warps of an SM.
 //   - distance_matrix_large_kernel (tile 128): a 128 x 128 output tile a
 //     block, 256 threads, an 8 x 8 register tile a thread: rows ty*4 + i and
 //     64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j, so a k-step reads 4
@@ -39,10 +60,12 @@
 //     and the epilogue reads them from shared memory. At most 128
 //     registers a thread, so two blocks fit an SM. Ordinary stores: the
 //     caller's top-k reads a ground-truth chunk (512 x 16,384 x 4 B =
-//     33.5 MB) back from L2.
-//   - distance_matrix_kernel (tile 32): the 32 x 32 tile for the GD
-//     batch of small matrices (q, n <= 32), where a wider tile would idle
-//     most of its threads; 2 x 2 sums a thread, norms in the product loop.
+//     33.5 MB) back from L2. The batch index and the n-tile share
+//     gridDim.x, so B is not limited by gridDim.z.
+//   - distance_matrix_kernel (tile 32): the first 32 x 32 tile a block for q,
+//     n <= 32, 2 x 2 sums a thread, norms in the product loop. No path of
+//     the port runs it: it is the small route's yardstick, bit for bit and
+//     in time (distance_matrix.distance_matrix_tile32).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,7 +84,7 @@ __device__ __forceinline__ float finish(float acc, float xx, float yy) {
   return 1.f - acc * rsqrtf(fmaxf(xx, 1e-12f)) * rsqrtf(fmaxf(yy, 1e-12f));
 }
 
-// ---- tile 32: the GD batch -------------------------------------------------
+// ---- tile 32: the small route's yardstick ----------------------------------
 
 constexpr int kSmallBK = 16;
 
@@ -138,6 +161,273 @@ distance_matrix_kernel(const float* __restrict__ x, const float* __restrict__ y,
       if (gc >= n) continue;
       out[static_cast<int64_t>(gr) * n + gc] = finish<METRIC>(acc[i][j], xx[i], yy[j]);
     }
+  }
+}
+
+// ---- the small route: one warp a matrix ------------------------------------
+
+constexpr int kSmallWarps = 8;
+constexpr int kNormSlots = 64;   // a warp's norms: x rows at 0.., y rows at 32..
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of ``bytes`` (16 or 4) with a source size: src_bytes < bytes
+// fills the rest of the destination with zeros.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int src_bytes) {
+  if (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(src_bytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One stage of a warp: columns [c0, c0 + width) of the ``rows`` rows of its
+// matrix (x rows, then y rows unless x is y) into ``buf``, row r at r *
+// stride, zero-filled up to a multiple of 4 columns. VEC: 16-byte copies
+// (d % 4 == 0, x and y 16-byte aligned, so width % 4 == 0), else 4-byte.
+template <bool VEC>
+__device__ __forceinline__ void stage_rows(float* buf, const float* xm, const float* ym,
+                                           int q, int rows, int d, int c0, int width,
+                                           int stride, int lane) {
+  const int step = VEC ? 4 : 1;
+  const int per = VEC ? width / 4 : (width + 3) & ~3;   // copies a row
+  if (per == 0) return;
+  auto copy = [&](int r, int p) {
+    const float* row = (r < q ? xm + static_cast<int64_t>(r) * d
+                              : ym + static_cast<int64_t>(r - q) * d) + c0;
+    const int col = p * step;
+    if (VEC) {
+      cp_async<16>(buf + r * stride + col, row + col, 16);
+    } else {
+      const bool in = col < width;
+      cp_async<4>(buf + r * stride + col, in ? row + col : row, in ? 4 : 0);
+    }
+  };
+  if (per <= 32) {   // 32 / per rows a pass, one copy a lane
+    const int rpp = 32 / per;
+    const int r0 = lane / per, p = lane - r0 * per;
+    if (r0 < rpp) {
+      for (int r = r0; r < rows; r += rpp) copy(r, p);
+    }
+  } else {
+    for (int r = 0; r < rows; ++r) {
+      for (int p = lane; p < per; p += 32) copy(r, p);
+    }
+  }
+}
+
+template <int METRIC>
+__device__ __forceinline__ float finish_small(float acc, float xx, float yy) {
+  if (METRIC != kCos) return finish<METRIC>(acc, xx, yy);
+  // cos as distance_matrix_kernel compiles finish: (acc * rx) * ry
+  // subtracted from 1 in one fma. Spelled out, as whether nvcc contracts
+  // the expression depends on the code around it.
+  return __fmaf_rn(-__fmul_rn(acc, rsqrtf(fmaxf(xx, 1e-12f))), rsqrtf(fmaxf(yy, 1e-12f)),
+                   1.f);
+}
+
+// SYM (x is y, q <= 20): the dot products are symmetric bit for bit (an
+// fmaf's product is exact, so fmaf(a, b, c) == fmaf(b, a, c)), so a lane
+// sums a 4 x 2 half of one of the RB (RB + 1) / 2 blocks on or above the
+// diagonal (rows bi + RB*i, columns bj + RB*(2h + j), bi <= bj) and writes
+// each output twice, (r, c) and (c, r), each with its own epilogue: 30 of
+// 32 lanes at 20 x 20, half the FMAs. Duplicates on the diagonal blocks
+// write equal values.
+constexpr int kSymMaxRB = 5;
+
+// B matrices of (q, d) x (n, d), q, n <= 32; ``same``: y is x. A warp's
+// shared memory: two stage buffers of rows * stride floats, the matrix's
+// q*n outputs (rounded up to 4) and kNormSlots norms. PASSES: output blocks
+// a lane (2 where RB*CB > 32; 1 for SYM). VEC: as stage_rows.
+template <int METRIC, int PASSES, bool VEC, bool SYM>
+__global__ void __launch_bounds__(kSmallWarps * 32, 2)
+distance_matrix_small_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                             float* __restrict__ out, int B, int q, int n, int d, int same,
+                             int kc, int stride) {
+  constexpr int NC = SYM ? 2 : 4;   // columns a lane's block
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int rows = same ? q : q + n;
+  const int buf_floats = rows * stride;
+  const int qn = q * n;
+  const int out_floats = (qn + 3) & ~3;
+  float* ws = smem + warp * (2 * buf_floats + out_floats + kNormSlots);
+  float* out_s = ws + 2 * buf_floats;
+  float* norm_s = out_s + out_floats;
+
+  const int chunks = max(1, (d + kc - 1) / kc);   // d = 0: one empty stage
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kSmallWarps;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kSmallWarps + warp;
+  if (first >= B) return;   // warp-uniform; no block barrier follows
+  const int64_t stages = ((B - 1 - first) / warps + 1) * chunks;
+
+  // this lane's output block of each pass: rows r[i], columns c[j]; the
+  // staged row of each (clamped: a row past q or n is read, never stored)
+  const int RB = (q + 3) / 4, CB = (n + 3) / 4;
+  const int yoff = same ? 0 : q;
+  bool active[PASSES];
+  int r_[PASSES][4], c_[PASSES][NC], xr[PASSES][4], yr[PASSES][NC];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+    const int blk = p * 32 + lane;
+    int bi = 0, bj = 0, c0 = 0, cstep = CB;
+    if (SYM) {   // half h of block t of the blocks on or above the diagonal
+      active[p] = blk < RB * (RB + 1);
+      int t = active[p] ? blk >> 1 : 0;
+      while (t >= RB - bi) {
+        t -= RB - bi;
+        ++bi;
+      }
+      bj = bi + t;
+      c0 = RB * 2 * (blk & 1);
+      cstep = RB;
+    } else {
+      active[p] = blk < RB * CB;
+      bi = active[p] ? blk / CB : 0;
+      bj = active[p] ? blk % CB : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r_[p][i] = bi + RB * i;
+      xr[p][i] = min(r_[p][i], q - 1) * stride;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      c_[p][j] = bj + c0 + cstep * j;
+      yr[p][j] = (yoff + min(c_[p][j], n - 1)) * stride;
+    }
+  }
+
+  auto load_stage = [&](int64_t s) {
+    const int64_t m = first + (s / chunks) * warps;
+    const int c0 = static_cast<int>(s % chunks) * kc;
+    stage_rows<VEC>(ws + (s & 1) * buf_floats, x + m * q * d, y + m * n * d, q, rows, d, c0,
+                    min(kc, d - c0), stride, lane);
+  };
+
+  float acc[PASSES][4][NC];
+#pragma unroll
+  for (int p = 0; p < PASSES; ++p) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[p][i][j] = 0.f;
+    }
+  }
+  float nx = 0.f, ny = 0.f;   // lane r: the norm of x row r, of y row r
+
+  load_stage(0);
+  cp_async_commit();
+  for (int64_t s = 0; s < stages; ++s) {
+    if (s + 1 < stages) load_stage(s + 1);   // into the buffer stage s - 1 read
+    cp_async_commit();
+    cp_async_wait_prior();              // this lane's copies of stage s
+    __syncwarp();                       // ... and every lane's
+    const float* bs = ws + (s & 1) * buf_floats;
+    const int c = static_cast<int>(s % chunks);
+    const int w4 = (min(kc, d - c * kc) + 3) & ~3;
+    if (lane < q) {
+      const float* r = bs + lane * stride;
+      for (int k = 0; k < w4; k += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(r + k);
+        nx = fmaf(v.x, v.x, nx);
+        nx = fmaf(v.y, v.y, nx);
+        nx = fmaf(v.z, v.z, nx);
+        nx = fmaf(v.w, v.w, nx);
+      }
+    }
+    if (!same && lane < n) {
+      const float* r = bs + (q + lane) * stride;
+      for (int k = 0; k < w4; k += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(r + k);
+        ny = fmaf(v.x, v.x, ny);
+        ny = fmaf(v.y, v.y, ny);
+        ny = fmaf(v.z, v.z, ny);
+        ny = fmaf(v.w, v.w, ny);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      if (!active[p]) continue;
+      for (int k = 0; k < w4; k += 4) {   // the product
+        float4 a[4], b[NC];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(bs + xr[p][i] + k);
+#pragma unroll
+        for (int j = 0; j < NC; ++j) b[j] = *reinterpret_cast<const float4*>(bs + yr[p][j] + k);
+        // columns k .. k + 3 in order: each sum's fmaf chain runs over k
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[p][i][j] = fmaf(a[i].x, b[j].x, acc[p][i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[p][i][j] = fmaf(a[i].y, b[j].y, acc[p][i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[p][i][j] = fmaf(a[i].z, b[j].z, acc[p][i][j]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[p][i][j] = fmaf(a[i].w, b[j].w, acc[p][i][j]);
+        }
+      }
+    }
+    __syncwarp();   // every lane is done reading this buffer
+    if (c != chunks - 1) continue;
+
+    // the matrix is done: norms to shared memory, the outputs through
+    // shared memory, then out as one contiguous span
+    if (lane < q) norm_s[lane] = nx;
+    if (lane < n) norm_s[32 + lane] = same ? nx : ny;
+    nx = ny = 0.f;
+    __syncwarp();
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r_[p][i];
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const int col = c_[p][j];
+          if (active[p] && r < q && col < n) {
+            out_s[r * n + col] = finish_small<METRIC>(acc[p][i][j], norm_s[r], norm_s[32 + col]);
+            if (SYM) {   // the mirror output, (col, r): its own epilogue
+              out_s[col * n + r] =
+                  finish_small<METRIC>(acc[p][i][j], norm_s[col], norm_s[32 + r]);
+            }
+          }
+          acc[p][i][j] = 0.f;
+        }
+      }
+    }
+    __syncwarp();
+    float* om = out + (first + (s / chunks) * warps) * qn;
+    if ((qn & 3) == 0) {   // om is 16-byte aligned: out is, and qn % 4 == 0
+      for (int e = lane * 4; e < qn; e += 128) {
+        *reinterpret_cast<float4*>(om + e) = *reinterpret_cast<const float4*>(out_s + e);
+      }
+    } else {
+      for (int e = lane; e < qn; e += 32) om[e] = out_s[e];
+    }
+    // out_s is written again only after the next stage's __syncwarp
   }
 }
 
@@ -320,10 +610,38 @@ void launch_metric(int tile, int B, int q, int n, int d, cudaStream_t stream,
   }
 }
 
+template <int METRIC, int PASSES, bool SYM>
+void launch_small(bool vec, unsigned blocks, size_t smem, cudaStream_t stream,
+                  const float* x, const float* y, float* out, int B, int q, int n, int d,
+                  int same, int kc, int stride) {
+  auto kernel = vec ? distance_matrix_small_kernel<METRIC, PASSES, true, SYM>
+                    : distance_matrix_small_kernel<METRIC, PASSES, false, SYM>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  kernel<<<blocks, kSmallWarps * 32, smem, stream>>>(x, y, out, B, q, n, d, same, kc, stride);
+}
+
+template <int METRIC>
+void launch_small_metric(bool vec, unsigned blocks, size_t smem, cudaStream_t stream,
+                         const float* x, const float* y, float* out, int B, int q, int n,
+                         int d, int same, int kc, int stride) {
+  if (same && (q + 3) / 4 <= kSymMaxRB) {
+    launch_small<METRIC, 1, true>(vec, blocks, smem, stream, x, y, out, B, q, n, d, same, kc,
+                                  stride);
+  } else if (((q + 3) / 4) * ((n + 3) / 4) > 32) {
+    launch_small<METRIC, 2, false>(vec, blocks, smem, stream, x, y, out, B, q, n, d, same, kc,
+                                   stride);
+  } else {
+    launch_small<METRIC, 1, false>(vec, blocks, smem, stream, x, y, out, B, q, n, d, same, kc,
+                                   stride);
+  }
+}
+
 }  // namespace
 
 // x (B, q, d) f32, y (B, n, d) f32 -> out (B, q, n) f32, all contiguous on
-// one device. tile is the route: 32 (the GD batch) or 128. Returns
+// one device. tile picks the kernel: 128 (the large route) or 32 (the
+// 32 x 32 tile, q, n <= 32: the small route's yardstick). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue (1) for another
 // tile.
 extern "C" int distance_matrix_f32(const float* x, const float* y, float* out,
@@ -341,6 +659,43 @@ extern "C" int distance_matrix_f32(const float* x, const float* y, float* out,
         break;
       default:
         launch_metric<kCos>(tile, B, q, n, d, s, x, y, out);
+        break;
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The small route (distance_matrix_small_kernel): x (B, q, d) f32, y (B, n,
+// d) f32 -> out (B, q, n) f32, all contiguous on one device, 1 <= q, n <=
+// 32; same != 0 when y is x. kc columns a stage (a multiple of 4), rows
+// padded to ``stride`` floats (a multiple of 4), ``blocks`` blocks of 8
+// warps (distance_matrix.small_plan and matrix_route). Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue (1) for a
+// plan the kernel does not take.
+extern "C" int distance_matrix_small_f32(const float* x, const float* y, float* out, int B,
+                                         int q, int n, int d, int metric, int same, int kc,
+                                         int stride, int blocks, void* stream) {
+  const size_t warp_floats = 2 * static_cast<size_t>(same ? q : q + n) * stride +
+                             ((q * n + 3) & ~3) + kNormSlots;
+  const size_t smem = kSmallWarps * warp_floats * sizeof(float);
+  if (q < 1 || q > 32 || n < 1 || n > 32 || d < 0 || kc < 4 || kc % 4 != 0 ||
+      stride < kc || stride % 4 != 0 || blocks < 1 || (same && q != n) ||
+      smem > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B > 0) {
+    const bool vec = d % 4 == 0 && aligned16(x) && aligned16(y);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned nb = static_cast<unsigned>(blocks);
+    switch (metric) {
+      case kL2:
+        launch_small_metric<kL2>(vec, nb, smem, s, x, y, out, B, q, n, d, same, kc, stride);
+        break;
+      case kIp:
+        launch_small_metric<kIp>(vec, nb, smem, s, x, y, out, B, q, n, d, same, kc, stride);
+        break;
+      default:
+        launch_small_metric<kCos>(vec, nb, smem, s, x, y, out, B, q, n, d, same, kc, stride);
         break;
     }
   }

@@ -261,6 +261,42 @@ def test_cuda_distance_matrix_large_route_matches_plain(cuda, metric, shape):
         assert torch.equal(got[:, 1], torch.ones_like(got[:, 1]))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("case", ["GD 1000x20x20x64 x is y", "GD 1000x20x20x64 x != y",
+                                  "5x7x3x130", "3x32x32x960", "2x1x1x1",
+                                  "x at a 4-byte offset", "zero rows"])
+def test_cuda_small_route_is_bit_identical_to_the_32_tile(cuda, metric, case):
+    """The small route (one warp a matrix) gives the 32 x 32 tile's bits at
+    every shape it takes: x is y (one staged copy) and x != y, ragged q / n
+    / d (4-byte copies), d = 960 in k-chunks, q = n = 1, an operand at a
+    4-byte offset, zero rows (cos clamps their norms); within the plain
+    version's tolerance (test_cuda_distance_matrix_matches_plain's)."""
+    shape = {"5x7x3x130": (5, 7, 3, 130), "3x32x32x960": (3, 32, 32, 960),
+             "2x1x1x1": (2, 1, 1, 1)}.get(case, (1000, 20, 20, 64))
+    B, q, n, d = shape
+    rng = np.random.default_rng(B + q + n + d + len(case))
+    x = _c(rng.standard_normal((B, q, d), dtype=np.float32), cuda)
+    y = x if case == "GD 1000x20x20x64 x is y" else _c(
+        rng.standard_normal((B, n, d), dtype=np.float32), cuda)
+    if case == "x at a 4-byte offset":
+        flat = torch.zeros(x.numel() + 1, device=cuda)
+        flat[1:] = x.flatten()
+        x = flat[1:].view(x.shape)
+    if case == "zero rows":
+        x[:, 1] = 0.0
+        y[:, -1] = 0.0
+    assert cuda_dm.matrix_route(B, q, n, d)[0] == cuda_dm.SMALL_TILE
+    before = dict(cuda_dm.LAUNCHES)
+    got = cuda_dm.distance_matrix(x, y, metric)
+    assert cuda_dm.LAUNCHES["distance_matrix_small"] == before["distance_matrix_small"] + 1
+    assert torch.equal(got, cuda_dm.distance_matrix_tile32(x, y, metric))
+    torch.testing.assert_close(got, ref.distance_matrix_ref(x, y, metric), rtol=1e-4,
+                               atol=1e-4 * (d if metric == "l2" else 1))
+    if case == "zero rows" and metric == "cos":
+        assert torch.equal(got[:, 1], torch.ones_like(got[:, 1]))
+
+
 def _codes(rng, n, d, M, K, dev):
     """sq8 codes with scale/mn (dimension 0 zero-range: scale 1) and PQ
     codes, on ``dev``."""
@@ -289,6 +325,36 @@ def test_cuda_gather_sq8_matches_plain(cuda, metric, Q, R, n, d):
         want_d, want_i = ref.gather_sq8_masked_ref(qt, it, table, scale, mn, vt, metric)
         assert torch.equal(got_i, want_i)
         torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("Q,R,n,d", [(64, 20, 5000, 64), (9, 37, 700, 1), (9, 37, 700, 5),
+                                     (9, 37, 700, 17), (9, 37, 700, 50), (9, 37, 700, 100),
+                                     (9, 37, 700, 130), (3, 240, 300, 64), (5, 3, 70, 32)])
+def test_cuda_sq8_hop_is_bit_identical_to_the_generic_kernel(cuda, metric, Q, R, n, d):
+    """The sq8 hop kernel (one 8-lane group a pair) gives the generic sq8
+    kernel's distances and ids bit for bit: ragged d on the word path (d %
+    4 == 0; 16-byte code loads where d % 16 == 0) and the byte path; a table
+    at a 1-byte offset (the byte path at every d); R past 32; Q x R past one
+    block of 16 pairs; an all-padding row, a row with every id visited, ids
+    past n - 1; within GATHER_TOL of the plain version."""
+    queries, _, ids, visited = _hop_world(Q, R, n, d, seed=10)
+    qt, it = _c(queries, cuda), _c(ids, cuda, torch.int32)
+    vt = convert.bitmap_from_uint32(visited, cuda)
+    (codes, scale, mn), _ = _codes(np.random.default_rng(n + d), n + 1, d, 8, 16, cuda)
+    raw = torch.zeros((n * d + 1,), dtype=torch.uint8, device=cuda)
+    raw[1:] = codes[:n].flatten()
+    for table in (codes[:n], raw[1:].view(n, d)):   # aligned, and at a 1-byte offset
+        got_d, got_i = cuda_gs.gather_sq8_masked(qt, it, table, scale, mn, vt, metric)
+        gen_d, gen_i = cuda_gs.gather_sq8_masked_generic(qt, it, table, scale, mn, vt, metric)
+        assert torch.equal(got_i, gen_i) and torch.equal(got_d, gen_d)
+        want_d, want_i = ref.gather_sq8_masked_ref(qt, it, table, scale, mn, vt, metric)
+        assert torch.equal(got_i, want_i)
+        torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+        if Q > 3:
+            assert (got_i[0] == -1).all() and torch.isinf(got_d[0]).all()
+            assert (got_i[2] == -1).all() and torch.isinf(got_d[2]).all()
 
 
 @pytest.mark.cuda
@@ -341,7 +407,9 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_pool": 4,
                                    "gather_distance_masked": 1,
                                    "gather_distance_masked_generic": 0,
-                                   "distance_matrix": 1, "gather_sq8_masked": 1,
+                                   "distance_matrix": 1, "distance_matrix_small": 0,
+                                   "distance_matrix_tile32": 0, "gather_sq8_masked": 1,
+                                   "gather_sq8_masked_generic": 0,
                                    "gather_adc_masked": 1, "pq_adc": 1,
                                    "flash_attention": 1}
     with pytest.raises(ValueError, match="contiguous"):

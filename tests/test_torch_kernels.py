@@ -415,19 +415,20 @@ def test_hop_lane_layout_gives_the_plain_sum(metric, d):
 @pytest.mark.parametrize("shape,tile,grid", [
     ((1, 512, 16384, 64), 128, (128, 4)),        # a ground-truth chunk
     ((1, 512, 576, 64), 128, (5, 4)),            # its last chunk at n = 1M
-    ((65536, 20, 20, 64), 32, (65536, 1)),       # a GD block
-    ((1000, 32, 32, 64), 32, (1000, 1)),         # the small route's edge
+    ((65536, 20, 20, 64), 32, (264, 1)),         # a GD block: 2 blocks an SM
+    ((1000, 32, 32, 64), 32, (125, 1)),          # the small route's edge
     ((1000, 33, 32, 64), 128, (1000, 1)),
     ((1, 32, 33, 8), 128, (1, 1)),
-    ((5, 7, 3, 130), 32, (5, 1)),
+    ((5, 7, 3, 130), 32, (1, 1)),
     ((3, 200, 150, 64), 128, (6, 2)),            # B > 1 on the large route
     ((1, 129, 257, 960), 128, (3, 2)),
     ((1, 1, 1, 1), 32, (1, 1)),
-    ((1, 0, 5, 4), 32, (1, 0))])
+    ((1, 0, 5, 4), 32, (1, 1))])
 def test_matrix_route_picks_the_tile_and_grid(shape, tile, grid):
-    """The 32 x 32 tile only where both sides are at most 32 wide (the GD
-    batch); else the 128 x 128 tile. Grid x holds B x the n-tiles, y the
-    q-tiles."""
+    """The small route only where both sides are at most 32 wide (the GD
+    batch): a persistent grid of 8-warp blocks, 2 an SM of the H100's 132,
+    fewer where B needs fewer. Else the 128 x 128 tile: grid x holds B x
+    the n-tiles, y the q-tiles."""
     assert cuda_dm.matrix_route(*shape) == (tile, grid)
 
 
@@ -435,11 +436,95 @@ def test_matrix_route_picks_the_tile_and_grid(shape, tile, grid):
     (1, 65535 * 128 + 1, 64, 8),       # q-tiles past gridDim.y
     (2**20, 64, 2**18, 8),             # B x n-tiles past gridDim.x
     (1, 64, 64, 2**31),                # d past int32
+    (2**31, 20, 20, 64),               # small route: B past int32
+    (4, 20, 20, 2**31),                # small route: d past int32
     (1, -1, 4, 4)])
 def test_matrix_route_rejects_what_the_grid_cannot_take(shape):
     with pytest.raises(ValueError, match="launch grid|negative"):
         cuda_dm.matrix_route(*shape)
     assert cuda_dm.matrix_route(1, 65535 * 128, 64, 8) == (128, (1, 65535))
+    assert cuda_dm.matrix_route(2**31 - 1, 20, 20, 64, sms=132) == (32, (264, 1))
+
+
+@pytest.mark.parametrize("q,n,d,same", [(20, 20, 64, True), (20, 20, 64, False),
+                                        (32, 32, 960, False), (32, 32, 960, True),
+                                        (7, 3, 130, False), (1, 1, 1, True),
+                                        (5, 9, 17, False), (32, 1, 0, False)])
+def test_small_plan_fits_two_blocks_an_sm(q, n, d, same):
+    """The small route's stages: kc a multiple of 4 up to 64 (the whole row
+    at the GD shape), a row stride with stride / 4 odd, and shared memory
+    for two 8-warp blocks an SM of the H100 (228 KB, 1 KB reserved a
+    block); kc is the widest that fits."""
+    plan = cuda_dm.small_plan(q, n, d, same)
+    assert plan.kc % 4 == 0 and 4 <= plan.kc <= cuda_dm.MAX_KC
+    assert plan.stride >= plan.kc and plan.stride % 4 == 0 and (plan.stride // 4) % 2 == 1
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    rows = q if same else q + n
+    room = cuda_dm.SMALL_WARP_FLOATS - 4 * -(-q * n // 4) - cuda_dm.NORM_SLOTS
+    assert plan.smem_bytes == 4 * cuda_dm.SMALL_WARPS * (
+        2 * rows * plan.stride + 4 * -(-q * n // 4) + cuda_dm.NORM_SLOTS)
+    wider = plan.kc + 4
+    assert (wider > min(cuda_dm.MAX_KC, 4 * -(-d // 4))
+            or 2 * rows * cuda_dm._stride(wider) > room)
+    if (q, n, d, same) == (20, 20, 64, True):   # the GD block: one stage a matrix
+        assert plan == (64, 68, 101888)
+    for bad in ((0, 4, 8, False), (33, 4, 8, False), (4, 5, 8, True), (4, 4, -1, False)):
+        with pytest.raises(ValueError, match="small-route"):
+            cuda_dm.small_plan(*bad)
+
+
+@pytest.mark.parametrize("q,n", [(20, 20), (32, 32), (1, 1), (7, 3), (17, 29), (32, 5)])
+def test_small_route_lanes_cover_each_output_once(q, n):
+    """The small kernel's lane layout (csrc/distance_matrix.cu): lane t of
+    pass p holds block b = 32p + t of the RB x CB blocks, rows bi + RB*i and
+    columns bj + CB*j; the valid ones cover every output of a q x n matrix
+    exactly once, no lane holds only padding, and the GD shape needs one
+    pass of 25 lanes."""
+    RB, CB = -(-q // 4), -(-n // 4)
+    passes = 2 if RB * CB > 32 else 1
+    seen = np.zeros((q, n), np.int32)
+    for b in range(RB * CB):
+        bi, bj = divmod(b, CB)
+        cells = [(bi + RB * i, bj + CB * j) for i in range(4) for j in range(4)]
+        valid = [(r, c) for r, c in cells if r < q and c < n]
+        assert valid
+        for r, c in valid:
+            seen[r, c] += 1
+    assert (seen == 1).all()
+    assert RB * CB <= 32 * passes
+    if (q, n) == (20, 20):
+        assert (RB * CB, passes) == (25, 1)
+
+
+@pytest.mark.parametrize("q", [20, 17, 16, 12, 5, 1])
+def test_symmetric_small_route_covers_each_output(q):
+    """The small kernel's SYM layout (x is y, q <= 20): lane t holds half t
+    % 2 of block t // 2 of the blocks on or above the diagonal (rows bi +
+    RB*i, columns bj + RB*(2h + j), bi <= bj) and writes (r, c) and (c, r);
+    together the lanes write every output, and every output is written from
+    the dot product of its own (r, c) pair or of (c, r), which an fmaf chain
+    gives with the same bits. 30 of 32 lanes at 20 x 20."""
+    RB = -(-q // 4)
+    half_blocks = RB * (RB + 1)
+    assert half_blocks <= 32
+    written = np.zeros((q, q), np.int32)
+    for lane in range(half_blocks):
+        t, bi = lane >> 1, 0
+        while t >= RB - bi:
+            t -= RB - bi
+            bi += 1
+        bj = bi + t
+        assert bi <= bj < RB
+        for i in range(4):
+            for j in range(2):
+                r, c = bi + RB * i, bj + RB * (2 * (lane & 1) + j)
+                if r < q and c < q:
+                    written[r, c] += 1
+                    written[c, r] += 1
+    assert (written >= 1).all()
+    assert (written[~np.eye(q, dtype=bool)] <= 2).all()
+    if q == 20:
+        assert half_blocks == 30
 
 
 @pytest.mark.parametrize("case", ["unknown metric", "float64 base", "int64 pool",
@@ -525,6 +610,111 @@ def test_gather_sq8_masked_ref_matches_reference(metric, Q, R, n, d):
         np.asarray(jref.gather_sq8_ref(jnp.asarray(w["queries"]), jnp.asarray(w["ids"]),
                                        jnp.asarray(w["sq_codes"]), jnp.asarray(w["scale"]),
                                        jnp.asarray(w["mn"]), metric)), **GATHER_TOL)
+
+
+def _sq8_word_lanes(d):
+    """gather_sq8_kernel's word order (d % 4 == 0, a 4-byte aligned table):
+    lane l adds columns 4w .. 4w + 3 of words w = l, l + 32, ..."""
+    for w in range(d // 4):
+        for c in range(4):
+            yield 4 * w + c, w % 32
+
+
+def _sq8_group_word_lanes(d):
+    """gather_sq8_hop_kernel's word order (common.cuh group_sq8_distance):
+    128-column chunks; lane u of the group holds partials 4u + c', columns
+    128t + 16u + 4c' .. + 3 (one 16-byte code load)."""
+    for jb in range(0, d, 128):
+        for u in range(8):
+            for cp in range(4):
+                col0 = jb + 16 * u + 4 * cp
+                if col0 < d:
+                    for c in range(4):
+                        yield col0 + c, 4 * u + cp
+
+
+def _sq8_group_byte_lanes(d):
+    """gather_sq8_hop_kernel's byte order: 32-column chunks, lane u holds
+    partials 4u + c, columns 32t + 4u + c."""
+    for jb in range(0, d, 32):
+        for u in range(8):
+            for c in range(4):
+                if jb + 4 * u + c < d:
+                    yield jb + 4 * u + c, 4 * u + c
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d,path", [(d, "bytes") for d in (1, 5, 17, 50, 100, 130)]
+                         + [(d, "words") for d in (4, 20, 64, 100, 132, 260)])
+def test_sq8_hop_lane_layout_gives_the_generic_sum(metric, d, path):
+    """The sq8 hop kernel's group layout, emulated in float32 at ragged d, on
+    the word path (d % 4 == 0) and the byte path: its partials are the
+    generic sq8 kernel's, each summed in the same column order (the query's
+    norm in the byte order on both), and group_tree gives warp_sum's bits;
+    the distance lies within GATHER_TOL of the plain version and of the JAX
+    reference's plain gather_sq8, masked and unmasked."""
+    w = _codes_world(6, 9, 300, d, 4, 16, seed=d)
+    ids = w["ids"]
+    ok = ids >= 0
+    rows = _fma(w["sq_codes"][ids[ok]].astype(np.float32), w["scale"], w["mn"])
+    qrows = np.repeat(w["queries"], ids.shape[1], axis=0)[ok.ravel()]
+    generic_lanes, group_lanes = ((_sq8_word_lanes, _sq8_group_word_lanes) if path == "words"
+                                  else (_generic_lanes, _sq8_group_byte_lanes))
+    acc, rr, _ = _emulated_sums(rows, qrows, metric, group_lanes)
+    g_acc, g_rr, _ = _emulated_sums(rows, qrows, metric, generic_lanes)
+    qq = _emulated_sums(rows, qrows, metric, _sq8_group_byte_lanes)[2]
+    g_qq = _emulated_sums(rows, qrows, metric, _generic_lanes)[2]
+    for h, g in ((acc, g_acc), (rr, g_rr), (qq, g_qq)):
+        assert h.tobytes() == g.tobytes()
+    sums = []
+    for part in (acc, rr, qq):
+        tree = _emulated_group_tree(part.reshape(-1, 8, 4))
+        assert (tree == tree[:, :1]).all()
+        assert tree[:, 0].tobytes() == _xor_tree(part)[:, 0].tobytes()
+        sums.append(tree[:, 0])
+    a, r2, q2 = sums
+    if metric == "l2":
+        dist = a
+    elif metric == "ip":
+        dist = -a
+    else:
+        rq = (1.0 / np.sqrt(np.maximum(q2, np.float32(1e-12)))).astype(np.float32)
+        rs = (1.0 / np.sqrt(np.maximum(r2, np.float32(1e-12)))).astype(np.float32)
+        dist = (1.0 - a * rq * rs).astype(np.float32)
+    got = np.full(ids.shape, np.inf, np.float32)
+    got[ok] = dist
+    args = (_t(w["queries"]), _t(ids, torch.int32), _u8(w["sq_codes"]), _t(w["scale"]),
+            _t(w["mn"]))
+    np.testing.assert_allclose(got, ref.gather_sq8_ref(*args, metric).numpy(), **GATHER_TOL)
+    jwant = jref.gather_sq8_ref(*(jnp.asarray(w[k]) for k in ("queries", "ids", "sq_codes",
+                                                              "scale", "mn")), metric)
+    np.testing.assert_allclose(got, np.asarray(jwant), **GATHER_TOL)
+    # the mask epilogue: the visited bit read last, padding and visited ids out
+    word = w["visited"][np.arange(ids.shape[0])[:, None],
+                        np.minimum(np.maximum(ids, 0) >> 5, w["visited"].shape[1] - 1)]
+    seen = ok & (((word >> (np.maximum(ids, 0) & 31).astype(np.uint32)) & 1) == 1)
+    want_d, want_i = ref.gather_sq8_masked_ref(
+        *args, convert.bitmap_from_uint32(w["visited"], "cpu"), metric)
+    np.testing.assert_array_equal(np.where(seen | ~ok, -1, ids), want_i.numpy())
+    np.testing.assert_allclose(np.where(seen, np.inf, got), want_d.numpy(), **GATHER_TOL)
+
+
+@pytest.mark.parametrize("Q,R,n,d,W", [
+    (2**20, 2**15, 10, 8, 1),          # Q x R pairs past 2^31 - 1 blocks of 16
+    (1, 1, 2**31, 8, 1),               # n past int32
+    (1, 1, 10, 2**31, 1),              # d past int32
+    (1, 1, 0, 8, 1),                   # an empty table
+    (1, 1, 10, 8, 0)])                 # no visited words
+def test_sq8_hop_grid_rejects_what_it_cannot_take(Q, R, n, d, W):
+    """The hop wrapper's limits follow its grid (Q x R pairs, 16 a block)
+    and its int32 indexing, and are raised before any launch; the generic
+    kernel's 48 KB staging and R-tile limits no longer apply to it."""
+    with pytest.raises(ValueError, match="hop kernel's grid|unsupported shape"):
+        cuda_gs.hop_grid(Q, R, n, d, W)
+    assert cuda_gs.hop_grid(64, 20, 10**6, 64, 31250) == 80
+    assert cuda_gs.hop_grid(3, 32 * 65536, 10, 8192, 1) == -(-3 * 32 * 65536 // 16)
+    assert cuda_gs.hop_grid(2**20, 2**15 - 1, 10, 8, 1) == 2**31 - 2**16
+    assert cuda_gs._hop_fn is None and cuda_gs.LAUNCHES["gather_sq8_masked"] == 0
 
 
 @pytest.mark.parametrize("M", [4, 8])
@@ -638,8 +828,10 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
     assert ops.launch_counts() == before  # no kernel ran
     assert set(before) == {"gather_distance", "gather_distance_pool",
                            "gather_distance_masked", "gather_distance_masked_generic",
-                           "distance_matrix", "gather_sq8_masked",
-                           "gather_adc_masked", "pq_adc", "flash_attention"}
+                           "distance_matrix", "distance_matrix_small",
+                           "distance_matrix_tile32", "gather_sq8_masked",
+                           "gather_sq8_masked_generic", "gather_adc_masked", "pq_adc",
+                           "flash_attention"}
 
 
 def test_adc_rejects_codes_past_the_lut():
@@ -684,19 +876,21 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_dm.distance_matrix(qt, bt)
     with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_dm.distance_matrix_tile32(qt, qt)
+    with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_gp.gather_distance_pool(bt, _t(np.zeros((40, 3), np.int32), torch.int32))
     w = _codes_world(2, 3, 40, 8, 4, 16)
     it, vt = _t(w["ids"], torch.int32), convert.bitmap_from_uint32(w["visited"], "cpu")
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda_gs.gather_sq8_masked(_t(w["queries"]), it, _u8(w["sq_codes"]),
-                                  _t(w["scale"]), _t(w["mn"]), vt)
+    for sq8 in (cuda_gs.gather_sq8_masked, cuda_gs.gather_sq8_masked_generic):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            sq8(_t(w["queries"]), it, _u8(w["sq_codes"]), _t(w["scale"]), _t(w["mn"]), vt)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_ga.gather_adc_masked(it, _u8(w["pq_codes"]), _t(w["luts"]), vt)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_pa.pq_adc(_u8(w["pq_codes"]), _t(w["luts"]))
     assert all(m._fn is None for m in (cuda_gd, cuda_gp, cuda_dm, cuda_gs, cuda_ga,
                                        cuda_pa))
-    assert cuda_gd._hop_fn is None
+    assert cuda_gd._hop_fn is None and cuda_gs._hop_fn is None and cuda_dm._small_fn is None
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
