@@ -25,6 +25,13 @@ Phases (each prints its seconds):
    row of visited ids and ids past n - 1. The sq8 hop kernel
    (gather_sq8_masked) also bit for bit against the generic sq8 kernel, on
    the word path and on the byte path (a table at a d-byte offset, odd d).
+   The ADC hop kernel (gather_adc_masked) bit for bit against the generic
+   ADC kernel and the plain version (M = 4, 8, 16 and 40, the n=1M hop
+   included, padding, visited ids and ids past n - 1);
+   pq_adc on both routes, the interleaved kernel and the generic one, bit
+   for bit against each other and the plain version (the pq_search chunk
+   Q=64 x n=1M, Q past one group of 16, a partial row tile, odd n, a single
+   LUT), each case's route checked by its launch count.
    distance_matrix on both routes: ground-truth chunks (the last one
    ragged), the GD batch (x is y and x != y), ragged q / n / d, d = 960, a
    batch on the 128 tile, zero rows, an operand at a 4-byte offset; every
@@ -51,9 +58,9 @@ Phases (each prints its seconds):
    Then every batch again per scorer, kernel path and plain path in
    lock-step from the same graph, entries and scorer state: ids, n_comps
    and n_steps must be identical except rows whose first divergence is a
-   float32 near-tie (at most 1% of rows). The exact and the sq8 rung once
-   more with their generic kernels scoring every hop: ids, dists, n_comps
-   and n_steps bit-identical. ``gd_prune`` of the build's k-NN graph
+   float32 near-tie (at most 1% of rows). Each rung once more with its
+   generic kernel scoring every hop: ids, dists, n_comps and n_steps
+   bit-identical. ``gd_prune`` of the build's k-NN graph
    through the small route and through the 32 x 32 tile: kept ids
    identical. Ground truth through the plain distance matrix
    on the card: ids that differ are near-ties within the matrix tolerance.
@@ -67,7 +74,8 @@ Phases (each prints its seconds):
    rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
    fp32 values that agree to ~1e-6.
 5. Per-kernel times at the main path's shapes, their bounds, the plain
-   versions' times and one library call where there is one. Times are
+   versions' times, the yardstick kernel where one is kept, and one
+   library call where there is one. Times are
    device time from torch.profiler (CUPTI), so a tiny kernel is not billed
    the host's launch gaps; back-to-back wall per call (CUDA events) is
    printed beside it. Every row is timed per recorded launch of its
@@ -75,7 +83,11 @@ Phases (each prints its seconds):
    window), and one call of the hop, of the sq8 hop, of a ground-truth
    chunk and of a GD block is checked to run its symbol once. The hop
    beside the generic masked kernel, the sq8 hop beside the generic sq8
-   kernel, ground truth (62 launches) beside ``cdist**2``, the GD block
+   kernel, the ADC hop beside the generic ADC kernel, and the launch floor (a one-element fill); the pq_search pass (8
+   launches of 64 queries) on the interleaved kernel beside the generic
+   one, per pass and per launch, both again on a table of equal code rows
+   (every generic lookup a broadcast), the same bytes written by ``fill_``,
+   and ``embedding_bag`` (mode sum) as its library call, ground truth (62 launches) beside ``cdist**2``, the GD block
    (65,536 x 20 x 20 x 64, x is y) on the small route beside the 32 x 32
    tile and ``cdist**2``. The NN-Descent scoring pass on both pools beside the
    generic gather kernel in the same run, each of its four kernels per
@@ -99,7 +111,8 @@ Phases (each prints its seconds):
    steps (batch 8, caches of 2048) also run under the profiler: device-busy
    share and the device ops that lead.
 
-Prints a ``{"kernels": [...]}`` line and the card's ``nvidia-smi`` line, and
+Prints a ``{"kernels": [...]}`` line (each row also names the ``kernel``
+symbol timed and its ``yardstick``) and the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
 without a GPU, or when the repository's sources are not beside it.
 """
@@ -170,6 +183,10 @@ SMALL_MATRIX_KERNEL = "distance_matrix_small_kernel"
 TILE32_MATRIX_KERNEL = "distance_matrix_kernel"
 SQ8_HOP_KERNEL = "gather_sq8_hop_kernel"
 GENERIC_SQ8_KERNEL = "gather_sq8_kernel"
+ADC_HOP_KERNEL = "gather_adc_hop_kernel"
+GENERIC_ADC_KERNEL = "gather_adc_kernel"
+SCAN_KERNEL = "pq_adc_interleaved_kernel"
+GENERIC_SCAN_KERNEL = "pq_adc_kernel"
 
 
 def phase(name: str):
@@ -635,23 +652,38 @@ def check_compressed_kernels(full_base: torch.Tensor, errs: dict) -> None:
         ("ragged Q=7 R=33 n=1000 M=16 K=16", 7, 33, 1000, 16, 16),
         ("partial word Q=5 R=40 n=70 M=8 K=256", 5, 40, 70, 8, 256),
         ("tiny Q=1 R=1 n=1 M=8 K=1", 1, 1, 1, 8, 1),
+        ("M=4 Q=9 R=37 n=700 K=256", 9, 37, 700, 4, 256),
+        ("two runs M=40 Q=9 R=37 n=700 K=16", 9, 37, 700, 40, 16),
     ]
     for label, Q, R, n, M, K in adc_cases:
         codes = torch.randint(0, K, (n + 1, M), device=dev, dtype=torch.uint8)
         luts = torch.randn((Q, M, K), device=dev)
         ids, visited = _ids_and_bitmap(rng, Q, R, n, dev)
+        if Q > 3:   # the hop kernel's masking: every id visited, ids past n - 1
+            visited[2] = -1
+            ids[3, ::2] = n + torch.arange(ids[3, ::2].numel(), device=dev,
+                                           dtype=torch.int32) % 40
         for table in (codes[:n], codes[1:]):
             gd_, gi_ = kga.gather_adc_masked(ids, table, luts, visited)
             wd_, wi_ = ref.gather_adc_masked_ref(ids, table, luts, visited)
             check(torch.equal(gi_, wi_), f"ADC masked ids differ: {label}")
             check(torch.equal(gd_, wd_), f"ADC scores not bit-identical: {label}")
+            ed_, ei_ = kga.gather_adc_masked_generic(ids, table, luts, visited)
+            check(torch.equal(ed_, gd_) and torch.equal(ei_, gi_),
+                  f"the ADC hop kernel differs from the generic kernel: {label}")
             errs["gather_adc_masked"] = max(errs["gather_adc_masked"],
                                             max_abs_err(gd_, wd_))
-        print(f"  gather_adc_masked {label}: bit-identical, aligned and offset")
+            errs["gather_adc_masked_generic"] = max(errs["gather_adc_masked_generic"],
+                                                    max_abs_err(ed_, wd_))
+        print(f"  gather_adc_masked {label}: the hop kernel and the generic kernel "
+              f"bit-identical to the plain version, aligned and offset")
 
-    pq_cases = [  # (label, Q, n, M, K)
+    pq_cases = [  # (label, Q, n, M, K); Q = 0 is a single LUT
         ("pq_search chunk Q=64 n=1M M=8 K=256", 64, n_full, 8, 256),
         ("query groups Q=21 n=9001 M=16 K=256", 21, 9001, 16, 256),
+        ("query groups Q=21 n=9001 M=16 K=16", 21, 9001, 16, 16),
+        ("partial tile Q=33 n=130 M=4 K=256", 33, 130, 4, 256),
+        ("odd n Q=16 n=1001 M=8 K=16", 16, 1001, 8, 16),
         ("one LUT n=1000 M=8 K=256", 0, 1000, 8, 256),
         ("generic M=4 Q=3 n=33 K=16", 3, 33, 4, 16),
     ]
@@ -659,12 +691,23 @@ def check_compressed_kernels(full_base: torch.Tensor, errs: dict) -> None:
         codes = torch.randint(0, K, (n + 1, M), device=dev, dtype=torch.uint8)
         luts = torch.randn((max(Q, 1), M, K), device=dev)
         luts = luts if Q else luts[0]
+        routes = []
         for table in (codes[:n], codes[1:]):
+            route = kpa.scan_route(max(Q, 1), M, K, table.data_ptr())
+            before = dict(kpa.LAUNCHES)
             got = kpa.pq_adc(table, luts)
+            ran = [k for k, v in kpa.LAUNCHES.items() if v > before[k]]
+            check(ran == [{"interleaved": "pq_adc", "generic": "pq_adc_generic"}[route]],
+                  f"pq_adc ran {ran} on the {route} route: {label}")
+            routes.append(route)
             want = ref.pq_adc_ref(table, luts)
             check(torch.equal(got, want), f"pq_adc not bit-identical: {label}")
+            gen = kpa.pq_adc_generic(table, luts)
+            check(torch.equal(gen, want), f"pq_adc_generic not bit-identical: {label}")
             errs["pq_adc"] = max(errs["pq_adc"], max_abs_err(got, want))
-        print(f"  pq_adc {label}: bit-identical, aligned and offset")
+            errs["pq_adc_generic"] = max(errs["pq_adc_generic"], max_abs_err(gen, want))
+        print(f"  pq_adc {label} (routes {' / '.join(routes)}): bit-identical, aligned and "
+              f"offset, and so is the generic kernel")
 
 
 def plain_flash_attention(q, k, v, causal=True, window=None, softmax_scale=None):
@@ -776,32 +819,51 @@ def register_plain_scorers():
 
 
 def generic_hop_rung(searcher, spec, stream, seeds, served) -> None:
-    """The rung of ``spec.scorer`` (exact or sq8) again with its generic
-    kernel scoring every hop (scorer "<name>-generic"): ids, dists, n_comps
-    and n_steps must equal the served run's, bit for bit, as the hop
-    kernel's distances are the generic kernel's."""
+    """The rung of ``spec.scorer`` again with its generic kernel scoring
+    every hop (exact and sq8: scorer "<name>-generic"; pq: the scorer with
+    ``ops.gather_adc_masked`` on the generic kernel, as its state holds the
+    batch's LUTs): ids, dists, n_comps and n_steps must equal the served
+    run's, bit for bit, as the hop kernel's distances are the generic
+    kernel's."""
     from repro_torch.core.scorers import register_scorer
+    from repro_torch.kernels import gather_adc as kga
     from repro_torch.kernels import gather_distance as kgd
     from repro_torch.kernels import gather_sq8 as kgs
+    from repro_torch.kernels import ops
 
+    spec_g = spec
     if spec.scorer == "sq8":   # the searcher builds no state for "sq8-generic"
         sq = tuple(searcher.sq8_index())
 
         def generic(st, q, b, i, v, m):
             return kgs.gather_sq8_masked_generic(q, i, *sq, v, m)
-    else:
+    elif spec.scorer == "exact":
         def generic(st, q, b, i, v, m):
             return kgd.gather_distance_masked_generic(q, i, b, v, m)
-    register_scorer(_PlainScorer(spec.scorer, generic, suffix="generic"))
-    spec_g = spec._replace(scorer=f"{spec.scorer}-generic")
-    for q, seed, res in zip(stream, seeds, served):
-        got = searcher.search(q, spec_g, seed)
-        check(torch.equal(got.ids, res.ids) and torch.equal(got.dists, res.dists)
-              and torch.equal(got.n_comps, res.n_comps)
-              and int(got.n_steps) == int(res.n_steps),
-              f"the {spec.scorer} rung on its generic kernel differs (batch seed {seed})")
+    if spec.scorer != "pq":
+        register_scorer(_PlainScorer(spec.scorer, generic, suffix="generic"))
+        spec_g = spec._replace(scorer=f"{spec.scorer}-generic")
+    hop = ops.gather_adc_masked
+    ops.gather_adc_masked = kga.gather_adc_masked_generic
+    before = ops.launch_counts()
+    try:
+        for q, seed, res in zip(stream, seeds, served):
+            got = searcher.search(q, spec_g, seed)
+            check(torch.equal(got.ids, res.ids) and torch.equal(got.dists, res.dists)
+                  and torch.equal(got.n_comps, res.n_comps)
+                  and int(got.n_steps) == int(res.n_steps),
+                  f"the {spec.scorer} rung on its generic kernel differs (batch seed {seed})")
+    finally:
+        ops.gather_adc_masked = hop
+    ran = {k: v - before[k] for k, v in ops.launch_counts().items() if v > before[k]}
+    generic_name = {"exact": "gather_distance_masked_generic",
+                    "sq8": "gather_sq8_masked_generic",
+                    "pq": "gather_adc_masked_generic"}[spec.scorer]
+    check(ran.get(generic_name, 0) > 0 and all("masked" not in k or k == generic_name
+                                               for k in ran),
+          f"the {spec.scorer} rung on its generic kernel ran {ran}")
     print(f"{spec.scorer} rung on its generic kernel: {len(stream)} batches, ids, dists, "
-          f"n_comps and n_steps bit-identical to the hop kernel's")
+          f"n_comps and n_steps bit-identical to the hop kernel's ({ran})")
 
 
 @contextlib.contextmanager
@@ -1014,7 +1076,8 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      replaces="src/repro/kernels/gather_distance.py:230",
                      launches=launches["gather_distance_masked"],
                      max_abs_err=errs["gather_distance_masked"], ms=k_ms,
-                     plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     kernel=HOP_KERNEL, yardstick=dict(kernel=GENERIC_GATHER_KERNEL, ms=g_ms)))
     print(f"  gather_distance_masked hop Q=64 R={R} d={d} ({valid:.1f} valid ids a hop): "
           f"{HOP_KERNEL} {k_ms * 1e3:.3f} us on the device per recorded launch, the generic "
           f"masked kernel {g_ms * 1e3:.3f} us in the same run ({g_ms / k_ms:.2f}x); "
@@ -1084,7 +1147,9 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                             replaces="src/repro/kernels/gather_distance.py:176",
                             launches=launches["gather_distance_pool"],
                             max_abs_err=errs["gather_distance_pool"], ms=k_ms,
-                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                            kernel="gather_distance_pool_{hist,scan,scatter,score}_kernel",
+                            yardstick=dict(kernel=GENERIC_GATHER_KERNEL, ms=o_ms))
             print(f"  gather_distance_pool plain version, uniform pool: {p_ms:.3f} ms")
     rows.append(pass_row)
     del pools
@@ -1110,7 +1175,8 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      replaces="src/repro/kernels/gather_distance.py:176",
                      launches=launches["gather_distance"],
                      max_abs_err=errs["gather_distance"], ms=k_ms, plain_ms=p_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     kernel=GENERIC_GATHER_KERNEL, yardstick=None))
     print(f"  gather_distance rerank Q={Q} R={R} d={d}: kernel {k_ms:.4f} ms on the device "
           f"per recorded launch "
           f"({call_ms:.4f} ms a call back to back), plain {p_ms:.4f} ms, bound "
@@ -1137,7 +1203,8 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      replaces="src/repro/kernels/distance_matrix.py:62",
                      launches=launches["distance_matrix"],
                      max_abs_err=errs["distance_matrix"], ms=k_ms, plain_ms=p_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=l_ms, kernel=MATRIX_KERNEL,
+                     yardstick=None))
     print(f"  distance_matrix ground truth {nq} x {n} x {d} ({len(chunks)} launches): "
           f"{MATRIX_KERNEL} {k_ms:.3f} ms per recorded launch x {len(chunks)} "
           f"({2.0 * nq * n * d / k_ms / 1e9:.1f} TFLOP/s, {k_ms / b_ms:.2f}x its bound), "
@@ -1186,7 +1253,9 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      replaces="src/repro/kernels/distance_matrix.py:62",
                      launches=launches["distance_matrix_small"],
                      max_abs_err=errs["distance_matrix_small"], ms=k_ms, plain_ms=p_ms,
-                     bound_ms=b_ms2, bound_by=b_by2, library_ms=l_ms))
+                     bound_ms=b_ms2, bound_by=b_by2, library_ms=l_ms,
+                     kernel=SMALL_MATRIX_KERNEL,
+                     yardstick=dict(kernel=TILE32_MATRIX_KERNEL, ms=t_ms)))
     print(f"  distance_matrix GD block {B} x {L} x {L} x {d}: {SMALL_MATRIX_KERNEL} "
           f"{k_ms:.4f} ms per recorded launch ({call_ms:.4f} ms a call back to back; "
           f"{gd_bytes / k_ms / 1e9:.2f} TB/s, {k_ms / b_ms2:.2f}x its bound), the 32 x 32 "
@@ -1196,13 +1265,20 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
     return rows
 
 
-def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
-    """gather_sq8_masked and gather_adc_masked at one hop, pq_adc over one
-    pq_search pass. No single PyTorch call computes any of the three, so
-    ``library_ms`` is null."""
+def time_compressed_kernels(run, errs: dict, launches: dict, exact_hop_ms: float) -> list[dict]:
+    """gather_sq8_masked and gather_adc_masked at one hop, each beside its
+    generic kernel, and the launch floor beside them and the exact hop
+    (``exact_hop_ms``, timed by time_kernels); pq_adc over one pq_search pass
+    beside its generic kernel and ``embedding_bag``. No single PyTorch call
+    computes a masked hop (the codes gather and the visited mask come
+    first), so their ``library_ms`` is null."""
+    import torch.nn.functional as F
+
     from repro_torch.baselines.pq import build_adc_luts
+    from repro_torch.kernels import gather_adc as kga
     from repro_torch.kernels import gather_sq8 as kgs
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pq_adc as kpa
 
     s = run.searcher
     nbrs = s.neighbors
@@ -1231,11 +1307,12 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
         keys = (rows.unsqueeze(1) * M + torch.arange(M, device=dev)) * K + codes
         return torch.unique(keys).numel()
     entries = sum(lut_entries(ids) for ids in sets) / len(sets)
-    hops = [  # name, kernel, plain, match, bytes, flops, replaces, source
+    hops = [  # name, kernel, plain, symbol, generic, generic symbol, bytes, flops, replaces, source
         ("gather_sq8_masked",
          lambda ids: ops.gather_sq8_masked(q, ids, *sq, visited),
          lambda ids: ref.gather_sq8_masked_ref(q, ids, *sq, visited),
          SQ8_HOP_KERNEL,
+         lambda ids: kgs.gather_sq8_masked_generic(q, ids, *sq, visited), GENERIC_SQ8_KERNEL,
          # queries, scale + mn, ids in; one d-byte row and one visited word
          # per valid id; dists and ids out
          Q * d * 4 + 2 * d * 4 + Q * R * 4 + valid * (d + 4) + Q * R * 8,
@@ -1243,25 +1320,28 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
         ("gather_adc_masked",
          lambda ids: ops.gather_adc_masked(ids, idx.codes, luts, visited),
          lambda ids: ref.gather_adc_masked_ref(ids, idx.codes, luts, visited),
-         "gather_adc_kernel",
+         ADC_HOP_KERNEL,
+         lambda ids: kga.gather_adc_masked_generic(ids, idx.codes, luts, visited),
+         GENERIC_ADC_KERNEL,
          # ids in; one M-byte row and one visited word per valid id; the
          # distinct LUT entries those rows index, 4 B each (not whole LUTs:
          # a hop reads at most 160 of a query's 2,048); dists and ids out
          Q * R * 4 + valid * (M + 4) + entries * 4 + Q * R * 8,
          valid * M, "src/repro/kernels/gather_adc.py:119", "gather_adc.cu"),
     ]
-    def sq8_generic(ids):
-        return kgs.gather_sq8_masked_generic(q, ids, *sq, visited)
-    one_kernel(lambda: ops.gather_sq8_masked(q, sets[0], *sq, visited), SQ8_HOP_KERNEL,
-               "an sq8 hop")
-    for name, kern, plain, match, nbytes, flops, replaces, src in hops:
+    # the launch floor: the device time of a one-element fill, per recorded launch
+    one = torch.empty(1, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(1.0), reps=640, match="FillFunctor", launches=1)
+    hop_ms = {"gather_distance_masked": exact_hop_ms}
+    for name, kern, plain, match, generic, g_match, nbytes, flops, replaces, src in hops:
+        one_kernel(lambda: kern(sets[0]), match, f"a {name} hop")
         k_ms = device_ms(lambda: kern(sets[next(it) % 64]), reps=640, match=match, launches=1)
-        if name == "gather_sq8_masked":
-            g_ms = device_ms(lambda: sq8_generic(sets[next(it) % 64]), reps=640,
-                             match=GENERIC_SQ8_KERNEL, launches=1)
-            print(f"  gather_sq8_masked hop: {SQ8_HOP_KERNEL} {k_ms * 1e3:.3f} us per recorded "
-                  f"launch, the generic sq8 kernel {g_ms * 1e3:.3f} us in the same run "
-                  f"({g_ms / k_ms:.2f}x)")
+        g_ms = device_ms(lambda: generic(sets[next(it) % 64]), reps=640, match=g_match,
+                         launches=1)
+        hop_ms[name] = k_ms
+        line = (f"  {name} hop: {match} {k_ms * 1e3:.3f} us per recorded launch, the "
+                f"generic kernel {g_ms * 1e3:.3f} us in the same run ({g_ms / k_ms:.2f}x)")
+        print(line)
         call_ms = cuda_ms(lambda: kern(sets[next(it) % 64]), reps=640)
         p_ms = device_ms(lambda: plain(sets[next(it) % 64]), reps=64)
         b_ms, b_by = bound(nbytes, flops)
@@ -1269,7 +1349,8 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
                          source=f"src/repro_torch/kernels/csrc/{src}",
                          replaces=replaces, launches=launches[name],
                          max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, kernel=match,
+                         yardstick=dict(kernel=g_match, ms=g_ms)))
         print(f"  {name} hop Q={Q} R={R} d={d} M={M}: kernel {k_ms:.4f} ms on the "
               f"device per recorded launch ({call_ms:.4f} ms a call back to back, "
               f"host-bound), plain "
@@ -1277,15 +1358,54 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
     print(f"  gather_adc_masked hop reads {entries:.1f} distinct LUT entries of "
           f"{Q * M * K}: {entries * 4 / 1e3:.2f} KB at 4 B each, "
           f"{entries * 32 / 1e3:.2f} KB at 32-byte sectors (bound counts 4 B)")
+    print(f"  launch floor (a one-element fill_, device time per recorded launch): "
+          f"{floor_ms * 1e3:.3f} us; the hops: "
+          + ", ".join(f"{k} {v * 1e3:.3f} us ({(v - floor_ms) * 1e3:.3f} above it)"
+                      for k, v in hop_ms.items()))
 
-    # pq_adc over one pq_search pass: 512 queries in 64-row launches
+    # pq_adc over one pq_search pass: 512 queries in 64-row launches, the
+    # interleaved kernel beside the generic one in the same run
     qs = torch.cat(run.stream)
     all_luts = build_adc_luts(qs, idx.codebooks).contiguous()
     chunks = [all_luts[lo:lo + 64] for lo in range(0, qs.shape[0], 64)]
-    k_ms = device_ms(lambda: [ops.pq_adc(idx.codes, c) for c in chunks], reps=3,
-                     match="pq_adc_kernel", launches=len(chunks))
-    call_ms = cuda_ms(lambda: [ops.pq_adc(idx.codes, c) for c in chunks], reps=3)
-    p_ms = device_ms(lambda: [ref.pq_adc_ref(idx.codes, c) for c in chunks], reps=1)
+    nl = len(chunks)
+    one_kernel(lambda: ops.pq_adc(idx.codes, chunks[0]), SCAN_KERNEL, "a pq_adc chunk")
+
+    def scan(fn, codes=idx.codes):
+        return lambda: [fn(codes, c) for c in chunks]
+    k_ms = device_ms(scan(ops.pq_adc), reps=3, match=SCAN_KERNEL, launches=nl)
+    g_ms = device_ms(scan(kpa.pq_adc_generic), reps=3, match=GENERIC_SCAN_KERNEL, launches=nl)
+    call_ms = cuda_ms(scan(ops.pq_adc), reps=3)
+    # what bounds each kernel: the same pass on a code table whose rows are
+    # all equal, where every lookup of the generic kernel's warp is a
+    # broadcast (one wavefront) and the interleaved kernel's is as before
+    same = idx.codes[:1].expand(n, M).contiguous()
+    ke_ms = device_ms(scan(ops.pq_adc, same), reps=3, match=SCAN_KERNEL, launches=nl)
+    ge_ms = device_ms(scan(kpa.pq_adc_generic, same), reps=3, match=GENERIC_SCAN_KERNEL,
+                      launches=nl)
+    del same
+    # the write floor: a pass's 2.05 GB of scores written by fill_ alone
+    outs = [torch.empty((c.shape[0], n), device=dev) for c in chunks]
+    w_ms = device_ms(lambda: [o.fill_(1.0) for o in outs], reps=3, match="FillFunctor",
+                     launches=nl)
+    del outs
+    p_ms = device_ms(scan(ref.pq_adc_ref), reps=1)
+    # the library call: embedding_bag sums rows codes[i, m] + m * K of the
+    # LUTs laid out (M * K, 64); idx and the layouts are made outside the
+    # timed window, and its (n, 64) output is pq_adc's transposed
+    bag_idx = idx.codes.long() + torch.arange(M, device=dev) * K
+    bag_w = [c.reshape(c.shape[0], M * K).T.contiguous() for c in chunks]
+
+    def bags():
+        return [F.embedding_bag(bag_idx, w, mode="sum") for w in bag_w]
+    l_ms = device_ms(bags, reps=3)
+    l_call = cuda_ms(bags, reps=3)
+    bag0 = F.embedding_bag(bag_idx, bag_w[0], mode="sum").T
+    want0 = ref.pq_adc_ref(idx.codes, chunks[0])
+    print(f"  embedding_bag (mode sum) on chunk 0: its transposed output "
+          f"{'equals' if torch.equal(bag0, want0) else 'differs from'} the plain version bit "
+          f"for bit (max abs difference {max_abs_err(bag0, want0):.3g})")
+    del bag_idx, bag_w, bag0, want0
     nq = qs.shape[0]
     pass_bytes = n * M + nq * M * K * 4 + nq * n * 4   # codes, LUTs in; scores out
     b_ms, b_by = bound(pass_bytes, nq * n * M)
@@ -1294,15 +1414,19 @@ def time_compressed_kernels(run, errs: dict, launches: dict) -> list[dict]:
                      replaces="src/repro/kernels/pq_adc.py:41",
                      launches=launches["pq_adc"], max_abs_err=errs["pq_adc"],
                      ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
-    print(f"  pq_adc pq_search pass {nq} x {n} x M={M} ({len(chunks)} launches): "
-          f"kernel {k_ms:.3f} ms on the device per recorded launch x {len(chunks)} "
-          f"({call_ms:.3f} ms wall, "
-          f"{nq * n * 4 / k_ms / 1e9:.2f} TB/s of scores), plain {p_ms:.3f} ms, "
-          f"bound {b_ms:.3f} ms ({b_by}, {pass_bytes / 1e9:.3f} GB once)")
-    print("  library_ms is null for gather_sq8_masked, gather_adc_masked and "
-          "pq_adc: no single PyTorch call computes a masked uint8 gather, an "
-          "ADC lookup-sum or a batched ADC scan")
+                     library_ms=l_ms, kernel=SCAN_KERNEL, ms_per_launch=k_ms / nl,
+                     yardstick=dict(kernel=GENERIC_SCAN_KERNEL, ms=g_ms)))
+    print(f"  pq_adc pq_search pass {nq} x {n} x M={M} ({nl} launches of 64): "
+          f"{SCAN_KERNEL} {k_ms:.4f} ms a pass on the device ({k_ms / nl:.4f} ms per recorded "
+          f"launch; {call_ms:.4f} ms wall; {nq * n * 4 / k_ms / 1e9:.2f} TB/s of scores, "
+          f"{k_ms / b_ms:.2f}x its bound), the generic kernel {g_ms:.4f} ms a pass "
+          f"({g_ms / nl:.4f} a launch; {g_ms / k_ms:.2f}x) in the same run; embedding_bag "
+          f"{l_ms:.4f} ms a pass on the device ({l_call:.4f} ms wall); plain {p_ms:.3f} ms; "
+          f"bound {b_ms:.4f} ms ({b_by}, {pass_bytes / 1e9:.3f} GB once)")
+    print(f"  pq_adc on a table of equal rows (every generic lookup a broadcast): "
+          f"{SCAN_KERNEL} {ke_ms:.4f} ms a pass ({ke_ms / k_ms:.3f}x its uniform-code time), "
+          f"the generic kernel {ge_ms:.4f} ms ({ge_ms / g_ms:.3f}x); the pass's scores "
+          f"written by fill_ alone {w_ms:.4f} ms ({nq * n * 4 / w_ms / 1e9:.2f} TB/s)")
     return rows
 
 
@@ -1411,7 +1535,8 @@ def time_flash_attention(errs: dict) -> dict:
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:125",
                 launches=None, max_abs_err=errs["flash_attention"], ms=k_ms,
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                kernel="flash_attention_wgmma_kernel", yardstick=None)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -1768,15 +1893,17 @@ def main(argv=None) -> int:
     register_plain_scorers()
     for scorer in SCORERS:
         lockstep_rung(run.searcher, specs[scorer], run.stream, run.seeds, served[scorer])
-    generic_hop_rung(run.searcher, specs["exact"], run.stream, run.seeds, served["exact"])
-    generic_hop_rung(run.searcher, specs["sq8"], run.stream, run.seeds, served["sq8"])
+    for scorer in SCORERS:
+        generic_hop_rung(run.searcher, specs[scorer], run.stream, run.seeds, served[scorer])
     gd_prune_on_both_routes(run.searcher.base, knn.pop("graph"))
     ground_truth_against_plain(run)
     done(t0, "phase 4")
 
     t0 = phase("phase 5: per-kernel times at the main path's shapes")
     rows = time_kernels(run, errs, kernel_launches)
-    rows += time_compressed_kernels(run, errs, kernel_launches)
+    rows += time_compressed_kernels(run, errs, kernel_launches,
+                                    next(r["ms"] for r in rows
+                                         if r["name"] == "gather_distance_masked"))
     busy_share(run, specs["exact"])
     busy_share(run, specs["pq"])
     round_profile(run.searcher.base)

@@ -71,7 +71,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
+
+using repro_kernels::cp_async;
+using repro_kernels::cp_async_commit;
+using repro_kernels::cp_async_wait_prior;
 
 constexpr int kThreads = 256;
 
@@ -168,29 +174,6 @@ distance_matrix_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
 constexpr int kSmallWarps = 8;
 constexpr int kNormSlots = 64;   // a warp's norms: x rows at 0.., y rows at 32..
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of ``bytes`` (16 or 4) with a source size: src_bytes < bytes
-// fills the rest of the destination with zeros.
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, int src_bytes) {
-  if (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // One stage of a warp: columns [c0, c0 + width) of the ``rows`` rows of its
 // matrix (x rows, then y rows unless x is y) into ``buf``, row r at r *

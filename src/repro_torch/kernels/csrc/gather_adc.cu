@@ -7,24 +7,34 @@
 // query's (M, K) lookup table: sum_m luts[q, m, codes[id, m]], summed
 // m = 0..M-1 from 0.0, one add at a time (kernels/ref.py sums in the same
 // order, so the two agree to the last bit). Padding ids (< 0) and ids whose
-// bit is set in the query's visited row give (+inf, -1). The TPU kernel's
-// one-hot matmuls stand in for a per-lane gather the TPU lacks; here the
-// LUT is indexed directly.
+// bit is set in the query's visited row give (+inf, -1); ids past n - 1
+// read row n - 1. The TPU kernel's one-hot matmuls stand in for a per-lane
+// gather the TPU lacks; here the LUT is indexed directly.
 //
 // What bounds it: bytes. A scored id costs one random M-byte code row (8 B
 // at M = 8), one visited word and M LUT entries (4 B each; 32 B each at
 // sector granularity). At the hop shape (Q = 64, R = 20, M = 8, K = 256) a
 // query's at most 20 ids touch at most 160 of its LUT's 2,048 entries, so
-// the call must move a few tens of KB, not the 0.5 MB of whole LUTs, and
-// one launch costs far more than moving them.
+// the call must move a few tens of KB: its bound is nanoseconds, and its
+// time is the launch and the chain of dependent loads.
 //
-// Design: one thread per (query, id), flattened over Q * R, so a hop's
-// 1,280 pairs are five blocks. The LUT is not staged in shared memory:
-// staging would read all 8 KB of a query's LUT to use at most 160 entries,
-// so each thread reads its M entries through the read-only cache (L2 holds
-// every LUT of the batch). With M % 8 == 0 and an 8-byte aligned table the
-// code row is read in 8-byte loads, else byte by byte. The mask epilogue is
-// fused.
+// Two kernels, one thread per (query, id) flattened over Q * R (a hop's
+// 1,280 pairs are five blocks), neither staging the LUTs in shared memory:
+// a hop reads at most 160 of a query's 2,048 entries, so every entry comes
+// through the read-only cache (L2 holds every LUT of the batch). With
+// M % 8 == 0 and an 8-byte aligned table the code row is read in 8-byte
+// loads, else byte by byte; the M LUT loads of a row are in flight
+// together.
+//   - gather_adc_hop_kernel, the hop: a padding id stores (+inf, -1) at
+//     once; otherwise the visited word goes out with the code row and its
+//     bit is read last, at the store, so the chain is id -> (codes,
+//     visited) -> LUT -> store, three loads deep.
+//   - gather_adc_kernel, the generic one: the mask guards the code loads
+//     (id -> visited -> codes -> LUT -> store, four deep). No path of the
+//     port runs it: it is the hop kernel's yardstick, bit for bit and in
+//     time (gather_adc.gather_adc_masked_generic).
+// An 8-lane group a pair (the exact hop's layout, the entries gathered by
+// shuffle) took longer than either on the H100 (PERF.md).
 
 #include "common.cuh"
 
@@ -79,27 +89,51 @@ gather_adc_kernel(const int32_t* __restrict__ ids,
   out_i[o] = drop ? -1 : id;
 }
 
+template <bool VEC8>
+__global__ void __launch_bounds__(kThreads)
+gather_adc_hop_kernel(const int32_t* __restrict__ ids,
+                      const uint8_t* __restrict__ codes,
+                      const float* __restrict__ luts,
+                      const int32_t* __restrict__ visited,
+                      float* __restrict__ out_d, int32_t* __restrict__ out_i,
+                      int64_t total, int R, int n, int M, int K, int W) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (o >= total) return;
+  const int64_t q = o / R;
+  const int32_t id = __ldg(ids + o);
+  if (id < 0) {                    // a padding slot
+    out_d[o] = INFINITY;
+    out_i[o] = -1;
+    return;
+  }
+  // the visited word goes out with the code row; its bit is read last
+  const uint32_t word = static_cast<uint32_t>(__ldg(visited + q * W + min(id >> 5, W - 1)));
+  const float dist = adc_row<VEC8>(codes + static_cast<int64_t>(min(id, n - 1)) * M,
+                                   luts + q * M * K, M, K);
+  const bool seen = ((word >> (id & 31)) & 1u) != 0u;
+  out_d[o] = seen ? INFINITY : dist;
+  out_i[o] = seen ? -1 : id;
+}
+
 }  // namespace
 
 // ids (Q, R) i32, codes (n, M) u8, luts (Q, M, K) f32, visited (Q, W) i32
 // -> out_d (Q, R) f32, out_i (Q, R) i32. All contiguous, on one device;
-// vec8 needs M % 8 == 0 and an 8-byte aligned codes pointer. Returns
+// vec8 needs M % 8 == 0 and an 8-byte aligned codes pointer; hop 1 runs
+// the hop kernel, 0 the generic one (the same bits). Returns
 // cudaGetLastError() after the launch.
 extern "C" int gather_adc_f32(const int32_t* ids, const uint8_t* codes,
                               const float* luts, const int32_t* visited,
                               float* out_d, int32_t* out_i, int Q, int R, int n,
-                              int M, int K, int W, int vec8, void* stream) {
+                              int M, int K, int W, int vec8, int hop, void* stream) {
   const int64_t total = static_cast<int64_t>(Q) * R;
   if (total > 0) {
     const dim3 grid(static_cast<unsigned>((total + kThreads - 1) / kThreads));
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (vec8) {
-      gather_adc_kernel<true><<<grid, kThreads, 0, s>>>(
-          ids, codes, luts, visited, out_d, out_i, total, R, n, M, K, W);
-    } else {
-      gather_adc_kernel<false><<<grid, kThreads, 0, s>>>(
-          ids, codes, luts, visited, out_d, out_i, total, R, n, M, K, W);
-    }
+    auto kernel = hop ? (vec8 ? gather_adc_hop_kernel<true> : gather_adc_hop_kernel<false>)
+                      : (vec8 ? gather_adc_kernel<true> : gather_adc_kernel<false>);
+    kernel<<<grid, kThreads, 0, s>>>(ids, codes, luts, visited, out_d, out_i, total, R, n, M,
+                                     K, W);
   }
   return static_cast<int>(cudaGetLastError());
 }

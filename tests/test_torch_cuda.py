@@ -363,28 +363,94 @@ def test_cuda_sq8_hop_is_bit_identical_to_the_generic_kernel(cuda, metric, Q, R,
                                      (1, 1, 1, 1)])
 def test_cuda_adc_kernels_match_plain_bitwise(cuda, M, Q, R, n, K):
     """gather_adc_masked and pq_adc sum in the plain versions' m order:
-    scores bit-identical, masked ids identical; 8-byte and byte code
-    loads both."""
+    scores bit-identical, masked ids identical, on every kernel and route;
+    8-byte and byte code loads both."""
     rng = np.random.default_rng(M + Q + n)
     _, _, ids, visited = _world(Q, R, n, 4, seed=6)
     it, vt = _c(ids, cuda, torch.int32), convert.bitmap_from_uint32(visited, cuda)
     _, codes = _codes(rng, n + 1, 4, M, K, cuda)
     luts = _c(rng.standard_normal((Q, M, K), dtype=np.float32), cuda)
     for table in (codes[:n], codes[1:]):   # aligned, and offset by M bytes
-        got_d, got_i = cuda_ga.gather_adc_masked(it, table, luts, vt)
         want_d, want_i = ref.gather_adc_masked_ref(it, table, luts, vt)
+        for hop in (cuda_ga.gather_adc_masked, cuda_ga.gather_adc_masked_generic):
+            got_d, got_i = hop(it, table, luts, vt)
+            assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+        for scan in (cuda_pa.pq_adc, cuda_pa.pq_adc_generic):
+            assert torch.equal(scan(table, luts), ref.pq_adc_ref(table, luts))
+            assert torch.equal(scan(table, luts[0]), ref.pq_adc_ref(table, luts[0]))
+
+
+def _adc_hop_world(Q, R, n, M, K, seed):
+    """ids with padding, an all-padding row, a row whose ids are all
+    visited, a row of ids past n - 1; codes (n + 1, M) and LUTs."""
+    rng = np.random.default_rng(seed)
+    _, _, ids, visited = _world(Q, R, n, 4, seed=seed)
+    if Q > 3:
+        visited[2] = 2**32 - 1
+        ids[3, ::2] = n + np.arange(ids[3, ::2].size) % 40
+    codes = rng.integers(0, K, size=(n + 1, M)).astype(np.uint8)
+    luts = rng.standard_normal((Q, M, K), dtype=np.float32)
+    return ids, visited, codes, luts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(8, 256), (4, 256), (16, 16), (40, 16)])
+@pytest.mark.parametrize("Q,R,n", [(64, 20, 5000), (9, 37, 700), (5, 3, 70), (1, 1, 1)])
+def test_cuda_adc_hop_is_bit_identical_to_the_generic_kernel(cuda, M, K, Q, R, n):
+    """The ADC hop kernel (the visited word loaded with the codes, applied at
+    the store) gives the generic kernel's dists and ids bit for bit, and the
+    plain version's: M of 4 (byte loads), 8, 16 and 40 (8-byte loads); a
+    table offset by M bytes (byte loads); Q x R past one block of 256
+    pairs; an all-padding row, a row with every id visited, ids past n - 1."""
+    ids, visited, codes, luts = _adc_hop_world(Q, R, n, M, K, seed=M + K + Q)
+    it, vt = _c(ids, cuda, torch.int32), convert.bitmap_from_uint32(visited, cuda)
+    ct = torch.from_numpy(codes).to(cuda)
+    lt = _c(luts, cuda)
+    for table in (ct[:n], ct[1:]):
+        got_d, got_i = cuda_ga.gather_adc_masked(it, table, lt, vt)
+        want_d, want_i = ref.gather_adc_masked_ref(it, table, lt, vt)
         assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
-        assert torch.equal(cuda_pa.pq_adc(table, luts), ref.pq_adc_ref(table, luts))
-        assert torch.equal(cuda_pa.pq_adc(table, luts[0]), ref.pq_adc_ref(table, luts[0]))
+        gen_d, gen_i = cuda_ga.gather_adc_masked_generic(it, table, lt, vt)
+        assert torch.equal(gen_i, got_i) and torch.equal(gen_d, got_d)
+        if Q > 3:
+            assert (got_i[0] == -1).all() and torch.isinf(got_d[0]).all()
+            assert (got_i[2] == -1).all() and torch.isinf(got_d[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K", [(8, 256), (4, 256), (16, 16), (8, 16), (16, 256)])
+@pytest.mark.parametrize("Q,n", [(64, 5000), (21, 9001), (16, 64), (33, 129), (17, 1)])
+def test_cuda_pq_adc_interleaved_is_bit_identical_to_the_generic_kernel(cuda, M, K, Q, n):
+    """pq_adc's route: the interleaved kernel wherever scan_route sends it
+    (Q past one group of 16 queries and ragged, n past one 64-row tile and
+    ragged, odd n, a table offset by M bytes), the generic kernel where the
+    LUTs do not fit (M=16, K=256); bit-identical to the generic kernel and
+    to the plain version, and the launch counts name the kernel that ran."""
+    rng = np.random.default_rng(Q + n + M)
+    ct = torch.from_numpy(rng.integers(0, K, size=(n + 1, M)).astype(np.uint8)).to(cuda)
+    lt = _c(rng.standard_normal((Q, M, K), dtype=np.float32), cuda)
+    for table in (ct[:n], ct[1:]):
+        route = cuda_pa.scan_route(Q, M, K, table.data_ptr())
+        assert route == ("generic" if (M, K) == (16, 256) else "interleaved")
+        ops.reset_launch_counts()
+        got = ops.pq_adc(table, lt)
+        counts = ops.launch_counts()
+        assert (counts["pq_adc"], counts["pq_adc_generic"]) == (
+            (1, 0) if route == "interleaved" else (0, 1))
+        assert torch.equal(got, cuda_pa.pq_adc_generic(table, lt))
+        assert torch.equal(got, ref.pq_adc_ref(table, lt))
 
 
 @pytest.mark.cuda
 def test_cuda_pq_adc_many_query_groups_and_rows(cuda):
-    """Q past one query group and n past one row tile, ragged at both."""
+    """Q past one query group and n past one row tile, ragged at both, on
+    the interleaved and the generic kernel."""
     rng = np.random.default_rng(12)
     _, codes = _codes(rng, 9001, 4, 8, 256, cuda)
     luts = _c(rng.standard_normal((21, 8, 256), dtype=np.float32), cuda)
-    assert torch.equal(cuda_pa.pq_adc(codes, luts), ref.pq_adc_ref(codes, luts))
+    want = ref.pq_adc_ref(codes, luts)
+    assert torch.equal(cuda_pa.pq_adc(codes, luts), want)
+    assert torch.equal(cuda_pa.pq_adc_generic(codes, luts), want)
 
 
 @pytest.mark.cuda
@@ -400,7 +466,8 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     ops.distance_matrix(qt, bt)
     ops.gather_sq8_masked(qt, it, codes, scale, mn, vt)
     ops.gather_adc_masked(it, pq_codes, luts, vt)
-    ops.pq_adc(pq_codes, luts)
+    ops.pq_adc(pq_codes, luts)                    # Q = 4: the generic kernel
+    ops.pq_adc(pq_codes, luts.repeat(4, 1, 1))    # Q = 16: the interleaved kernel
     q = torch.randn((1, 16, 4, 8), device=cuda)
     ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
     ops.gather_distance_pool(bt, it.repeat(25, 1))
@@ -410,7 +477,8 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
                                    "distance_matrix": 1, "distance_matrix_small": 0,
                                    "distance_matrix_tile32": 0, "gather_sq8_masked": 1,
                                    "gather_sq8_masked_generic": 0,
-                                   "gather_adc_masked": 1, "pq_adc": 1,
+                                   "gather_adc_masked": 1, "gather_adc_masked_generic": 0,
+                                   "pq_adc": 1, "pq_adc_generic": 1,
                                    "flash_attention": 1}
     with pytest.raises(ValueError, match="contiguous"):
         ops.distance_matrix(qt.t(), bt.t())
@@ -434,8 +502,11 @@ def test_cuda_adc_wrappers_reject_codes_past_the_lut(cuda):
         cuda_ga.gather_adc_masked(it, pq_codes, luts, vt)
     with pytest.raises(ValueError, match="past a LUT of K=16"):
         cuda_pa.pq_adc(pq_codes, luts)
-    assert ops.launch_counts()["gather_adc_masked"] == 0
-    assert ops.launch_counts()["pq_adc"] == 0
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        cuda_ga.gather_adc_masked_generic(it, pq_codes, luts, vt)
+    with pytest.raises(ValueError, match="past a LUT of K=16"):
+        cuda_pa.pq_adc(pq_codes, luts.repeat(4, 1, 1))
+    assert not any(v for k, v in ops.launch_counts().items() if "adc" in k)
 
 
 @pytest.mark.cuda

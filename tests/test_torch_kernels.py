@@ -765,6 +765,216 @@ def test_adc_plain_versions_sum_in_m_order():
                               lut).item() == in_order
 
 
+def _funnelshift_l(lo, hi, shift):
+    """__funnelshift_l: the high word of (hi:lo) << shift, shift < 32."""
+    both = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return ((both << shift.astype(np.uint64)) >> np.uint64(32)).astype(np.uint32)
+
+
+def _distinct_banks(words):
+    """One wavefront: the words a warp reads or writes sit in 32 distinct
+    banks (a word read by several lanes counts once)."""
+    words = np.unique(np.asarray(words))
+    return len(np.unique(words % 32)) == len(words)
+
+
+def _interleaved_scan(codes, luts):
+    """pq_adc_interleaved_kernel (csrc/pq_adc.cu) in numpy float32, step by
+    step: the LUTs of 16 queries staged as entry (c, m, q) at (c * M + m) *
+    16 + q; tiles of 64 rows in a code buffer (half 1's rows 16 bytes past
+    half 0's); lane (h, q) reads its row's code words, half 1's stream
+    shifted one byte (funnel shift), looks up slot k at c * 16M + 16m + q
+    (m = k; half 1 one m behind), adds in the kernel's order, writes the
+    transpose row of 66 floats and the tile is read back. Also checks
+    that every warp lookup, transpose store, code load and LUT staging
+    store is one wavefront."""
+    n, M = codes.shape
+    Q, _, K = luts.shape
+    QB, T, S, GAP = 16, 32, 66, 16
+    lane = np.arange(32)
+    q, h = lane & 15, lane >> 4
+    out = np.full((Q, n), np.nan, np.float32)
+    shift = (8 * h).astype(np.uint32)
+    # slot k reads m = k, half 1 m = k - 1 and at slot 0 m = M - 1 of its last row
+    at = [np.where(h == 1, M - 1 if k == 0 else k - 1, k) * QB + q for k in range(M)]
+    col = q * S + h * (T - 1)
+    for p in range(M // 2):          # LUT staging: lane (q, h) stores m = 2p + h
+        for c in (0, K - 1):
+            assert _distinct_banks((c * M + 2 * p + h) * QB + q)
+    for q0 in range(0, Q, QB):
+        qn = min(QB, Q - q0)
+        staged = np.zeros((QB, M, K), np.float32)
+        staged[:qn] = luts[q0:q0 + qn]
+        lut = staged.transpose(2, 1, 0).reshape(-1)            # (c, m, q)
+        for row0 in range(0, n, 2 * T):
+            tile = np.zeros((2 * T, M), np.uint8)
+            rows = codes[row0:row0 + 2 * T]
+            tile[:len(rows)] = rows
+            buf = np.zeros(2 * T * M + GAP, np.uint8)
+            buf[:T * M] = tile[:T].ravel()
+            buf[T * M + GAP:] = tile[T:].ravel()
+            w32 = buf.view("<u4")
+            tq = np.full(QB * S, np.nan, np.float32)
+            prev = np.zeros(32, np.uint32)
+            acc = np.zeros(32, np.float32)
+            for j in range(T):
+                first = (h * (T * M + GAP) + j * M) // 4       # the lane's row, in words
+                if j % (16 // M) == 0:                          # a 16-byte code load
+                    assert _distinct_banks(first[:, None] + np.arange(4))
+                w = w32[first[:, None] + np.arange(M // 4)]
+                s = np.stack([_funnelshift_l(prev if i == 0 else w[:, i - 1], w[:, i], shift)
+                              for i in range(M // 4)], axis=1)
+                prev = w[:, -1]
+                e = []
+                for k in range(M):
+                    c = (s[:, k >> 2] >> np.uint32(8 * (k & 3))) & np.uint32(0xFF)
+                    idx = c.astype(np.int64) * (M * QB) + at[k]
+                    assert _distinct_banks(idx)
+                    e.append(lut[idx])
+                done = np.where(h == 1, acc, np.float32(0)) + e[0]
+                a = np.where(h == 1, np.float32(0), done) + e[1]
+                for k in range(2, M):
+                    a = a + e[k]
+                acc = a
+                # half 1's store at j = 0 lands on half 0's column 31, rewritten at j = 31
+                assert _distinct_banks(col + j)
+                tq[col + j] = np.where(h == 1, done, a)
+            last = (prev >> np.uint32(24)).astype(np.int64) * (M * QB) + at[0]
+            tq[(col + T)[h == 1]] = (acc + lut[last])[h == 1]
+            assert _distinct_banks((col + T)[h == 1])
+            keep = min(2 * T, n - row0)
+            for jq in range(qn):
+                out[q0 + jq, row0:row0 + keep] = tq[jq * S:jq * S + keep]
+    return out
+
+
+@pytest.mark.parametrize("M", [4, 8, 16])
+@pytest.mark.parametrize("K", [16, 256])
+@pytest.mark.parametrize("Q,n", [(21, 130), (16, 64), (33, 1)])
+def test_pq_adc_interleaved_layout_gives_the_plain_sum(M, K, Q, n):
+    """The interleaved kernel's layout, emulated in float32 at ragged n and
+    Q not a multiple of 16 (a partial last query group, a partial last
+    tile): its scores equal ref.pq_adc_ref and the JAX Pallas pq_adc in
+    interpret mode bit for bit, every (query, row) one add chain from 0.0
+    in m order, and every warp lookup is one wavefront whatever the codes
+    (checked on uniform codes and on rows whose codes are all equal)."""
+    w = _codes_world(Q, 1, n, 8, M, K, seed=M + K)
+    codes, luts = w["pq_codes"], w["luts"]
+    for table in (codes, np.repeat(codes[:1], n, axis=0)):
+        got = _interleaved_scan(table, luts)
+        want = ref.pq_adc_ref(_u8(table), _t(luts)).numpy()
+        assert got.tobytes() == want.tobytes()
+        jwant = jax.vmap(lambda lut, t=jnp.asarray(table): pallas_pq_adc(
+            t, lut, block_n=64, interpret=True))(jnp.asarray(luts))
+        assert got.tobytes() == np.asarray(jwant).tobytes()
+
+
+def _hop_adc(ids, codes, luts, visited, vec8):
+    """gather_adc_hop_kernel (csrc/gather_adc.cu) in numpy float32, one
+    thread a pair: a padding id stores (+inf, -1) first; the visited word
+    (clamped to the last) and the code row (ids past n - 1 read row n - 1)
+    load together, with ``vec8`` as 8-byte words whose bytes are the codes
+    m = 8w .. 8w + 7 in order; the M entries add from 0.0 in m order; the
+    visited bit applies at the store."""
+    Q, R = ids.shape
+    n, M = codes.shape
+    W = visited.shape[1]
+    qq = np.repeat(np.arange(Q), R)
+    idv = ids.ravel()
+    pad = idv < 0
+    idc = np.where(pad, 0, idv)
+    word = visited[qq, np.minimum(idc >> 5, W - 1)]
+    rows = np.ascontiguousarray(codes[np.minimum(idc, n - 1)])
+    if vec8:    # uint2 loads: byte b of word x (b < 4) or y holds code 8w + b
+        words = rows.view("<u4").reshape(len(idv), M // 8, 2)
+        rows = np.stack([(words[:, w, b >> 2] >> np.uint32(8 * (b & 3))) & np.uint32(0xFF)
+                         for w in range(M // 8) for b in range(8)], axis=1)
+    acc = np.zeros(len(idv), np.float32)
+    for m in range(M):
+        acc = acc + luts[qq, m, rows[:, m]]
+    seen = ((word >> (idc & 31).astype(np.uint32)) & 1) == 1
+    drop = pad | seen
+    return (np.where(drop, np.float32(np.inf), acc).reshape(Q, R),
+            np.where(drop, -1, idv).astype(np.int32).reshape(Q, R))
+
+
+@pytest.mark.parametrize("M", [4, 8, 16, 40])
+@pytest.mark.parametrize("K", [16, 256])
+def test_adc_hop_gives_the_plain_sum(M, K):
+    """The ADC hop kernel, emulated in float32 on the 8-byte code loads
+    (M % 8 == 0) and on the byte loads: with padding ids, an all-padding
+    row, a row of visited ids, ids past n - 1 and bit 31, its dists and
+    ids equal ref.gather_adc_masked_ref and the JAX Pallas
+    gather_adc_masked in interpret mode bit for bit."""
+    Q, R, n = 6, 21, 300
+    w = _codes_world(Q, R, n, 8, M, K, seed=M * K)
+    ids, visited = w["ids"].copy(), w["visited"].copy()
+    visited[2] = 2**32 - 1
+    ids[3, ::2] = n + np.arange(ids[3, ::2].size) % 40
+    want_d, want_i = ref.gather_adc_masked_ref(
+        _t(ids, torch.int32), _u8(w["pq_codes"]), _t(w["luts"]),
+        convert.bitmap_from_uint32(visited, "cpu"))
+    jd, ji = pallas_gam(jnp.asarray(ids), jnp.asarray(w["pq_codes"]), jnp.asarray(w["luts"]),
+                        jnp.asarray(visited), r_tile=8, interpret=True)
+    for vec8 in {False, M % 8 == 0}:
+        got_d, got_i = _hop_adc(ids, w["pq_codes"], w["luts"], visited, vec8)
+        assert np.isinf(got_d[0]).all() and (got_i[2] == -1).all()
+        np.testing.assert_array_equal(got_i, want_i.numpy())
+        assert got_d.tobytes() == want_d.numpy().tobytes()
+        np.testing.assert_array_equal(got_i, np.asarray(ji))
+        assert got_d.tobytes() == np.asarray(jd).tobytes()
+
+
+@pytest.mark.parametrize("Q,M,K,ptr,route", [
+    (1, 8, 256, 0, "generic"),          # a single LUT
+    (15, 8, 256, 0, "generic"),         # Q < 16: no full query group
+    (16, 8, 256, 0, "interleaved"),
+    (64, 8, 256, 0, "interleaved"),     # the pq_search chunk
+    (64, 8, 256, 8, "interleaved"),     # a table at an 8-byte offset: 4-byte copies
+    (64, 8, 256, 2, "generic"),         # not 4-byte aligned
+    (64, 4, 256, 0, "interleaved"),
+    (64, 16, 16, 0, "interleaved"),
+    (64, 16, 256, 0, "generic"),        # 16 LUTs of 16 KB: past shared memory
+    (64, 12, 16, 0, "generic"),         # M the kernel does not read as words
+    (64, 2, 256, 0, "generic")])
+def test_pq_adc_route_picks_the_kernel_from_the_shapes(Q, M, K, ptr, route):
+    """scan_route sends a pq_adc call to the interleaved kernel where it pays
+    and fits, else to the generic one; the shared memory it budgets is the
+    kernel's (215,552 bytes at M=8, K=256, one block an SM)."""
+    assert cuda_pa.scan_route(Q, M, K, ptr) == route
+    assert cuda_pa.scan_smem_bytes(8, 256) == 215_552 <= cuda_pa.SMEM_BYTES
+    assert cuda_pa.scan_smem_bytes(16, 256) > cuda_pa.SMEM_BYTES
+
+
+@pytest.mark.parametrize("Q,n,sms,grid", [(64, 10**6, 132, (4, 33)), (21, 9001, 132, (2, 66)),
+                                          (16, 1, 132, (1, 132)), (5000, 10, 132, (313, 1))])
+def test_pq_adc_scan_grid_is_persistent(Q, n, sms, grid):
+    """One block an SM, each group of 16 queries on its share of them; a
+    shape past the grid or the int32 indexing raises before any launch."""
+    assert cuda_pa.scan_grid(Q, n, sms) == grid
+    for bad in ((64, 2**31 - 10), (2**31 - 10, 5)):
+        with pytest.raises(ValueError, match="interleaved kernel's grid"):
+            cuda_pa.scan_grid(*bad, sms)
+    assert cuda_pa._scan_fn is None and cuda_pa.LAUNCHES["pq_adc"] == 0
+
+
+@pytest.mark.parametrize("Q,R,n,M,K,W", [
+    (2**26, 2**14, 10, 8, 256, 1),     # Q x R pairs past 2^31 - 1 blocks of 256
+    (1, 1, 2**31, 8, 256, 1),          # n past int32
+    (1, 1, 10, 2**24, 256, 1),         # M * K past int32
+    (1, 1, 0, 8, 256, 1),              # an empty table
+    (1, 1, 10, 8, 257, 1),             # K past uint8 codes
+    (1, 1, 10, 8, 256, 0)])            # no visited words
+def test_adc_hop_grid_rejects_what_it_cannot_take(Q, R, n, M, K, W):
+    """The ADC wrappers' limits follow the kernels' grid (Q x R pairs, 256 a
+    block) and the int32 indexing, and are raised before any launch."""
+    with pytest.raises(ValueError, match="hop kernel's grid|unsupported shape"):
+        cuda_ga.hop_grid(Q, R, n, M, K, W)
+    assert cuda_ga.hop_grid(64, 20, 10**6, 8, 256, 31250) == 5
+    assert cuda_ga.hop_grid(2**20, 2**15 - 1, 10, 8, 256, 1) == 2**12 * (2**15 - 1)
+    assert cuda_ga._fn is None and cuda_ga.LAUNCHES["gather_adc_masked"] == 0
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_compressed_plain_versions_match_pallas_interpret(metric):
     """One small shape of each compressed kernel against its Pallas body in
@@ -830,7 +1040,8 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
                            "gather_distance_masked", "gather_distance_masked_generic",
                            "distance_matrix", "distance_matrix_small",
                            "distance_matrix_tile32", "gather_sq8_masked",
-                           "gather_sq8_masked_generic", "gather_adc_masked", "pq_adc",
+                           "gather_sq8_masked_generic", "gather_adc_masked",
+                           "gather_adc_masked_generic", "pq_adc", "pq_adc_generic",
                            "flash_attention"}
 
 
@@ -884,13 +1095,16 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
     for sq8 in (cuda_gs.gather_sq8_masked, cuda_gs.gather_sq8_masked_generic):
         with pytest.raises(ValueError, match="CUDA tensor"):
             sq8(_t(w["queries"]), it, _u8(w["sq_codes"]), _t(w["scale"]), _t(w["mn"]), vt)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda_ga.gather_adc_masked(it, _u8(w["pq_codes"]), _t(w["luts"]), vt)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda_pa.pq_adc(_u8(w["pq_codes"]), _t(w["luts"]))
+    for adc in (cuda_ga.gather_adc_masked, cuda_ga.gather_adc_masked_generic):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            adc(it, _u8(w["pq_codes"]), _t(w["luts"]), vt)
+    for scan in (cuda_pa.pq_adc, cuda_pa.pq_adc_generic):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            scan(_u8(w["pq_codes"]), _t(w["luts"]))
     assert all(m._fn is None for m in (cuda_gd, cuda_gp, cuda_dm, cuda_gs, cuda_ga,
                                        cuda_pa))
     assert cuda_gd._hop_fn is None and cuda_gs._hop_fn is None and cuda_dm._small_fn is None
+    assert cuda_pa._scan_fn is None
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
