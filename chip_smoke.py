@@ -41,10 +41,14 @@ Phases (each prints its seconds):
    sum the M entries in the same order. Matrix: rtol 1e-4, atol 1e-4 (x d
    for l2): the kernel sums in another order than the library product, and
    the expanded l2 form's absolute error grows with the squared norms.
+   The unmasked gather's pair kernel (what ``gather_distance`` runs) bit
+   for bit against the generic kernel and within gather_tol(d) of the
+   plain version: R = 1, 10, 32, 64, all-INVALID rows, d = 32, 64, 130,
+   960, l2/ip/cos, query rows and base at a 4-byte offset.
 3. Smoke world (n=20_000, d=32) through ``repro_torch.launch.serve`` under
-   ``--scorer exact``, ``sq8`` and ``pq``: each recall@10 must reach the
-   JAX reference's CPU figure on the same world
-   (``scripts/reference_smoke_recall.py``) less its slack.
+   ``--scorer exact``, ``sq8`` and ``pq``, and from ``--entry hierarchy``:
+   each recall@10 must reach the JAX reference's CPU figure on the same
+   world (``scripts/reference_smoke_recall.py``) less its slack.
 4. Full-width world (n=1_000_000, d=64; NN-Descent k=20, 15 rounds, GD, PQ
    M=8 K=256 15 iterations; 8 batches of 64 queries, ef=64, k=10, random
    entries) through the same entry point under ``--scorer pq``; the same
@@ -73,6 +77,18 @@ Phases (each prints its seconds):
    fp32: rtol 2e-5, atol 2e-5 (the reference's own kernel tests); bf16:
    rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
    fp32 values that agree to ~1e-6.
+4b. The hierarchy path at full width: ``serve --entry hierarchy`` on the
+   n=1M world (HNSW over the shared NN-Descent graph; its layers, build
+   stages, peak memory and seed-phase comps; every kernel of the path
+   launched, no yardstick), then on the same Searcher and bottom layer
+   the same stream from random (flat-HNSW), hubs, projection and lsh
+   entries and the hierarchy under term="stable": recall@1, recall@10,
+   comps/query, qps and steps/batch of each. The device-busy share of a
+   hierarchy batch and of its descent. The hierarchy rung again with
+   ``ops.gather_distance`` on the generic kernel (ids, dists, n_comps,
+   n_steps bit-identical) and on the plain versions (rows that differ
+   printed, recall@10 within PLAIN_RECALL_SLACK). The gather calls of
+   the path's seed phases are recorded for phase 5.
 5. Per-kernel times at the main path's shapes, their bounds, the plain
    versions' times, the yardstick kernel where one is kept, and one
    library call where there is one. Times are
@@ -91,8 +107,10 @@ Phases (each prints its seconds):
    (65,536 x 20 x 20 x 64, x is y) on the small route beside the 32 x 32
    tile and ``cdist**2``. The NN-Descent scoring pass on both pools beside the
    generic gather kernel in the same run, each of its four kernels per
-   recorded launch and summed, the bytes its design moves, and the generic
-   gather at the rerank shape. Last, the device-busy
+   recorded launch and summed, the bytes its design moves, and
+   ``gather_distance``'s pair kernel beside the generic kernel at the
+   rerank, a descent step, a layer start and the hubs scan (phase 4b's
+   recorded calls). Last, the device-busy
    share of one served batch under the exact and the pq scorer, and one
    full-world NN-Descent round under the profiler. flash_attention (bf16): one call runs
    ``flash_attention_wgmma_kernel`` once (by symbol, under the profiler),
@@ -148,6 +166,15 @@ PQ_RECALL_SLACK = 0.03
 SMOKE_FLOORS = {"exact": (REF_SMOKE_RECALL10, RECALL_SLACK),
                 "sq8": (REF_SMOKE_RECALL10_SQ8, RECALL_SLACK),
                 "pq": (REF_SMOKE_RECALL10_PQ, PQ_RECALL_SLACK)}
+# recall@10 of the JAX reference on the smoke world from the hierarchy
+# (scripts/reference_smoke_recall.py --entry hierarchy: HNSW, no diversify
+# stage, seed 0; recall@1 0.8301); the port's CPU figure was 0.7449
+# (levels and layer graphs drawn by other generators). The reference's own
+# CLI, `python -m repro.launch.serve --arch ann --smoke --entry hierarchy`,
+# reports recall@1 only, on its jax.random world: 0.750 over 16 queries.
+REF_SMOKE_RECALL10_HIERARCHY = 0.7433593273162842
+# phase 4b: the hierarchy rung on the plain versions against the kernels'
+PLAIN_RECALL_SLACK = 0.005
 SCORERS = ("exact", "sq8", "pq")
 PQ_SEARCH_RERANK = 64
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -177,6 +204,7 @@ BF16_FLOP_PER_S = 989e12
 METRICS = ("l2", "ip", "cos")
 # the kernels' symbols, as the profiler names them (phase 5 matches on them)
 HOP_KERNEL = "gather_distance_hop_kernel"
+PAIR_KERNEL = "gather_distance_pairs_kernel"
 GENERIC_GATHER_KERNEL = "gather_distance_kernel"
 MATRIX_KERNEL = "distance_matrix_large_kernel"
 SMALL_MATRIX_KERNEL = "distance_matrix_small_kernel"
@@ -490,13 +518,68 @@ def check_kernels(full_base: torch.Tensor, errs: dict) -> None:
 
 
 
+def check_pair_kernel(full_base: torch.Tensor, errs: dict) -> None:
+    """The unmasked gather's pair kernel (what ``gather_distance`` runs at
+    every shape) bit for bit against the generic kernel, and within
+    gather_tol(d) of the plain version, at the hierarchy path's R (1: a
+    layer start, 10: a descent step at M = 10, 32: the hubs scan, 64: the
+    rerank) and d = 32, 64 (the n=1M base), 130 and 960: rows that are all
+    INVALID (a late descent step's finished rows) come back +inf, ids past
+    n - 1 read row n - 1; query rows and base at a 4-byte offset (scalar
+    loads) too."""
+    from repro_torch.kernels import gather_distance as kgd
+    from repro_torch.kernels import ref
+
+    dev = full_base.device
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def offset_view(t):
+        flat = torch.zeros(t.numel() + 1, device=dev)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
+    bases = {64: full_base}
+    for d, n in ((32, 30001), (130, 30001), (960, 5000)):
+        bases[d] = torch.randn((n, d), device=dev, generator=gen)
+    Q = 64
+    for d, base in bases.items():
+        n = base.shape[0]
+        views = [("aligned", base)]
+        if d != 64:
+            views.append(("base at a 4-byte offset", offset_view(base)))
+        for R in (1, 10, 32, 64):
+            ids = torch.randint(0, n, (Q, R), generator=gen, device=dev, dtype=torch.int32)
+            ids[0] = -1                                   # a finished row
+            ids[5::3] = -1                                # a third of them, as late in a descent
+            ids[3, ::2] = n + torch.arange(ids[3, ::2].numel(), device=dev,
+                                           dtype=torch.int32) % 40
+            q = torch.randn((Q, d), device=dev, generator=gen)
+            for label, b in views + [("query rows at a 4-byte offset", base)]:
+                qv = offset_view(q) if label.startswith("query") else q
+                for metric in METRICS:
+                    got = kgd.gather_distance(qv, ids, b, metric)
+                    check(torch.equal(got, kgd.gather_distance_generic(qv, ids, b, metric)),
+                          f"the pair kernel differs from the generic kernel: d={d} R={R} "
+                          f"{label} {metric}")
+                    want = ref.gather_distance_ref(qv, ids, b, metric)
+                    torch.testing.assert_close(got, want, **gather_tol(d))
+                    check(bool(torch.isinf(got[0]).all()) and bool(torch.isinf(got[5]).all()),
+                          f"padding rows not +inf: d={d} R={R} {label} {metric}")
+                    errs["gather_distance"] = max(errs["gather_distance"], max_abs_err(got, want))
+        print(f"  gather_distance (pair kernel) d={d} n={n}: R = 1, 10, 32, 64 x l2/ip/cos x "
+              f"{', '.join(v for v, _ in views)}, query rows at a 4-byte offset: bit-identical "
+              f"to the generic kernel, within {gather_tol(d)} of the plain version; "
+              f"all-INVALID rows +inf")
+
+
 def gather_kernel_pass(base, pool, metric="l2", chunk=1024):
     """The NN-Descent scoring pass on the generic gather kernel, as it ran
     before the pool kernel: once per ``chunk`` rows, the rows' own base rows as queries."""
     from repro_torch.kernels import gather_distance as kgd
 
-    return torch.cat([kgd.gather_distance(base[lo:lo + chunk],
-                                          pool[lo:lo + chunk].contiguous(), base, metric)
+    return torch.cat([kgd.gather_distance_generic(base[lo:lo + chunk],
+                                                  pool[lo:lo + chunk].contiguous(), base,
+                                                  metric)
                       for lo in range(0, base.shape[0], chunk)])
 
 
@@ -866,6 +949,164 @@ def generic_hop_rung(searcher, spec, stream, seeds, served) -> None:
           f"n_comps and n_steps bit-identical to the hop kernel's ({ran})")
 
 
+# -- phase 4b: the hierarchy path ---------------------------------------------
+
+
+def recording(fn, record):
+    """``fn`` (an ``ops.gather_distance``) that first hands (queries, ids)
+    of every call to ``record``."""
+    def recorded(queries, ids, base, metric="l2"):
+        record(queries, ids.clone())
+        return fn(queries, ids, base, metric)
+    return recorded
+
+
+@contextlib.contextmanager
+def ops_replaced(**fns):
+    """The ``ops`` entry points named replaced by ``fns`` for the block."""
+    from repro_torch.kernels import ops
+
+    real = {name: getattr(ops, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+def rung_line(name: str, sm: dict, n_batches: int) -> str:
+    steps = sm["steps_per_batch"]
+    return (f"{name}: {sm['queries']} queries in {sm['seconds'] * 1e3:.1f} ms "
+            f"({sm['qps']:.1f} qps), recall@1 {sm['recall@1']:.4f}, recall@10 "
+            f"{sm['recall@10']:.4f}, comps/query {sm['comps_per_query']:.1f} (seed phase "
+            f"{sm['seed_comps_per_query']:.1f}), {steps:.1f} steps/batch, "
+            f"{sm['seconds'] * 1e3 / n_batches / steps:.3f} ms/step")
+
+
+def hierarchy_path(dev) -> tuple[dict, dict]:
+    """Phase 4b: ``serve --entry hierarchy`` at full width (HNSW over the
+    n=1M world: NN-Descent bottom graph shared, upper layers by NN-Descent
+    or exactly, GD-pruned, reverse-unioned), its layers, build stages and
+    seed phase; on the same Searcher and bottom layer, the same stream from
+    the random (flat-HNSW), hubs, projection and lsh entries and the
+    hierarchy under term="stable" (fig4 and fig6's comparison on the card);
+    the hierarchy rung again on the generic gather kernel (bit-identical)
+    and on the plain versions (recall@10 within PLAIN_RECALL_SLACK). Returns
+    the path's launch counts and the gather calls recorded from its seed
+    phases (descent steps, layer starts, hubs scans) for phase 5."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import gather_distance as kgd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+
+    ops.reset_launch_counts()
+    for key in engine.DESCENT_STEPS:
+        engine.DESCENT_STEPS[key] = 0
+    run = serve.serve_ann(serve.parser().parse_args(
+        ["--arch", "ann", "--device", "cuda", "--entry", "hierarchy"]))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    descent = dict(engine.DESCENT_STEPS)
+    rep = run.build.report
+    layers = rep.layers
+    print(f"hnsw layers: {[(la['nodes'], la['source'], la['max_degree'], la['dropped_reverse_edges']) for la in layers]} "
+          f"(nodes, source, degree cap, dropped reverse edges; bottom first), entry point "
+          f"{int(run.searcher.hierarchy.entry_point)}")
+    print(f"hnsw build: rounds {rep.rounds}, update curve {list(rep.update_curve)}, "
+          f"graph-recall proxy {rep.graph_recall_proxy}, bottom degree "
+          f"min/mean/max {rep.degree['min']}/{rep.degree['mean']}/{rep.degree['max']}, "
+          f"index memory {rep.memory_bytes / 2**20:.1f} MiB; construct "
+          f"{rep.wall_construct_s:.2f} s (NN-Descent + every layer), diversify "
+          f"{rep.wall_diversify_s:.2f} s, compress {rep.wall_compress_s:.2f} s, total "
+          f"{rep.wall_total_s:.2f} s; peak memory per stage (GiB) "
+          f"{ {k: round(v / 2**30, 2) for k, v in rep.peak_memory_bytes.items()} }")
+    check(len(layers) >= 4 and layers[0]["nodes"] == run.summary["n"]
+          and layers[0]["source"] == "bottom_graph",
+          f"the full-width HNSW has too few layers or no shared bottom graph: {layers}")
+    # a warm-up, the served batches, and their seeds again (seed-phase comps)
+    check(descent["descents"] == 2 * len(run.stream) + 1,
+          f"{descent['descents']} descents for {len(run.stream)} batches")
+    n_b = len(run.stream)
+    print(f"hierarchy seed phase: {run.summary['seed_comps_per_query']:.1f} comps/query, "
+          f"{descent['steps'] / descent['descents']:.1f} descent steps a batch over "
+          f"{len(layers) - 1} layers")
+    print(rung_line("hierarchy", run.summary, n_b))
+    rec10 = run.summary["recall@10"]
+    check(np.isfinite(rec10) and 0.0 < rec10 <= 1.0, "hierarchy recall@10 out of range")
+    print(f"launches over the hierarchy path: {launches}")
+    for k in ("gather_distance", "gather_distance_pool", "distance_matrix",
+              "distance_matrix_small", "gather_distance_masked"):
+        check(launches[k] > 0, f"{k} never launched over the hierarchy path")
+    for k in ("gather_distance_generic", "gather_distance_masked_generic"):
+        check(launches[k] == 0, f"{k} launched over the hierarchy path")
+
+    s, k = run.searcher, run.spec.k
+    rungs = [(e, run.spec._replace(entry=e)) for e in ("random", "hubs", "projection", "lsh")]
+    rungs.append(("hierarchy, term=stable", run.spec._replace(term="stable")))
+    warm = torch.from_numpy(serve.numpy_queries(s.base.shape[1], run.stream[0].shape[0], 1,
+                                                99)[0]).to(dev)
+    for name, spec in rungs:
+        s.search(warm, spec, serve.batch_seed(0, -1))    # prepares the sketches
+        results, dt = serve.serve_batches(s, spec, run.stream, run.seeds)
+        nq = sum(q.shape[0] for q in run.stream)
+        sm = {"queries": nq, "seconds": dt, "qps": nq / dt,
+              **serve.summarize(results, run.ground_truth, k),
+              "seed_comps_per_query": serve.seed_comps(s, spec, run.stream, run.seeds)}
+        print(rung_line(name, sm, n_b))
+        check(0.0 < sm["recall@10"] <= 1.0, f"recall@10 out of range ({name})")
+
+    # where a hierarchy batch's time goes: the whole batch, its seed phase
+    batch_share(run, run.spec)
+    busy_share(lambda: s.seed(run.stream[0], run.spec, run.seeds[0]),
+               "the hierarchy seed phase (descent) of a batch")
+
+    # the hierarchy rung on the generic gather kernel: bit for bit
+    before = ops.launch_counts()
+    with ops_replaced(gather_distance=kgd.gather_distance_generic):
+        for q, seed, res in zip(run.stream, run.seeds, run.results):
+            got = s.search(q, run.spec, seed)
+            check(torch.equal(got.ids, res.ids) and torch.equal(got.dists, res.dists)
+                  and torch.equal(got.n_comps, res.n_comps)
+                  and int(got.n_steps) == int(res.n_steps),
+                  f"the hierarchy rung on the generic gather kernel differs (batch seed {seed})")
+    ran = {key: v - before[key] for key, v in ops.launch_counts().items() if v > before[key]}
+    check(ran.get("gather_distance_generic", 0) > 0 and "gather_distance" not in ran,
+          f"the hierarchy rung on the generic kernel ran {ran}")
+    print(f"hierarchy rung on the generic gather kernel: {n_b} batches, ids, dists, n_comps "
+          f"and n_steps bit-identical to the pair kernel's ({ran})")
+
+    # the hierarchy rung on the plain versions
+    before = ops.launch_counts()
+    with ops_replaced(gather_distance=ref.gather_distance_ref,
+                      gather_distance_masked=ref.gather_distance_masked_ref):
+        plain, _ = serve.serve_batches(s, run.spec, run.stream, run.seeds)
+    check(ops.launch_counts() == before, "a kernel ran on the plain hierarchy rung")
+    differ = sum(int((p.ids != r.ids).any(dim=1).sum()) for p, r in zip(plain, run.results))
+    plain_rec = serve.summarize(plain, run.ground_truth, k)["recall@10"]
+    print(f"hierarchy rung on the plain versions: {differ} of {sum(q.shape[0] for q in run.stream)} "
+          f"rows differ in ids, recall@10 {plain_rec:.4f} against the kernels' {rec10:.4f}")
+    check(abs(plain_rec - rec10) <= PLAIN_RECALL_SLACK,
+          f"the plain hierarchy rung's recall@10 is {plain_rec:.4f}, the kernels' {rec10:.4f}")
+
+    # the gather calls of the path's seed phases, for phase 5
+    calls = {"descent step": [], "layer start": [], "hubs scan": []}
+    M = s.hierarchy.layers_neighbors[1].shape[1]
+
+    def record(queries, ids):
+        key = {M: "descent step", 1: "layer start"}.get(ids.shape[1])
+        if key:
+            calls[key].append((queries, ids))
+    with ops_replaced(gather_distance=recording(ops.gather_distance, record)):
+        serve.seed_comps(s, run.spec, run.stream, run.seeds)
+    with ops_replaced(gather_distance=recording(
+            ops.gather_distance, lambda queries, ids: calls["hubs scan"].append((queries, ids)))):
+        serve.seed_comps(s, run.spec._replace(entry="hubs"), run.stream, run.seeds)
+    check(all(calls.values()), f"no gather call recorded for {[k for k, v in calls.items() if not v]}")
+    return launches, calls
+
+
 @contextlib.contextmanager
 def kept_knn_graph(holder: dict):
     """The GD diversifier keeps the k-NN graph it prunes in ``holder``
@@ -1032,7 +1273,71 @@ def one_kernel(fn, symbol: str, label: str) -> None:
     check(len(ran) == 1 and symbol in ran[0], f"{label} did not run {symbol} exactly once")
 
 
-def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
+def time_pair_kernel(base, q, gen, errs: dict, launches: dict, pair_calls: dict) -> dict:
+    """gather_distance's pair kernel and the generic kernel, each per
+    recorded launch in the same run, at four shapes: the rerank (64 queries
+    x 64 fresh random ids a launch, as beam_search._finalize and pq_search
+    issue it) and the calls phase 4b recorded on the hierarchy path, cycled
+    in order: a descent step (Q=64 x R=M, its finished rows' slots
+    INVALID), a layer start (Q=64 x R=1) and the hubs scan (Q=64 x R=32).
+    The bound counts what each shape's data needs: every query row, id and
+    output once, each distinct valid row once, 3d flops a valid pair. The
+    kernels-line row keeps the rerank's numbers and lists every shape."""
+    from repro_torch.kernels import gather_distance as kgd
+    from repro_torch.kernels import ref
+
+    n, d = base.shape
+    Q, R = 64, 64
+    calls = {"rerank": [(q, torch.randint(0, n, (Q, R), generator=gen, device=base.device,
+                                           dtype=torch.int32)) for _ in range(64)],
+             **pair_calls}
+    shapes = []
+    for label, cs in calls.items():
+        it = iter(range(10**9))
+
+        def pick():
+            return cs[next(it) % len(cs)]
+
+        def pair():
+            return kgd.gather_distance(*pick(), base)
+
+        def generic():
+            return kgd.gather_distance_generic(*pick(), base)
+
+        def plain():
+            return ref.gather_distance_ref(*pick(), base)
+        Qs, Rs = cs[0][1].shape
+        one_kernel(pair, PAIR_KERNEL, f"gather_distance at the {label}")
+        k_ms = device_ms(pair, reps=640, match=PAIR_KERNEL, launches=1)
+        g_ms = device_ms(generic, reps=640, match=GENERIC_GATHER_KERNEL, launches=1)
+        call_ms = cuda_ms(pair, reps=640)
+        p_ms = device_ms(plain, reps=64)
+        valid = sum(float(ids.ge(0).sum()) for _, ids in cs) / len(cs)
+        uniq = sum(float(torch.unique(ids[ids >= 0]).numel()) for _, ids in cs) / len(cs)
+        nbytes = Qs * d * 4 + Qs * Rs * 4 + uniq * 4 * d + Qs * Rs * 4
+        b_ms, b_by = bound(nbytes, valid * 3 * d)
+        shapes.append(dict(shape=label, Q=Qs, R=Rs, calls=len(cs),
+                           padded_share=1.0 - valid / (Qs * Rs), distinct_rows=uniq, ms=k_ms,
+                           generic_ms=g_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                           call_ms=call_ms))
+        print(f"  gather_distance {label} Q={Qs} R={Rs} d={d} ({len(cs)} id sets, "
+              f"{100 * (1 - valid / (Qs * Rs)):.1f}% padding, {uniq:.1f} distinct rows a "
+              f"launch): {PAIR_KERNEL} {k_ms * 1e3:.3f} us on the device per recorded "
+              f"launch, the generic kernel {g_ms * 1e3:.3f} us in the same run "
+              f"({g_ms / k_ms:.2f}x); {call_ms:.4f} ms a call back to back; plain "
+              f"{p_ms:.4f} ms; bound {b_ms * 1e3:.4f} us ({b_by}, {nbytes / 1e6:.4f} MB)")
+    rr = shapes[0]
+    return dict(name="gather_distance", route="cuda",
+                source="src/repro_torch/kernels/csrc/gather_distance.cu",
+                replaces="src/repro/kernels/gather_distance.py:176",
+                launches=launches["gather_distance"], max_abs_err=errs["gather_distance"],
+                ms=rr["ms"], plain_ms=rr["plain_ms"], bound_ms=rr["bound_ms"],
+                bound_by=rr["bound_by"], library_ms=None, kernel=PAIR_KERNEL,
+                yardstick=dict(kernel=GENERIC_GATHER_KERNEL, ms=rr["generic_ms"]),
+                shapes=shapes)
+
+
+def time_kernels(run, errs: dict, launches: dict, pair_calls: dict) -> list[dict]:
     from repro_torch.core.nndescent import NNDescentConfig
     from repro_torch.kernels import gather_distance as kgd
     from repro_torch.kernels import ops, ref
@@ -1154,33 +1459,9 @@ def time_kernels(run, errs: dict, launches: dict) -> list[dict]:
     rows.append(pass_row)
     del pools
 
-    # gather_distance at the rerank shape (beam_search._finalize, pq_search):
-    # 64 queries x their ef=64 candidates, a fresh id set per launch
-    Q, R = 64, 64
-    sets = [torch.randint(0, n, (Q, R), generator=gen, device=dev, dtype=torch.int32)
-            for _ in range(64)]
-
-    def rerank():
-        return ops.gather_distance(q, sets[next(it) % 64], base)
-
-    def rerank_plain():
-        return ref.gather_distance_ref(q, sets[next(it) % 64], base)
-    k_ms = device_ms(rerank, reps=640, match=GENERIC_GATHER_KERNEL, launches=1)
-    call_ms = cuda_ms(rerank, reps=640)
-    p_ms = device_ms(rerank_plain, reps=64)
-    rr_bytes = Q * d * 4 + Q * R * 4 + Q * R * 4 * d + Q * R * 4
-    b_ms, b_by = bound(rr_bytes, Q * R * 3 * d)
-    rows.append(dict(name="gather_distance", route="cuda",
-                     source="src/repro_torch/kernels/csrc/gather_distance.cu",
-                     replaces="src/repro/kernels/gather_distance.py:176",
-                     launches=launches["gather_distance"],
-                     max_abs_err=errs["gather_distance"], ms=k_ms, plain_ms=p_ms,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     kernel=GENERIC_GATHER_KERNEL, yardstick=None))
-    print(f"  gather_distance rerank Q={Q} R={R} d={d}: kernel {k_ms:.4f} ms on the device "
-          f"per recorded launch "
-          f"({call_ms:.4f} ms a call back to back), plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by}, {rr_bytes / 1e6:.3f} MB)")
+    # gather_distance (the pair kernel beside the generic one) at the
+    # rerank shape and the hierarchy path's shapes from phase 4b
+    rows.append(time_pair_kernel(base, q, gen, errs, launches, pair_calls))
 
     # distance_matrix over the ground-truth scan: 512 queries x 1M in
     # 16384-row chunks, as exact_search issues them
@@ -1705,30 +1986,37 @@ def lm_serving() -> int:
     return launches
 
 
-def busy_share(run, spec) -> None:
-    """Device-busy share of one served batch under ``spec``: kernel time on
-    the card (torch.profiler, CUPTI) over the batch's wall time."""
+def busy_share(fn, label: str):
+    """Device-busy share of one ``fn`` call after a warm-up call: kernel
+    time on the card (torch.profiler, CUPTI) over the call's wall time;
+    prints it and the leading device ops, returns the call's result."""
     from torch.profiler import ProfilerActivity, profile
 
-    q, seed = run.stream[0], run.seeds[0]
-    run.searcher.search(q, spec, seed)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        res = run.searcher.search(q, spec, seed)
+        res = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     on_card = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in on_card)
-    check(dev_us > 0, "the profiler recorded no device time for a beam batch")
-    steps = int(res.n_steps)
-    print(f"  {spec.scorer} beam batch under the profiler: {wall_us / 1e3:.2f} ms wall, "
+    check(dev_us > 0, f"the profiler recorded no device time for {label}")
+    steps = f", {int(res.n_steps)} steps" if hasattr(res, "n_steps") else ""
+    print(f"  {label} under the profiler: {wall_us / 1e3:.2f} ms wall, "
           f"{dev_us / 1e3:.3f} ms on the device ({dev_us / wall_us:.1%} busy, "
-          f"{1 - dev_us / wall_us:.1%} idle), {steps} steps, "
-          f"{len(on_card)} distinct device ops")
+          f"{1 - dev_us / wall_us:.1%} idle){steps}, {len(on_card)} distinct device ops")
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.key[:70]:70s} {e.self_device_time_total:9.1f} us x{e.count}")
+    return res
+
+
+def batch_share(run, spec) -> None:
+    """:func:`busy_share` of the first served batch under ``spec``."""
+    q, seed = run.stream[0], run.seeds[0]
+    entry = "" if spec.entry == "random" else f"{spec.entry} "
+    busy_share(lambda: run.searcher.search(q, spec, seed), f"{entry}{spec.scorer} beam batch")
 
 
 def main(argv=None) -> int:
@@ -1773,6 +2061,7 @@ def main(argv=None) -> int:
     full_base = torch.from_numpy(serve.numpy_world(n_full, d_full, 0)).to(dev)
     errs = {name: 0.0 for name in ops.launch_counts()}
     check_kernels(full_base, errs)
+    check_pair_kernel(full_base, errs)
     check_pool_kernel(full_base, errs)
     check_compressed_kernels(full_base, errs)
     check_flash_attention(errs)
@@ -1796,6 +2085,16 @@ def main(argv=None) -> int:
               f"bytes/query {smoke['bytes_per_query']:.0f}, qps {smoke['qps']:.1f}")
         check(smoke["recall@10"] >= ref10 - slack,
               f"smoke-world recall@10 below the floor under --scorer {scorer}")
+    smoke = serve.serve_ann(serve.parser().parse_args(
+        ["--arch", "ann", "--smoke", "--device", "cuda", "--entry", "hierarchy"])).summary
+    floor = REF_SMOKE_RECALL10_HIERARCHY - RECALL_SLACK
+    print(f"smoke hierarchy: recall@10 {smoke['recall@10']:.4f} (JAX reference on the CPU "
+          f"{REF_SMOKE_RECALL10_HIERARCHY:.4f}; floor {floor:.4f}), recall@1 "
+          f"{smoke['recall@1']:.4f}, comps/query {smoke['comps_per_query']:.1f} (seed phase "
+          f"{smoke['seed_comps_per_query']:.1f}), layers {smoke['hnsw_layers']}, qps "
+          f"{smoke['qps']:.1f}")
+    check(smoke["recall@10"] >= floor, "smoke-world recall@10 below the floor under "
+                                       "--entry hierarchy")
     done(t0, "phase 3")
 
     t0 = phase("phase 4: full-width world (n=1_000_000, d=64)")
@@ -1899,13 +2198,19 @@ def main(argv=None) -> int:
     ground_truth_against_plain(run)
     done(t0, "phase 4")
 
+    t0 = phase("phase 4b: the hierarchy path at full width (n=1_000_000, d=64)")
+    launches["hierarchy"], pair_calls = hierarchy_path(dev)
+    # the pair kernel's launches over both paths that run it
+    kernel_launches["gather_distance"] += launches["hierarchy"]["gather_distance"]
+    done(t0, "phase 4b")
+
     t0 = phase("phase 5: per-kernel times at the main path's shapes")
-    rows = time_kernels(run, errs, kernel_launches)
+    rows = time_kernels(run, errs, kernel_launches, pair_calls)
     rows += time_compressed_kernels(run, errs, kernel_launches,
                                     next(r["ms"] for r in rows
                                          if r["name"] == "gather_distance_masked"))
-    busy_share(run, specs["exact"])
-    busy_share(run, specs["pq"])
+    batch_share(run, specs["exact"])
+    batch_share(run, specs["pq"])
     round_profile(run.searcher.base)
     del run
     flash_row = time_flash_attention(errs)

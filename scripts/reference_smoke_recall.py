@@ -1,17 +1,19 @@
 """Recall of the JAX reference on the port's smoke world, on the CPU.
 
 Builds the paper's index with ``repro`` (NN-Descent, graph_k=20, 15 rounds,
-GD; plus PQ codes, M=8, K=256, under ``--scorer pq``) over the same numpy
-world the port's ``launch/serve.py --smoke`` and ``chip_smoke.py`` use
-(n=20_000, d=32, seed 0), answers 8 batches of 64 queries with random
-entries at ef=64, k=10 under ``--scorer`` (exact, sq8 or pq; rerank all
-ef), and prints the build's rounds, update curve and graph-recall proxy,
-and recall@1, recall@10, comps/query and bytes/query against brute-force
-ground truth, as one JSON line. With ``--port`` it also runs the port on the
-CPU over the same world; ``--n``, ``--d`` and ``--seed`` pick another world
-of the same kind.
+GD; plus PQ codes, M=8, K=256, under ``--scorer pq``; HNSW with no
+diversify stage under ``--entry hierarchy``, as the serve CLI's ``auto``
+construct) over the same numpy world the port's ``launch/serve.py --smoke``
+and ``chip_smoke.py`` use (n=20_000, d=32, seed 0), answers 8 batches of 64
+queries at ef=64, k=10 from ``--entry`` (random by default) under
+``--scorer`` (exact, sq8 or pq; rerank all ef), and prints the build's
+rounds, update curve and graph-recall proxy, and recall@1, recall@10,
+comps/query and bytes/query against brute-force ground truth, as one JSON
+line. With ``--port`` it also runs the port on the CPU over the same world;
+``--n``, ``--d`` and ``--seed`` pick another world of the same kind.
 
-    JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py --port [--scorer sq8|pq]
+    JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py --port \
+        [--scorer sq8|pq] [--entry hierarchy|hubs|projection|lsh]
 
 ``chip_smoke.py`` holds the port on the card to these recall@10 figures
 less a slack (its constants ``REF_SMOKE_RECALL10*``).
@@ -35,15 +37,18 @@ from repro_torch.launch.serve import SMOKE_WORLD, numpy_queries, numpy_world
 EF, K, BATCH, BATCHES = 64, 10, 64, 8
 
 
-def reference(seed: int, n: int, d: int, scorer: str = "exact") -> dict:
+def reference(seed: int, n: int, d: int, scorer: str = "exact",
+              entry: str = "random") -> dict:
     base = jnp.asarray(numpy_world(n, d, seed))
     key = jax.random.PRNGKey(seed)
     t0 = time.perf_counter()
     compress = "pq" if scorer == "pq" else "none"
-    result = GraphBuilder(BuildSpec(compress=compress)).build(base, key=key)
+    bspec = (BuildSpec(construct="hnsw", diversify="none", compress=compress)
+             if entry == "hierarchy" else BuildSpec(compress=compress))
+    result = GraphBuilder(bspec).build(base, key=key)
     build_s = time.perf_counter() - t0
     searcher = Searcher.from_build(base, result, key=key)
-    spec = searcher.spec(ef=EF, k=K, scorer=scorer)
+    spec = searcher.spec(ef=EF, k=K, scorer=scorer, entry=entry)
     qs = numpy_queries(d, BATCH, BATCHES, seed)
     ids, comps, nbytes = [], [], []
     for b, q in enumerate(qs):
@@ -58,7 +63,8 @@ def reference(seed: int, n: int, d: int, scorer: str = "exact") -> dict:
     rep = result.report
     return {
         "impl": "repro (JAX, CPU)", "n": n, "d": d, "seed": seed,
-        "scorer": scorer, "build_s": build_s,
+        "scorer": scorer, "entry": entry, "build_s": build_s,
+        "hnsw_layers": [layer["nodes"] for layer in rep.layers],
         "rounds": rep.rounds, "update_curve": list(rep.update_curve),
         "graph_recall_proxy": rep.graph_recall_proxy,
         "degree_mean": rep.degree["mean"],
@@ -69,14 +75,15 @@ def reference(seed: int, n: int, d: int, scorer: str = "exact") -> dict:
     }
 
 
-def port(seed: int, n: int, d: int, scorer: str = "exact") -> dict:
+def port(seed: int, n: int, d: int, scorer: str = "exact", entry: str = "random") -> dict:
     from repro_torch.launch import serve
 
     serve.SMOKE_WORLD = (n, d)
     args = serve.parser().parse_args(["--arch", "ann", "--smoke", "--device", "cpu",
                                 "--seed", str(seed), "--ef", str(EF),
                                 "--topk", str(K), "--batch", str(BATCH),
-                                "--batches", str(BATCHES), "--scorer", scorer])
+                                "--batches", str(BATCHES), "--scorer", scorer,
+                                "--entry", entry])
     run = serve.serve_ann(args)
     rep = run.build.report
     return {"impl": "repro_torch (CPU)", "rounds": rep.rounds,
@@ -91,12 +98,15 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=SMOKE_WORLD[0])
     ap.add_argument("--d", type=int, default=SMOKE_WORLD[1])
     ap.add_argument("--scorer", default="exact", choices=["exact", "sq8", "pq"])
+    ap.add_argument("--entry", default="random",
+                    choices=["random", "projection", "hierarchy", "lsh", "hubs"])
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU over the same world")
     args = ap.parse_args()
-    print(json.dumps(reference(args.seed, args.n, args.d, args.scorer)), flush=True)
+    print(json.dumps(reference(args.seed, args.n, args.d, args.scorer, args.entry)),
+          flush=True)
     if args.port:
-        print(json.dumps(port(args.seed, args.n, args.d, args.scorer)))
+        print(json.dumps(port(args.seed, args.n, args.d, args.scorer, args.entry)))
 
 
 if __name__ == "__main__":

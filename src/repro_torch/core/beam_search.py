@@ -14,9 +14,19 @@ scatter-add on the CPU). Finished rows are masked, not exited.
 The reference's ``lax.while_loop`` is a host loop here: it reads
 ``done.all()`` once a step (one device sync a step) and stops when every row
 is done or ``max_steps`` is reached. Compressed scorers (``sq8``, ``pq``)
-finish with an exact rerank of the best survivors (``_finalize``). The port
-has ``term="fixed"`` without restarts; ``term="stable"``, restarts and
-filter deny bitmaps come with a later slice.
+finish with an exact rerank of the best survivors (``_finalize``).
+
+Termination is per query, as the reference's. ``term="fixed"`` keeps the
+classic rule; ``term="stable"`` also freezes a row whose top-k has not
+improved for ``stable_steps`` steps (a frozen row's slots go INVALID and it
+pays no more comparisons). ``restarts > 0`` resurrects converged rows with
+fresh seeds (scored through the scorer, charged to ``n_comps``): row r's
+draws are a hash of its own key (``restart_keys[r]``) and its restart
+count, never of the batch shape, so a padded batch restarts its rows as a
+direct search does. The draws differ from the reference's ``jax.random``
+ones. ``search_with_trace`` runs a fixed number of steps and records the
+best distance and the cumulative comparisons after each (paper Fig. 6).
+Filter deny bitmaps come with a later slice.
 """
 from __future__ import annotations
 
@@ -46,20 +56,24 @@ class _State(NamedTuple):
     n_comps: torch.Tensor     # (Q,) int32
     done: torch.Tensor        # (Q,) bool
     step: int
+    stale: torch.Tensor       # (Q,) int32 steps without a top-k improvement
+    restarts_used: torch.Tensor  # (Q,) int32 fresh-seed restarts spent
+    seed_best: torch.Tensor   # (Q,) best seed-phase distance (the gate's reference)
 
 
-TERMINATION_MODES = ("fixed",)
+TERMINATION_MODES = ("fixed", "stable")
 
 
-def check_termination(term: str, restarts: int) -> None:
-    """The termination knobs this slice supports; the rest raise."""
-    if term == "stable" or restarts > 0:
-        raise NotImplementedError(
-            "term='stable' and restarts are not ported yet "
-            "(ROADMAP.md, queue A item 8)"
-        )
+def check_termination(term: str, restarts: int, restart_keys) -> None:
+    """Every beam entry point's check of the termination knobs: an unknown
+    mode, or restarts without per-row keys, raise ValueError."""
     if term not in TERMINATION_MODES:
-        raise ValueError(f"unknown termination mode {term!r}")
+        raise ValueError(f"unknown termination mode {term!r}; one of {TERMINATION_MODES}")
+    if restarts > 0 and restart_keys is None:
+        raise ValueError(
+            "restarts > 0 needs restart_keys: (Q,) int64, one key per row "
+            "(Searcher.restart_keys draws them per row index, never per batch "
+            "shape, so a padded batch restarts as a direct search does)")
 
 
 def default_max_steps(ef: int, expand_width: int = 1) -> int:
@@ -146,12 +160,72 @@ def _init_state(queries, base, neighbors, entry_ids, ef, metric,
         n_comps=(entry_ids >= 0).sum(dim=1, dtype=torch.int32),
         done=torch.zeros((Q,), dtype=torch.bool, device=dev),
         step=0,
+        stale=torch.zeros((Q,), dtype=torch.int32, device=dev),
+        restarts_used=torch.zeros((Q,), dtype=torch.int32, device=dev),
+        seed_best=cand_d[:, 0],
     )
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of int64 values in [0, 2^32): xor-shifts and
+    multiplies by constants below 2^31, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def restart_draws(keys: torch.Tensor, used: torch.Tensor, E: int, n: int) -> torch.Tensor:
+    """(Q,) int64 row keys and (Q,) restarts spent -> (Q, E) int32 ids in
+    [0, n): slot j of row r is a hash of (keys[r], used[r], j), a function
+    of the row's own key and count only."""
+    j = torch.arange(E, dtype=torch.int64, device=keys.device)
+    h = _mix32(keys.to(torch.int64)[:, None] & _M32)
+    h = _mix32(h ^ _mix32((used.to(torch.int64)[:, None] + 0x3C6EF372) & _M32))
+    h = _mix32(h ^ _mix32(j[None, :] + 0x1B873593))
+    return (h % n).to(torch.int32)
+
+
+def _restart_rows(queries, base, metric, r_tile, scorer, scorer_state,
+                  restart_keys, restarts: int, restart_gate: float, n: int, E: int,
+                  seed_best, cand_i, cand_d, cand_e, visited, n_comps, done, stale,
+                  restarts_used):
+    """GNNS-style restart, as the reference's ``_restart_rows``: a row that
+    converged with budget left (and, where ``restart_gate > 0``, whose best
+    distance is still worse than gate x its seed-phase best) draws E fresh
+    seeds (:func:`restart_draws`), scores them through the scorer (charged
+    to ``n_comps``), marks them visited, merges them unexpanded, and
+    resumes. Other rows pass through unchanged: their draws are INVALID,
+    scored +inf, and the re-merge of a sorted list is the identity."""
+    can = done & (restarts_used < restarts) & (cand_d[:, 0] < INF)
+    if restart_gate > 0.0:
+        can = can & (cand_d[:, 0] > restart_gate * seed_best)
+    draws = restart_draws(restart_keys, restarts_used, E, n)
+    draws = dedup_rows(torch.where(can[:, None], draws, torch.full_like(draws, INVALID)))
+    rd, rids = get_scorer(scorer).score(scorer_state, queries, base, draws.contiguous(),
+                                        visited, metric=metric, r_tile=r_tile)
+    n_comps = n_comps + (rids >= 0).sum(dim=1, dtype=torch.int32)
+    visited = _mark_visited(visited, rids)
+    ef = cand_i.shape[1]
+    all_d = torch.cat([cand_d, rd], dim=1)
+    all_i = torch.cat([cand_i, rids], dim=1)
+    all_e = torch.cat([cand_e, torch.zeros(rids.shape, dtype=torch.bool,
+                                           device=rids.device)], dim=1)
+    cand_d, order = topk_smallest(all_d, ef)
+    return (all_i.gather(1, order), cand_d, all_e.gather(1, order), visited, n_comps,
+            done & ~can, torch.where(can, torch.zeros_like(stale), stale),
+            restarts_used + can.to(torch.int32))
 
 
 def _step(state: _State, queries, base, neighbors, metric,
           expand_width: int = 1, r_tile: int = 0, scorer: str = "exact",
-          scorer_state=None) -> _State:
+          scorer_state=None, k: int = 1, term: str = "fixed",
+          stable_steps: int = 8, restarts: int = 0, restart_gate: float = 0.0,
+          restart_keys=None) -> _State:
     Q, ef = state.cand_ids.shape
     R = neighbors.shape[1]
     Wd = expand_width
@@ -200,14 +274,38 @@ def _step(state: _State, queries, base, neighbors, metric,
 
     # frozen rows keep their state, bit for bit
     frozen = done[:, None]
+    cand_i = torch.where(frozen, state.cand_ids, cand_i)
+    cand_d = torch.where(frozen, state.cand_dists, cand_d)
+    cand_e = torch.where(frozen, state.expanded, cand_e)
+    visited = torch.where(frozen, state.visited, visited)
+    n_comps = torch.where(done, state.n_comps, n_comps)
+
+    # term="stable": a row whose top-k has not strictly improved for
+    # stable_steps steps is done; next step its slots are INVALID
+    stale, restarts_used = state.stale, state.restarts_used
+    if term == "stable":
+        kk = min(k, ef)
+        improved = (cand_d[:, :kk] < state.cand_dists[:, :kk]).any(dim=1)
+        stale = torch.where(done, state.stale,
+                            torch.where(improved, torch.zeros_like(stale), state.stale + 1))
+        done = done | (stale >= stable_steps)
+    if restarts > 0:
+        (cand_i, cand_d, cand_e, visited, n_comps, done, stale,
+         restarts_used) = _restart_rows(
+            queries, base, metric, r_tile, scorer, scorer_state, restart_keys,
+            restarts, restart_gate, neighbors.shape[0], min(ef, 8), state.seed_best,
+            cand_i, cand_d, cand_e, visited, n_comps, done, stale, restarts_used)
     return _State(
-        cand_ids=torch.where(frozen, state.cand_ids, cand_i),
-        cand_dists=torch.where(frozen, state.cand_dists, cand_d),
-        expanded=torch.where(frozen, state.expanded, cand_e),
-        visited=torch.where(frozen, state.visited, visited),
-        n_comps=torch.where(done, state.n_comps, n_comps),
+        cand_ids=cand_i,
+        cand_dists=cand_d,
+        expanded=cand_e,
+        visited=visited,
+        n_comps=n_comps,
         done=done,
         step=state.step + 1,
+        stale=stale,
+        restarts_used=restarts_used,
+        seed_best=state.seed_best,
     )
 
 
@@ -278,13 +376,14 @@ def beam_search(
     marks real rows (see :func:`mask_padded_queries`); tombstones
     (ceil(n/32),) int32 words mark deleted ids. ``r_tile`` is accepted for
     the reference's signature: the CUDA kernel picks its own tile.
-    ``term="stable"``, ``restarts > 0`` and ``deny`` are not ported and
-    raise. ``stable_steps``, ``restart_gate`` and ``restart_keys`` are read
-    only under those, so with the ported options they are inert, as in the
-    reference. Compressed scorers (``sq8``, ``pq``) take their per-batch
-    ``scorer_state`` and rerank the best ``rerank`` survivors exactly (0 =
-    the whole ef list); the exact scorer ignores ``rerank``."""
-    check_termination(term, restarts)
+    ``term="stable"`` freezes rows whose top-k stalls for ``stable_steps``
+    steps; ``restarts``, ``restart_gate`` and ``restart_keys`` ((Q,) int64,
+    needed when restarts > 0) resurrect converged rows (module docstring).
+    ``deny`` is not ported and raises. Compressed scorers (``sq8``, ``pq``)
+    take their per-batch ``scorer_state`` and rerank the best ``rerank``
+    survivors exactly (0 = the whole ef list); the exact scorer ignores
+    ``rerank``."""
+    check_termination(term, restarts, restart_keys)
     if deny is not None:
         raise NotImplementedError(
             "filter deny bitmaps are not ported yet (ROADMAP.md, queue A item 11)")
@@ -298,9 +397,75 @@ def beam_search(
                         r_tile, scorer, scorer_state, tombstones)
     while state.step < max_steps and not bool(state.done.all()):
         state = _step(state, queries, base, neighbors, metric, expand_width,
-                      r_tile, scorer, scorer_state)
+                      r_tile, scorer, scorer_state, k, term, stable_steps,
+                      restarts, restart_gate, restart_keys)
     return _finalize(state, queries, base, k, metric, r_tile, scorer,
                      scorer_state, rerank)
+
+
+def search_with_trace(
+    queries: torch.Tensor,
+    base: torch.Tensor,
+    neighbors: torch.Tensor,
+    entry_ids: torch.Tensor,
+    ef: int,
+    k: int = 1,
+    metric: str = "l2",
+    max_steps: int | None = None,
+    expand_width: int = 1,
+    r_tile: int = 0,
+    scorer: str = "exact",
+    scorer_state=None,
+    rerank: int = 0,
+    term: str = "fixed",
+    stable_steps: int = 8,
+    restarts: int = 0,
+    restart_gate: float = 0.0,
+    restart_keys=None,
+    tombstones: torch.Tensor | None = None,
+):
+    """The beam for exactly ``max_steps`` steps (default
+    :func:`default_max_steps`), recording the paper's Fig. 6 statistics:
+    returns (result, trace_dist (steps, Q), trace_comps (steps, Q)), the
+    best distance and the cumulative comparisons after each step. Rows that
+    are done keep their state, so their trace is flat from then on. Under a
+    compressed scorer the trace is in the scorer's currency (ADC scores,
+    raw scored-id counts); only the result is reranked and rescaled."""
+    check_termination(term, restarts, restart_keys)
+    if expand_width < 1 or entry_ids.shape[1] > ef:
+        raise ValueError(f"need expand_width >= 1 and E <= ef, got "
+                         f"expand_width={expand_width}, E={entry_ids.shape[1]}, ef={ef}")
+    if max_steps is None:
+        max_steps = default_max_steps(ef, expand_width)
+    state = _init_state(queries, base, neighbors, entry_ids.to(torch.int32), ef, metric,
+                        r_tile, scorer, scorer_state, tombstones)
+    td, tc = [], []
+    for _ in range(max_steps):
+        state = _step(state, queries, base, neighbors, metric, expand_width, r_tile,
+                      scorer, scorer_state, k, term, stable_steps, restarts,
+                      restart_gate, restart_keys)
+        td.append(state.cand_dists[:, 0])
+        tc.append(state.n_comps)
+    res = _finalize(state, queries, base, k, metric, r_tile, scorer, scorer_state, rerank)
+    Q = queries.shape[0]
+    dev = queries.device
+    if not td:
+        return (res, torch.empty((0, Q), device=dev),
+                torch.empty((0, Q), dtype=torch.int32, device=dev))
+    return res, torch.stack(td), torch.stack(tc)
+
+
+def projection_entries(queries: torch.Tensor, base_proj: torch.Tensor,
+                       proj: torch.Tensor, E: int) -> torch.Tensor:
+    """The E nearest base points in a tiny m-dim random projection (m ~ 8,
+    SRS-style): an O(n m) scan, m/d of one full pass. base_proj (n, m) is
+    the projected base, proj (d, m) the projection; ties go to the lower
+    id, as ``lax.top_k`` breaks them."""
+    qp = queries @ proj                                           # (Q, m)
+    d = ((qp * qp).sum(dim=1)[:, None] - 2.0 * qp @ base_proj.T
+         + (base_proj * base_proj).sum(dim=1)[None, :])
+    _, ids = topk_smallest(d, E)
+    return ids.to(torch.int32)
 
 
 def random_entries(generator: torch.Generator, n: int, Q: int, E: int) -> torch.Tensor:

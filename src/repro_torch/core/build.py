@@ -3,10 +3,11 @@
 The same composable stages as ``repro.core.build``: a construct stage makes
 the raw neighborhood graph, a diversify stage selects its edges, a compress
 stage trains codes for compressed scorers. The port registers the
-``nndescent`` and ``exact`` constructs, the ``none`` and ``gd`` diversifiers
-and the ``none``, ``pq`` and ``opq`` compressors; the rest (``hnsw``,
-``incremental``, ``dpg``) come with later slices, and naming one raises as
-an unknown stage does.
+``nndescent``, ``exact`` and ``hnsw`` constructs, the ``none`` and ``gd``
+diversifiers and the ``none``, ``pq`` and ``opq`` compressors; the rest
+(``incremental``, ``dpg``) come with later slices, and naming one raises as
+an unknown stage does. ``hnsw`` prunes every layer itself, so it pairs with
+``diversify="none"`` only.
 
 ``GraphBuilder(spec).build(base, seed)`` runs on ``base``'s device and emits
 a :class:`BuildReport` (rounds, update curve, realized degree distribution,
@@ -65,8 +66,9 @@ class BuildSpec(NamedTuple):
 
 class ConstructResult(NamedTuple):
     """Output of one construct stage: the flat graph, an optional hierarchy
-    (always None in this slice), JSON-able stats, and the graph the recall
-    proxy scores when it differs from ``graph``."""
+    (an :class:`~repro_torch.core.graph_index.HnswIndex` from ``hnsw``),
+    JSON-able stats, and the graph the recall proxy scores when it differs
+    from ``graph``."""
 
     graph: KnnGraph
     hierarchy: object | None
@@ -146,6 +148,29 @@ def _construct_exact(base, spec: BuildSpec, seed, verbose) -> ConstructResult:
     graph = exact_knn_graph(base, k, metric=spec.metric)
     return ConstructResult(graph, None,
                            {"rounds": 0, "update_curve": [], "converged": True})
+
+
+@register_constructor("hnsw")
+def _construct_hnsw(base, spec: BuildSpec, seed, verbose) -> ConstructResult:
+    """Layered construction: the NN-Descent bottom graph shared into
+    ``build_hnsw``. The bottom layer is the flat graph; HNSW
+    occlusion-prunes every layer itself, so this construct pairs with
+    ``diversify='none'`` (enforced by :class:`GraphBuilder`)."""
+    from .hnsw import HnswConfig, build_hnsw_with_stats
+    from .nndescent import build_knn_graph_with_stats
+
+    g, st = build_knn_graph_with_stats(base, _nd_config(spec), metric=spec.metric,
+                                       seed=seed, verbose=verbose)
+    m = spec.hnsw_m or max(8, spec.graph_k // 2)
+    idx, layers = build_hnsw_with_stats(base, HnswConfig(M=m, knn_k=spec.graph_k),
+                                        metric=spec.metric, seed=seed, bottom_graph=g,
+                                        verbose=verbose)
+    dropped = sum(layer["dropped_reverse_edges"] for layer in layers)
+    return ConstructResult(idx.bottom_graph(), idx, {
+        "rounds": st.rounds, "update_curve": list(st.update_curve),
+        "converged": st.converged, "layers": layers,
+        "dropped_reverse_edges": dropped,
+    }, proxy_graph=g)
 
 
 # -- diversify stages ---------------------------------------------------------
@@ -350,6 +375,11 @@ class GraphBuilder:
         self._diversify = _get(DIVERSIFIERS, "diversify", spec.diversify)
         self._compress = _get(COMPRESSORS, "compress", spec.compress)
         _check_reverse(spec)
+        if spec.construct == "hnsw" and spec.diversify != "none":
+            raise ValueError(
+                "construct='hnsw' occlusion-prunes every layer at build time; a "
+                "second diversify stage would desync the bottom layer from the "
+                "hierarchy: use diversify='none'")
 
     def build(self, base: torch.Tensor, seed: int = 0,
               verbose: bool = False) -> BuildResult:
@@ -387,7 +417,8 @@ class GraphBuilder:
 
         dropped = (dstats["dropped_reverse_edges"]
                    + cres.stats.get("dropped_reverse_edges", 0))
-        mem = memory_bytes(graph.neighbors)
+        mem = memory_bytes(cres.hierarchy if cres.hierarchy is not None
+                           else graph.neighbors)
         if pq is not None:
             mem += memory_bytes((pq.codebooks, pq.codes))
 
@@ -415,6 +446,7 @@ class GraphBuilder:
             wall_compress_s=round(wall_compress, 4),
             wall_total_s=round(wall_construct + wall_diversify + wall_compress, 4),
             memory_bytes=int(mem),
+            layers=cres.stats.get("layers", []),
             in_degree=in_degree_distribution(graph.neighbors),
             hub_ids=[int(h) for h in hubs],
             lid=round(lid, 2),

@@ -2,8 +2,8 @@
 
 Takes numpy arrays as ``repro`` produces them (``np.asarray(graph.neighbors)``,
 ``.dists``, ``hubs`` through :func:`tensor`, the base, a uint32 visited or
-tombstone bitmap, the sq8 and PQ tables) and returns the port's tensors,
-tables and ``Searcher``. uint32 bitmap words become int32 words bit for bit
+tombstone bitmap, the sq8 and PQ tables, an ``HnswIndex``'s layer arrays)
+and returns the port's tensors, tables, indexes and ``Searcher``. uint32 bitmap words become int32 words bit for bit
 (torch has no unsigned shift or scatter-add on the CPU);
 :func:`bitmap_to_uint32` goes back.
 """
@@ -15,7 +15,7 @@ import torch
 from .._device import resolve_device
 from ..baselines.pq import PQIndex
 from .engine import Searcher
-from .graph_index import KnnGraph
+from .graph_index import HnswIndex, KnnGraph
 from .scorers import Sq8Index
 
 
@@ -50,6 +50,22 @@ def graph_from_numpy(neighbors, dists=None, device="cuda") -> KnnGraph:
     return KnnGraph(neighbors=nbrs, dists=d)
 
 
+def hnsw_from_numpy(layers_neighbors, layers_nodes, layers_slot, entry_point, levels,
+                    device="cuda") -> HnswIndex:
+    """The reference's ``HnswIndex`` (per-layer adjacency in global ids,
+    node lists and id -> slot maps, the entry point and the levels, as
+    numpy) -> the port's, on ``device``: the weights carried across for the
+    hierarchy path."""
+    def layers(arrs):
+        return tuple(tensor(a, torch.int32, device) for a in arrs)
+
+    return HnswIndex(layers_neighbors=layers(layers_neighbors),
+                     layers_nodes=layers(layers_nodes),
+                     layers_slot=layers(layers_slot),
+                     entry_point=tensor(entry_point, torch.int32, device).reshape(()),
+                     levels=tensor(levels, torch.int32, device))
+
+
 def sq8_from_numpy(codes, scale, mn, device="cuda") -> Sq8Index:
     """The reference's ``Sq8Index`` (codes (n, d) uint8, scale and mn (d,)
     float32, as numpy) -> the port's."""
@@ -70,14 +86,17 @@ def pq_index_from_numpy(codebooks, codes, rotation=None, device="cuda") -> PQInd
 
 def searcher_from_numpy(base, neighbors, *, metric: str = "l2",
                         tombstones=None, rng_seed: int = 0, pq=None,
+                        hierarchy: HnswIndex | None = None, hubs=None,
                         device="cuda") -> Searcher:
     """A port ``Searcher`` over the reference's base and adjacency (and
-    optionally its uint32 tombstone bitmap and a port ``PQIndex`` to
-    attach)."""
+    optionally its uint32 tombstone bitmap, a port ``PQIndex`` to attach, a
+    port ``HnswIndex`` from :func:`hnsw_from_numpy` and the reference's hub
+    list)."""
     return Searcher(
         tensor(base, torch.float32, device),
         tensor(neighbors, torch.int32, device),
-        metric=metric, rng_seed=rng_seed, pq=pq,
+        metric=metric, rng_seed=rng_seed, pq=pq, hierarchy=hierarchy,
+        hubs=None if hubs is None else tensor(hubs, torch.int32, device),
         tombstones=(None if tombstones is None
                     else bitmap_from_uint32(tombstones, device)),
     )

@@ -1,25 +1,48 @@
 """Search engine: (entry strategy x graph x beam core).
 
-One beam core (``beam_search``), one flat adjacency, and an entry strategy
-that only decides where the beam starts. The port has the ``random``
-entry, the ``exact``, ``sq8`` and ``pq`` scorers and the device-resident
-base; any other ``entry``, ``scorer``, ``base_placement`` or ``filter``
-raises ``NotImplementedError`` naming the roadmap item that ports it.
+One beam core (``beam_search``), one flat adjacency, and a registry of
+entry strategies that only decide where the beam starts, as the
+reference's (``src/repro/core/engine.py``):
+
+* ``random``     — E uniform seeds (the paper's flat-HNSW control),
+* ``projection`` — E nearest in a tiny random projection (an SRS-style scan),
+* ``hierarchy``  — HNSW's greedy descent reduced to a 1-seed picker,
+* ``lsh``        — the SRS probe + exact rerank of ``baselines/lsh.py``,
+* ``hubs``       — the top in-degree vertices, scored exactly, the nearest
+                   taken.
+
+Seed-phase comparisons are charged to ``SearchResult.n_comps`` in the
+paper's currency, as the reference charges them. The port has the
+``exact``, ``sq8`` and ``pq`` scorers, ``term="fixed"`` and ``"stable"``,
+restarts and the device-resident base; any other ``scorer``,
+``base_placement`` or ``filter`` raises ``NotImplementedError`` naming the
+roadmap item that ports it.
 
 Seeding draws from ``torch.Generator``s seeded from ints (the Searcher's
 ``rng_seed``, or a per-call ``seed``), not from ``jax.random`` keys, so
-random entries differ from the reference's. ``search(entries=...)`` takes
-precomputed entries, which is how the tests inject the reference's draws.
+random entries, projections and restart draws differ from the
+reference's. ``search(entries=...)`` takes precomputed entries, which is
+how the tests inject the reference's draws. HNSW's descent runs its
+per-layer loop on the host, one device sync a step (as the beam does);
+``DESCENT_STEPS`` counts its descents and steps.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import zlib
+from typing import NamedTuple, Protocol
 
 import torch
 
-from .beam_search import SearchResult, beam_search, random_entries
-from .graph_index import KnnGraph
+from .beam_search import (
+    SearchResult,
+    beam_search,
+    projection_entries,
+    random_entries,
+    search_with_trace,
+)
+from .graph_index import HnswIndex, KnnGraph
 from .scorers import get_scorer
+from .topk import INVALID, topk_smallest
 
 
 class SearchSpec(NamedTuple):
@@ -43,11 +66,12 @@ class SearchSpec(NamedTuple):
     pq_iters: int = 15
     base_placement: str = "device"  # where the float base lives
     store_dtype: str = "f32"
-    hub_count: int = 32
-    term: str = "fixed"         # beam termination: "fixed" (classic rule)
-    stable_steps: int = 8
-    restarts: int = 0
-    restart_gate: float = 0.0
+    hub_count: int = 32         # hubs scanned per query by the hubs seeder
+    term: str = "fixed"         # "fixed" (classic rule) or "stable" (also
+                                # freeze a row whose top-k stalls)
+    stable_steps: int = 8       # the "stable" freeze's patience, in steps
+    restarts: int = 0           # fresh-seed restarts per converged row
+    restart_gate: float = 0.0   # restart only rows still > gate * seed best
     filter: object | None = None
 
     @property
@@ -55,7 +79,188 @@ class SearchSpec(NamedTuple):
         return min(self.n_entries, self.ef)
 
 
-ENTRY_STRATEGIES = ("random",)  # the entry strategies this slice ports
+# HNSW descents run and their loop steps, summed over layers (read and
+# reset by chip_smoke.py)
+DESCENT_STEPS = {"descents": 0, "steps": 0}
+
+
+class EntryStrategy(Protocol):
+    """Pluggable seed picker. ``prepare`` builds the strategy's per-index
+    state (projections, the layered index, the hub list) from an int seed;
+    ``seed`` maps a query batch to ((Q, E) entry ids, (Q,) seed-phase
+    comparisons), drawing from ``generator`` where it draws."""
+
+    name: str
+
+    def prepare(self, base, neighbors, hierarchy, spec: SearchSpec, seed: int): ...
+
+    def seed(self, aux, queries, base, spec: SearchSpec, generator: torch.Generator): ...
+
+
+ENTRY_STRATEGIES: dict[str, EntryStrategy] = {}
+
+
+def get_entry_strategy(name: str) -> EntryStrategy:
+    if name not in ENTRY_STRATEGIES:
+        raise ValueError(f"unknown entry strategy {name!r}; registered: "
+                         f"{sorted(ENTRY_STRATEGIES)}")
+    return ENTRY_STRATEGIES[name]
+
+
+def register_entry_strategy(strategy) -> EntryStrategy:
+    """Register a seeder under ``strategy.name`` (a class, instantiated with
+    no arguments, or an instance)."""
+    inst = strategy() if isinstance(strategy, type) else strategy
+    ENTRY_STRATEGIES[inst.name] = inst
+    return strategy
+
+
+@register_entry_strategy
+class _RandomEntry:
+    name = "random"
+
+    def prepare(self, base, neighbors, hierarchy, spec, seed):
+        return base.shape[0]
+
+    def seed(self, aux, queries, base, spec, generator):
+        Q = queries.shape[0]
+        ent = random_entries(generator, aux, Q, spec.num_seeds)
+        return ent, torch.zeros((Q,), dtype=torch.int32, device=queries.device)
+
+
+def _srs(base, spec, seed):
+    from ..baselines.lsh import build_srs
+
+    return build_srs(base, m=spec.proj_dim,
+                     generator=torch.Generator(device=base.device).manual_seed(seed))
+
+
+@register_entry_strategy
+class _ProjectionEntry:
+    name = "projection"
+
+    def prepare(self, base, neighbors, hierarchy, spec, seed):
+        return _srs(base, spec, seed)
+
+    def seed(self, aux, queries, base, spec, generator):
+        ent = projection_entries(queries, aux.base_proj, aux.proj, spec.num_seeds)
+        n, m = aux.base_proj.shape
+        scan = int(n * m / base.shape[1])  # an m-dim pass at m/d of a comparison
+        return ent, torch.full((queries.shape[0],), scan, dtype=torch.int32,
+                               device=queries.device)
+
+
+@register_entry_strategy
+class _HierarchyEntry:
+    name = "hierarchy"
+
+    def prepare(self, base, neighbors, hierarchy, spec, seed):
+        if hierarchy is None:
+            raise ValueError("entry='hierarchy' needs a Searcher built from an HnswIndex")
+        return hierarchy
+
+    def seed(self, aux, queries, base, spec, generator):
+        return hierarchy_entries(queries, base, aux, spec.metric)
+
+
+@register_entry_strategy
+class _LshEntry:
+    name = "lsh"
+
+    def prepare(self, base, neighbors, hierarchy, spec, seed):
+        return _srs(base, spec, seed)
+
+    def seed(self, aux, queries, base, spec, generator):
+        # SRS is l2-only (sketch and rerank); under another metric the seeds
+        # are merely worse, the beam still scores with spec.metric
+        from ..baselines.lsh import srs_search
+
+        _, ids, comps = srs_search(queries, base, aux, k=spec.num_seeds,
+                                   probes=spec.lsh_probes)
+        return ids.to(torch.int32), comps
+
+
+@register_entry_strategy
+class _HubsEntry:
+    name = "hubs"
+
+    def prepare(self, base, neighbors, hierarchy, spec, seed):
+        # engines without an attached hub list: hubs are a deterministic
+        # function of the adjacency, so this equals what a build persists
+        from .graph_index import hub_vertices
+
+        return hub_vertices(neighbors, spec.hub_count)
+
+    def prepare_ctx(self, searcher, spec, seed):
+        """Reuse the build's hub list where it covers ``spec.hub_count`` (it
+        is in-degree descending, so its prefix is the top set)."""
+        hubs = searcher.hubs
+        if hubs is not None and hubs.shape[0] >= spec.hub_count:
+            return hubs[:spec.hub_count].to(device=searcher.device,
+                                            dtype=torch.int32).contiguous()
+        return self.prepare(searcher.base, searcher.neighbors, searcher.hierarchy,
+                            spec, seed)
+
+    def seed(self, aux, queries, base, spec, generator):
+        # an exact scan of the hub shortlist: H full comparisons a query
+        from ..kernels import ops
+
+        Q = queries.shape[0]
+        H = aux.shape[0]
+        ids = aux[None, :].expand(Q, H).contiguous()
+        d = ops.gather_distance(queries, ids, base, metric=spec.metric)
+        _, sel = topk_smallest(d, min(spec.num_seeds, H))
+        ent = ids.gather(1, sel)
+        return ent.to(torch.int32), torch.full((Q,), H, dtype=torch.int32,
+                                               device=queries.device)
+
+
+def _greedy_layer(queries, base, nbrs_g, slot, start_ids, metric):
+    """Greedy 1-NN descent on one layer (the coarse-to-fine step, Fig. 1):
+    start_ids (Q,) -> (ids (Q,), dists (Q,), comps (Q,), loop steps). Each
+    step scores every unfinished row's layer neighbors (a finished row's
+    are INVALID) and moves to the nearest where it is nearer; the loop
+    reads ``done.all()`` once a step."""
+    from ..kernels import ops
+
+    Q = queries.shape[0]
+    dev = queries.device
+    cur = start_ids
+    cur_d = ops.gather_distance(queries, cur[:, None].contiguous(), base, metric=metric)[:, 0]
+    comps = torch.ones((Q,), dtype=torch.int32, device=dev)
+    done = torch.zeros((Q,), dtype=torch.bool, device=dev)
+    steps = 0
+    while not bool(done.all()):
+        rows = nbrs_g[slot[cur.clamp(min=0).long()].clamp(min=0).long()]   # (Q, M)
+        rows = torch.where(done[:, None], torch.full_like(rows, INVALID), rows)
+        nd = ops.gather_distance(queries, rows.contiguous(), base, metric=metric)
+        comps = comps + (rows >= 0).sum(dim=1, dtype=torch.int32)
+        j = torch.argmin(nd, dim=1, keepdim=True)      # the first minimum, as jnp.argmin
+        best_d = nd.gather(1, j)[:, 0]
+        best_i = rows.gather(1, j)[:, 0]
+        better = best_d < cur_d
+        cur = torch.where(better, best_i, cur)
+        cur_d = torch.where(better, best_d, cur_d)
+        done = done | ~better
+        steps += 1
+    return cur, cur_d, comps, steps
+
+
+def hierarchy_entries(queries: torch.Tensor, base: torch.Tensor, index: HnswIndex,
+                      metric: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """HNSW's upper layers as a seed picker: greedy descent from the top
+    entry point down to layer 1, returning the (Q, 1) landing vertex and the
+    comparisons spent."""
+    Q = queries.shape[0]
+    cur = torch.full((Q,), int(index.entry_point), dtype=torch.int32, device=queries.device)
+    comps = torch.zeros((Q,), dtype=torch.int32, device=queries.device)
+    for layer in range(index.num_layers - 1, 0, -1):
+        cur, _, c, steps = _greedy_layer(queries, base, index.layers_neighbors[layer],
+                                         index.layers_slot[layer], cur, metric)
+        comps = comps + c
+        DESCENT_STEPS["steps"] += steps
+    DESCENT_STEPS["descents"] += 1
+    return cur[:, None], comps
 
 
 def _fold(seed: int, i: int) -> int:
@@ -63,23 +268,36 @@ def _fold(seed: int, i: int) -> int:
     return (seed * 0x9E3779B1 + 0x632BE5AB * (i + 1)) % (2**63 - 1)
 
 
+# the stream the restart keys draw from: (seed, RESTART_STREAM)
+RESTART_STREAM = 0x5EED
+
+
 class Searcher:
     """(entry strategy x graph x beam core), bound to one dataset: the base
-    (n, d) float32 and the flat adjacency (n, R) int32, on one device."""
+    (n, d) float32 and the flat adjacency (n, R) int32, on one device, and
+    optionally an :class:`HnswIndex` whose upper layers back the
+    ``hierarchy`` seeder and the build's hub list backing ``hubs``."""
 
     def __init__(self, base: torch.Tensor, neighbors: torch.Tensor, *,
-                 metric: str = "l2", rng_seed: int = 0, pq=None,
+                 hierarchy: HnswIndex | None = None, metric: str = "l2",
+                 rng_seed: int = 0, pq=None, hubs: torch.Tensor | None = None,
                  tombstones: torch.Tensor | None = None):
         if base.device != neighbors.device:
             raise ValueError(f"base on {base.device} but neighbors on "
                              f"{neighbors.device}")
         self.base = base.float().contiguous()
         self.neighbors = neighbors.to(torch.int32).contiguous()
+        self.hierarchy = hierarchy
         self.metric = metric
         self.rng_seed = rng_seed
+        # top in-degree vertices, in-degree descending (None: the hubs
+        # seeder recomputes them from the adjacency)
+        self.hubs = hubs
         # (ceil(n/32),) int32 words marking deleted/unallocated ids
         self.tombstones = tombstones
         self.build_report = None
+        # per-strategy prepared state, keyed by (entry, proj_dim, hub_count)
+        self._aux: dict[tuple, object] = {}
         # PQ tables backing the "pq" scorer: one attached at build time
         # (served for any spec with its (M, K)), else trained lazily and
         # cached per (M, K, iters)
@@ -99,17 +317,27 @@ class Searcher:
         return cls(base, graph.neighbors, **kw)
 
     @classmethod
+    def from_hnsw(cls, base, index: HnswIndex, **kw) -> "Searcher":
+        """The bottom layer becomes the flat graph; the upper layers feed the
+        ``hierarchy`` seeder, so every entry strategy walks the same graph
+        (the paper's controlled comparison)."""
+        return cls(base, index.layers_neighbors[0], hierarchy=index, **kw)
+
+    @classmethod
     def from_build(cls, base, result, *, metric: str | None = None,
                    rng_seed: int = 0) -> "Searcher":
-        """Bind a :class:`~repro_torch.core.build.BuildResult` to an engine;
-        the report rides along as ``searcher.build_report``."""
-        if result.hierarchy is not None:
-            raise NotImplementedError(
-                "hierarchical indexes are not ported yet (ROADMAP.md, queue A item 8)")
+        """Bind a :class:`~repro_torch.core.build.BuildResult` to an engine:
+        the flat graph feeds the beam, the hierarchy (if built) backs the
+        ``hierarchy`` seeder, the build's hub list the ``hubs`` seeder, and a
+        build-time PQ table is attached. The report rides along as
+        ``searcher.build_report``."""
         if metric is None:
             metric = result.report.spec.metric
-        searcher = cls.from_graph(base, result.graph, metric=metric,
-                                  rng_seed=rng_seed, pq=result.pq)
+        kw = dict(metric=metric, rng_seed=rng_seed, pq=result.pq, hubs=result.hubs)
+        if result.hierarchy is not None:
+            searcher = cls.from_hnsw(base, result.hierarchy, **kw)
+        else:
+            searcher = cls.from_graph(base, result.graph, **kw)
         searcher.build_report = result.report
         return searcher
 
@@ -138,11 +366,8 @@ class Searcher:
                 f"spec.metric={spec.metric!r} but this Searcher was built "
                 f"for {self.metric!r}; use searcher.spec(...)"
             )
-        if spec.entry not in ENTRY_STRATEGIES:
-            raise NotImplementedError(
-                f"entry strategy {spec.entry!r} is not ported yet (ported: "
-                f"{list(ENTRY_STRATEGIES)}; ROADMAP.md, queue A item 8)")
-        get_scorer(spec.scorer)  # an unknown name raises ValueError
+        get_entry_strategy(spec.entry)   # an unknown name raises ValueError
+        get_scorer(spec.scorer)          # likewise
         if spec.base_placement != "device":
             raise NotImplementedError(
                 f"base_placement={spec.base_placement!r} is not ported yet "
@@ -150,6 +375,48 @@ class Searcher:
         if spec.filter is not None:
             raise NotImplementedError(
                 "filtered search is not ported yet (ROADMAP.md, queue A item 11)")
+
+    def prepare(self, spec: SearchSpec):
+        """Build (or fetch) the entry strategy's per-index state, from a seed
+        derived from the searcher's ``rng_seed`` and the strategy's name.
+        Strategies with ``prepare_ctx`` get the whole searcher."""
+        strat = get_entry_strategy(spec.entry)
+        cache_key = (spec.entry, spec.proj_dim, spec.hub_count)
+        if cache_key not in self._aux:
+            seed = _fold(self.rng_seed, zlib.crc32(spec.entry.encode()) & 0x7FFFFFFF)
+            if hasattr(strat, "prepare_ctx"):
+                self._aux[cache_key] = strat.prepare_ctx(self, spec, seed)
+            else:
+                self._aux[cache_key] = strat.prepare(self.base, self.neighbors,
+                                                     self.hierarchy, spec, seed)
+        return self._aux[cache_key]
+
+    def generator(self, seed: int | None = None) -> torch.Generator:
+        """A generator on the index's device seeded with ``seed`` (default:
+        the searcher's ``rng_seed``)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.rng_seed if seed is None else seed)
+
+    def seed(self, queries, spec: SearchSpec, seed: int | None = None):
+        """(Q, E) entry ids + (Q,) seed-phase comparisons."""
+        self._check_spec(spec)
+        strat = get_entry_strategy(spec.entry)
+        aux = self.prepare(spec)
+        return strat.seed(aux, queries, self.base, spec, self.generator(seed))
+
+    def restart_keys(self, n_rows: int, spec: SearchSpec,
+                     seed: int | None = None) -> torch.Tensor | None:
+        """Per-row restart keys for ``spec.restarts > 0`` (None otherwise):
+        (n_rows,) int64 on the index's device, drawn in order from a CPU
+        ``torch.Generator`` seeded from (seed, RESTART_STREAM). Row i's key
+        is the stream's i-th draw whatever n_rows is, so a batch padded into
+        a larger tile restarts its rows as a direct search does."""
+        if spec.restarts <= 0:
+            return None
+        seed = self.rng_seed if seed is None else seed
+        gen = torch.Generator().manual_seed(_fold(seed, RESTART_STREAM))
+        keys = torch.randint(0, 2**31 - 1, (n_rows,), generator=gen, dtype=torch.int64)
+        return keys.to(self.device)
 
     # -- scorers --------------------------------------------------------------
 
@@ -205,20 +472,6 @@ class Searcher:
         luts = build_adc_luts(q, idx.codebooks, spec.metric).contiguous()
         return (idx.codes, luts)
 
-    def generator(self, seed: int | None = None) -> torch.Generator:
-        """A generator on the index's device seeded with ``seed`` (default:
-        the searcher's ``rng_seed``)."""
-        return torch.Generator(device=self.device).manual_seed(
-            self.rng_seed if seed is None else seed)
-
-    def seed(self, queries, spec: SearchSpec, seed: int | None = None):
-        """(Q, E) entry ids + (Q,) seed-phase comparisons."""
-        self._check_spec(spec)
-        Q = queries.shape[0]
-        ent = random_entries(self.generator(seed), self.base.shape[0], Q,
-                             spec.num_seeds)
-        return ent, torch.zeros((Q,), dtype=torch.int32, device=queries.device)
-
     # -- search ---------------------------------------------------------------
 
     def search(self, queries: torch.Tensor, spec: SearchSpec,
@@ -244,6 +497,7 @@ class Searcher:
             scorer_state=self.scorer_state(queries, spec), rerank=spec.rerank,
             q_valid=q_valid, term=spec.term, stable_steps=spec.stable_steps,
             restarts=spec.restarts, restart_gate=spec.restart_gate,
+            restart_keys=self.restart_keys(queries.shape[0], spec, seed),
             tombstones=self.tombstones,
         )
         if entry_comps is not None:
@@ -288,3 +542,27 @@ class Searcher:
             n_steps=torch.tensor(n_steps, dtype=torch.int32),
             bytes_touched=torch.cat(tbytes),
         )
+
+    def search_with_trace(self, queries: torch.Tensor, spec: SearchSpec,
+                          seed: int | None = None, max_steps: int | None = None):
+        """The Fig. 6 trace through the same seeding path: (result, best
+        distance after each step (steps, Q), cumulative comparisons (steps,
+        Q)), the seed phase's comparisons included. ``spec.max_steps``, when
+        set, overrides ``max_steps``; when both are unset the core's
+        default applies."""
+        self._check_spec(spec)
+        queries = queries.float().contiguous()
+        ent, extra = self.seed(queries, spec, seed)
+        if spec.max_steps is not None:
+            max_steps = spec.max_steps
+        res, td, tc = search_with_trace(
+            queries, self.base, self.neighbors, ent,
+            ef=spec.ef, k=spec.k, metric=spec.metric, max_steps=max_steps,
+            expand_width=spec.expand_width, r_tile=spec.r_tile, scorer=spec.scorer,
+            scorer_state=self.scorer_state(queries, spec), rerank=spec.rerank,
+            term=spec.term, stable_steps=spec.stable_steps,
+            restarts=spec.restarts, restart_gate=spec.restart_gate,
+            restart_keys=self.restart_keys(queries.shape[0], spec, seed),
+            tombstones=self.tombstones,
+        )
+        return res._replace(n_comps=res.n_comps + extra), td, tc + extra[None, :]

@@ -33,9 +33,41 @@ class KnnGraph(NamedTuple):
         return self.neighbors.shape[1]
 
 
+class HnswIndex(NamedTuple):
+    """Layered small-world index (paper Fig. 1 structure), as the
+    reference's.
+
+    layers_neighbors : tuple over layers 0..L-1 of (n_l, M_l) int32 adjacency
+                       in global id space (-1 padded); layer 0 is the bottom
+                       (all nodes, M_0 = 2M as in hnswlib).
+    layers_nodes     : tuple of (n_l,) int32, the global ids on each layer.
+    layers_slot      : tuple of (n,) int32, global id -> row in that layer's
+                       adjacency (-1 if absent).
+    entry_point      : () int32 global id on the top layer.
+    levels           : (n,) int32 top level of each node.
+    """
+
+    layers_neighbors: tuple
+    layers_nodes: tuple
+    layers_slot: tuple
+    entry_point: torch.Tensor
+    levels: torch.Tensor
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layers_neighbors)
+
+    def bottom_graph(self) -> KnnGraph:
+        """The flat graph = the bottom layer (the paper's flat-HNSW)."""
+        nbrs = self.layers_neighbors[0]
+        return KnnGraph(neighbors=nbrs,
+                        dists=torch.full(nbrs.shape, float("inf"), device=nbrs.device))
+
+
 def memory_bytes(tensors) -> int:
     """Index memory footprint: bytes of a tensor or of every tensor in a
-    (nested) tuple/list such as a :class:`KnnGraph`."""
+    (nested) tuple/list such as a :class:`KnnGraph` or an
+    :class:`HnswIndex`."""
     if isinstance(tensors, torch.Tensor):
         return tensors.numel() * tensors.element_size()
     return sum(memory_bytes(t) for t in tensors)

@@ -15,13 +15,19 @@
 // dependent loads. The NN-Descent local join scores its pool with
 // gather_distance_pool.cu, which gives the same bits.
 //
-// Two kernels:
+// Three kernels:
 //   - gather_distance_kernel, the generic one: one block per (query,
 //     tile of 32 ids), the query row in shared memory, one warp per id at a
 //     time and 4 ids a warp in series: lanes stride over d (lane l sums
-//     columns l, l + 32, ...) and a warp_sum adds the 32 partials. It serves
-//     gather_distance (the rerank, pq_search) and is the yardstick of the
-//     hop kernel.
+//     columns l, l + 32, ...) and a warp_sum adds the 32 partials. No path
+//     calls it: it is the yardstick of the pair and hop kernels.
+//   - gather_distance_pairs_kernel, the unmasked gather (the rerank,
+//     pq_search, HNSW's greedy descent at R = 1 and R = M, the hubs scan,
+//     the SRS rerank): the hop kernel's layout without the visited word.
+//     At R = 1 or 10 the generic kernel keeps 1 or 3 of a block's 8 warps
+//     busy, each with up to 4 dependent chains in series; here every pair
+//     is its own 8-lane group, the grid spans Q x R, and a padding id (most
+//     of a late descent step) stores +inf at once.
 //   - gather_distance_hop_kernel, the beam's masked hop: the Q x R pairs
 //     flattened over the grid, one 8-lane group a pair (common.cuh's group
 //     layout: lane u holds the generic lane partials 4u..4u+3, read as
@@ -129,6 +135,31 @@ gather_distance_hop_kernel(const float* __restrict__ queries,
   }
 }
 
+// The unmasked gather: one 8-lane group per (query, slot) pair o = q * R + r,
+// as the hop kernel without the visited word.
+template <int METRIC, int KB, bool VEC>
+__global__ void __launch_bounds__(kHopThreads)
+gather_distance_pairs_kernel(const float* __restrict__ queries,
+                             const int32_t* __restrict__ ids,
+                             const float* __restrict__ base, float* __restrict__ out_d,
+                             int64_t pairs, int R, int n, int d) {
+  const int lane = threadIdx.x & 31;
+  const int u = lane & 7;
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * kHopPairs + (threadIdx.x >> 3);
+  if (o >= pairs) return;          // group-uniform
+  const int32_t id = __ldg(ids + o);
+  if (id < 0) {                    // group-uniform: a padding slot
+    if (u == 0) out_d[o] = INFINITY;
+    return;
+  }
+  const int64_t xo[1] = {static_cast<int64_t>(min(id, n - 1)) * d};
+  const int64_t qo[1] = {(o / R) * d};
+  float dist[1];
+  group_distances<METRIC, KB, VEC, false>(base, xo, queries, qo, d, u, dist,
+                                          0xffu << (lane & 24));
+  if (u == 0) out_d[o] = dist[0];
+}
+
 template <bool MASKED>
 void launch(int metric, dim3 grid, size_t smem, cudaStream_t stream,
             const float* queries, const int32_t* ids, const float* base,
@@ -169,7 +200,40 @@ struct HopLaunch {
   }
 };
 
+struct PairLaunch {
+  unsigned blocks;
+  cudaStream_t s;
+  const float* queries;
+  const int32_t* ids;
+  const float* base;
+  float* out_d;
+  int64_t pairs;
+  int R, n, d;
+  template <int METRIC, int KB, bool VEC>
+  void run() const {
+    gather_distance_pairs_kernel<METRIC, KB, VEC><<<blocks, kHopThreads, 0, s>>>(
+        queries, ids, base, out_d, pairs, R, n, d);
+  }
+};
+
 }  // namespace
+
+// The unmasked gather on gather_distance_pairs_kernel: queries (Q, d) f32,
+// ids (Q, R) i32, base (n, d) f32 -> out_d (Q, R) f32, as
+// gather_distance_f32 with masked == 0 gives them, bit for bit. All
+// contiguous, on one device. Returns cudaGetLastError() after the launch.
+extern "C" int gather_distance_pairs_f32(const float* queries, const int32_t* ids,
+                                         const float* base, float* out_d, int Q, int R,
+                                         int n, int d, int metric, void* stream) {
+  const int64_t pairs = static_cast<int64_t>(Q) * R;
+  if (pairs > 0) {
+    const unsigned blocks = static_cast<unsigned>((pairs + kHopPairs - 1) / kHopPairs);
+    dispatch_group(PairLaunch{blocks, static_cast<cudaStream_t>(stream), queries, ids, base,
+                              out_d, pairs, R, n, d},
+                   metric, d, aligned16(queries) && aligned16(base));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // queries (Q, d) f32, ids (Q, R) i32, base (n, d) f32, visited (Q, W) i32 or
 // null -> out_d (Q, R) f32 [, out_i (Q, R) i32]. All contiguous, on one

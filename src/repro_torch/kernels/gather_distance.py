@@ -5,14 +5,16 @@ Replace the Pallas kernels ``gather_distance`` and ``gather_distance_masked``
 ``csrc/gather_distance.cu``; its header says what bounds the kernels on
 the H100 (bytes: one random 4*d-byte row per scored id; at the beam's hop,
 the latency of dependent loads) and how their design answers that.
-:func:`gather_distance` runs the generic kernel (one warp per id, lanes
-striding over d, a warp-shuffle sum). :func:`gather_distance_masked`, the
-beam's hop, runs the hop kernel: one 8-lane group per (query, slot) pair
-over the whole grid, with the generic kernel's bits.
-:func:`gather_distance_masked_generic` runs the generic kernel's masked
-form, the hop kernel's yardstick; no path of the port calls it. These
-wrappers take CUDA tensors only; ``kernels.ops`` sends CPU tensors to the
-plain versions in ``kernels.ref``.
+:func:`gather_distance` runs the pair kernel at every shape
+(:func:`gather_route`): one 8-lane group per (query, slot) pair over the
+whole grid. :func:`gather_distance_masked`, the beam's hop, runs the hop
+kernel, the same layout with the visited word. Both have the generic
+kernel's bits (one warp per id, lanes striding over d, a warp-shuffle
+sum). :func:`gather_distance_generic` and
+:func:`gather_distance_masked_generic` run the generic kernel, the
+yardsticks; no path of the port calls them. These wrappers take CUDA
+tensors only; ``kernels.ops`` sends CPU tensors to the plain versions in
+``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -23,17 +25,18 @@ import torch
 from . import _build
 
 METRIC_CODES = {"l2": 0, "ip": 1, "cos": 2}
-MAX_D = 12288          # the query row is staged in 48 KB of shared memory
-MAX_R_TILES = 65535    # gridDim.y = ceil(R / 32)
-HOP_PAIRS = 16         # (query, slot) pairs a hop block: gridDim.x = ceil(Q R / 16)
+GENERIC_MAX_D = 12288  # the generic kernel stages the query row in 48 KB of shared memory
+MAX_R_TILES = 65535    # the generic kernel's gridDim.y = ceil(R / 32)
+HOP_PAIRS = 16         # (query, slot) pairs a pair or hop block: gridDim.x = ceil(Q R / 16)
 _INT_MAX = 2**31 - 1
 
 # kernel launches by entry point (read and reset by chip_smoke.py)
-LAUNCHES = {"gather_distance": 0, "gather_distance_masked": 0,
-            "gather_distance_masked_generic": 0}
+LAUNCHES = {"gather_distance": 0, "gather_distance_generic": 0,
+            "gather_distance_masked": 0, "gather_distance_masked_generic": 0}
 
 _fn = None
 _hop_fn = None
+_pair_fn = None
 
 
 def _entry():
@@ -56,7 +59,39 @@ def _hop_entry():
     return _hop_fn
 
 
-def _check(queries, ids, base, metric, visited=None):
+def _pair_entry():
+    global _pair_fn
+    if _pair_fn is None:
+        fn = _build.load("gather_distance").gather_distance_pairs_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _pair_fn = fn
+    return _pair_fn
+
+
+def pair_grid(Q: int, R: int, n: int, d: int) -> int:
+    """Blocks of the pair (or hop) kernel for Q x R pairs, HOP_PAIRS a
+    block. Raises ValueError where the grid or the kernel's int32 indexing
+    cannot take the shape; d has no limit (the query row is read through
+    L1, not staged)."""
+    if min(Q, R, d) < 0 or n < 1:
+        raise ValueError(f"unsupported shape: Q={Q} R={R} n={n} (>= 1) d={d}")
+    blocks = -(-Q * R // HOP_PAIRS)
+    if max(Q, R, n, d) > _INT_MAX or blocks > _INT_MAX:
+        raise ValueError(f"dimension exceeds the kernel's int32 indexing: Q={Q} R={R} "
+                         f"n={n} d={d} ({blocks} blocks)")
+    return blocks
+
+
+def gather_route(Q: int, R: int, n: int, d: int) -> tuple[str, int]:
+    """The kernel :func:`gather_distance` launches for queries (Q, d), ids
+    (Q, R) and a base (n, d), and its blocks: the pair kernel at every shape
+    it takes (the rerank, a descent step, a layer start, the hubs scan), as
+    ("pairs", blocks). Raises ValueError on a shape it cannot take."""
+    return "pairs", pair_grid(Q, R, n, d)
+
+
+def _check(queries, ids, base, metric, visited=None, generic=True):
     if metric not in METRIC_CODES:
         raise ValueError(f"unknown metric {metric!r}; one of {sorted(METRIC_CODES)}")
     tensors = {"queries": queries, "ids": ids, "base": base}
@@ -81,11 +116,10 @@ def _check(queries, ids, base, metric, visited=None):
     if ids.shape[0] != Q or base.shape[1] != d:
         raise ValueError(f"shape mismatch: queries {tuple(queries.shape)}, "
                          f"ids {tuple(ids.shape)}, base {tuple(base.shape)}")
-    if n < 1 or d > MAX_D or -(-R // 32) > MAX_R_TILES:
-        raise ValueError(f"unsupported shape: n={n} (>= 1), d={d} (<= {MAX_D}), "
+    if n < 1 or (generic and (d > GENERIC_MAX_D or -(-R // 32) > MAX_R_TILES)):
+        raise ValueError(f"unsupported shape: n={n} (>= 1), d={d} (<= {GENERIC_MAX_D}), "
                          f"R={R} (<= {32 * MAX_R_TILES})")
-    if max(Q, R, n, d) > _INT_MAX or -(-Q * R // HOP_PAIRS) > _INT_MAX:
-        raise ValueError("dimension exceeds the kernel's int32 indexing")
+    pair_grid(Q, R, n, d)
     W = 0
     if visited is not None:
         if visited.dtype != torch.int32 or visited.dim() != 2:
@@ -111,12 +145,32 @@ def _launch(queries, ids, base, visited, out_d, out_i, dims, metric):
 def gather_distance(queries: torch.Tensor, ids: torch.Tensor,
                     base: torch.Tensor, metric: str = "l2") -> torch.Tensor:
     """queries (Q, d) f32, ids (Q, R) i32, base (n, d) f32 -> (Q, R) f32
-    distances; ids < 0 give +inf."""
+    distances; ids < 0 give +inf, ids past n - 1 read row n - 1. Runs the
+    pair kernel (:func:`gather_route`)."""
+    Q, R, n, d, _ = _check(queries, ids, base, metric, generic=False)
+    gather_route(Q, R, n, d)
+    out_d = torch.empty(ids.shape, dtype=torch.float32, device=queries.device)
+    if Q * R == 0:
+        return out_d
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        status = _pair_entry()(queries.data_ptr(), ids.data_ptr(), base.data_ptr(),
+                               out_d.data_ptr(), Q, R, n, d, METRIC_CODES[metric], stream)
+    _build.check(status, "gather_distance_pairs_f32")
+    LAUNCHES["gather_distance"] += 1
+    return out_d
+
+
+def gather_distance_generic(queries: torch.Tensor, ids: torch.Tensor,
+                            base: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """:func:`gather_distance` on the generic kernel (one warp per id, 4
+    ids a warp in series, d <= GENERIC_MAX_D): the pair kernel's yardstick,
+    bit for bit and in time. No path of the port calls it."""
     dims = _check(queries, ids, base, metric)
     out_d = torch.empty(ids.shape, dtype=torch.float32, device=queries.device)
     with torch.cuda.device(queries.device):
         _launch(queries, ids, base, None, out_d, None, dims, metric)
-    LAUNCHES["gather_distance"] += 1
+    LAUNCHES["gather_distance_generic"] += 1
     return out_d
 
 

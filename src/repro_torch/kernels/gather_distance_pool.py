@@ -17,7 +17,7 @@ pairs than the base has rows) or does not fit (more than ``MAX_BUCKETS``
 buckets, rows per bucket or pairs per window past an entry's bits), the
 plan is None and the pass is one launch of the direct kernel, which scores
 every pair in place. Together they take every shape the generic gather
-takes (d <= ``MAX_D``). The wrapper takes CUDA tensors only; ``kernels.ops``
+takes (d <= ``GENERIC_MAX_D``). The wrapper takes CUDA tensors only; ``kernels.ops``
 sends CPU tensors to ``ref.gather_distance_pool_ref``.
 """
 from __future__ import annotations
@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .gather_distance import MAX_D, METRIC_CODES
+from .gather_distance import GENERIC_MAX_D, METRIC_CODES
 
 MAX_ROWS_LOG = 9         # R = 2**log_rows <= 512 rows a bucket
 MAX_BUCKETS = 8192       # a chunk's histogram lives in 32 KB of shared memory
@@ -73,8 +73,8 @@ def pool_plan(n: int, d: int, C: int, l2_bytes: int) -> PoolPlan | None:
     direct kernel. Raises on a shape neither kernel takes."""
     if n < 1 or d < 1 or C < 1:
         raise ValueError(f"empty shape: n={n}, d={d}, C={C}")
-    if d > MAX_D or n > 2**31 - 1:
-        raise ValueError(f"unsupported shape: d={d} (<= {MAX_D}), n={n} (< 2**31)")
+    if d > GENERIC_MAX_D or n > 2**31 - 1:
+        raise ValueError(f"unsupported shape: d={d} (<= {GENERIC_MAX_D}), n={n} (< 2**31)")
     # buckets: as many rows as fit STAGE_BYTES, more if n needs fewer buckets
     fit = max(0, (STAGE_BYTES // (4 * d)).bit_length() - 1)
     log_rows = max(min(fit, MAX_ROWS_LOG), _log2_ceil(-(-n // MAX_BUCKETS)))

@@ -1,16 +1,21 @@
 """Query serving on the PyTorch port: graph ANN (``--arch ann``) and
 greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b``).
 
-Builds the paper's index (NN-Descent + GD through ``core.build``, plus PQ
-codes under ``--scorer pq``), then answers batched query streams through
-``Searcher.search`` with random entries and a device-resident base, and
-scores recall against brute-force ground truth. ``--scorer`` picks the
-per-hop scorer: ``exact`` (float rows), ``sq8`` (uint8 rows) or ``pq``
-(M-byte codes against per-query LUTs); the compressed two rerank the
-``--rerank`` best survivors exactly (0 = all ef):
+Builds the paper's index through ``core.build`` (``--build-construct``:
+NN-Descent + GD by default, HNSW with no diversify stage for ``--entry
+hierarchy``; plus PQ codes under ``--scorer pq``), then answers batched
+query streams through ``Searcher.search`` with a device-resident base, and
+scores recall against brute-force ground truth. ``--entry`` picks where the
+beam starts: ``random`` (flat-HNSW), ``projection``, ``hierarchy`` (HNSW's
+greedy descent), ``lsh`` (the SRS probe) or ``hubs``; ``--term stable``
+(with ``--stable-steps``) and ``--restarts`` make stopping per query.
+``--scorer`` picks the per-hop scorer: ``exact`` (float rows), ``sq8``
+(uint8 rows) or ``pq`` (M-byte codes against per-query LUTs); the
+compressed two rerank the ``--rerank`` best survivors exactly (0 = all ef):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ann --smoke \
-        --batch 64 --batches 8 --device cpu [--scorer sq8|pq]
+        --batch 64 --batches 8 --device cpu [--scorer sq8|pq] \
+        [--entry hierarchy|hubs|projection|lsh] [--term stable] [--restarts 1]
 
 The world is float32 Gaussian, ``(20_000, 32)`` under ``--smoke`` and
 ``(1_000_000, 64)`` otherwise, made with numpy from ``--seed`` so the same
@@ -85,13 +90,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def build_searcher(base: torch.Tensor, *, build_k: int = 20,
-                   build_rounds: int = 15, diversify: str = "gd",
+def build_searcher(base: torch.Tensor, *, construct: str = "nndescent",
+                   build_k: int = 20, build_rounds: int = 15, diversify: str = "gd",
                    compress: str = "none", pq_m: int = 8, seed: int = 0,
                    verbose: bool = False):
-    """NN-Descent + ``diversify`` (+ ``compress``) over ``base`` on its
-    device -> (Searcher, BuildResult)."""
-    bspec = BuildSpec(construct="nndescent", diversify=diversify,
+    """``construct`` + ``diversify`` (+ ``compress``) over ``base`` on its
+    device -> (Searcher, BuildResult); an ``hnsw`` build binds its
+    hierarchy to the Searcher."""
+    bspec = BuildSpec(construct=construct, diversify=diversify,
                       compress=compress, metric="l2", graph_k=build_k,
                       nd_rounds=build_rounds, pq_m=pq_m)
     result = GraphBuilder(bspec).build(base, seed=seed, verbose=verbose)
@@ -116,6 +122,26 @@ def serve_batches(searcher: Searcher, spec: SearchSpec, stream: list[torch.Tenso
     return results, time.perf_counter() - t0
 
 
+def build_stages(args) -> tuple[str, str]:
+    """(construct, diversify) for the serve flags: ``auto`` builds HNSW for
+    ``--entry hierarchy``, else NN-Descent; the diversify stage defaults to
+    ``none`` under HNSW (it prunes every layer itself), else ``gd``."""
+    construct = args.build_construct
+    if construct == "auto":
+        construct = "hnsw" if args.entry == "hierarchy" else "nndescent"
+    diversify = args.diversify
+    if diversify is None:
+        diversify = "none" if construct == "hnsw" else "gd"
+    return construct, diversify
+
+
+def seed_comps(searcher: Searcher, spec: SearchSpec, stream: list, seeds: list) -> float:
+    """Mean seed-phase comparisons a query over the stream (the entry
+    strategy's share of comps/query), seeded again off the timed path."""
+    comps = [searcher.seed(q, spec, s)[1] for q, s in zip(stream, seeds)]
+    return float(torch.cat(comps).float().mean())
+
+
 def summarize(results: list, gt: torch.Tensor, topk: int) -> dict:
     """recall@1, recall@topk, comps/query, bytes/query (mean
     ``bytes_touched``) and steps/batch over served batches."""
@@ -137,19 +163,26 @@ def serve_ann(args) -> ServeRun:
     n, d = SMOKE_WORLD if args.smoke else FULL_WORLD
     base = torch.from_numpy(numpy_world(n, d, args.seed)).to(device)
     compress = "pq" if args.scorer == "pq" else "none"
+    construct, diversify = build_stages(args)
     searcher, result = build_searcher(
-        base, build_k=args.build_k, build_rounds=args.build_rounds,
-        diversify=args.diversify, compress=compress, pq_m=args.pq_m,
-        seed=args.seed)
+        base, construct=construct, build_k=args.build_k,
+        build_rounds=args.build_rounds, diversify=diversify, compress=compress,
+        pq_m=args.pq_m, seed=args.seed)
     rep = result.report
-    print(f"[serve-ann] built nndescent·{args.diversify}·{compress} over n={n} "
+    print(f"[serve-ann] built {construct}·{diversify}·{compress} over n={n} "
           f"d={d} on {device} in {rep.wall_total_s:.1f}s (rounds={rep.rounds}, "
           f"graph-recall~{rep.graph_recall_proxy}, degree "
           f"mean={rep.degree['mean']}, dropped reverse="
           f"{rep.dropped_reverse_edges})")
+    layer_sizes = [layer["nodes"] for layer in rep.layers]
+    if layer_sizes:
+        print(f"[serve-ann] hnsw layers (nodes, bottom first): {layer_sizes}; sources "
+              f"{[layer['source'] for layer in rep.layers]}")
 
-    spec = searcher.spec(ef=args.ef, k=args.topk, entry="random",
-                         scorer=args.scorer, pq_m=args.pq_m, rerank=args.rerank)
+    spec = searcher.spec(ef=args.ef, k=args.topk, entry=args.entry,
+                         scorer=args.scorer, pq_m=args.pq_m, rerank=args.rerank,
+                         term=args.term, stable_steps=args.stable_steps,
+                         restarts=args.restarts)
     if args.scorer == "pq":
         t0 = time.time()
         attached = searcher.pq
@@ -177,14 +210,19 @@ def serve_ann(args) -> ServeRun:
     gt = ground_truth(all_q, searcher.base, args.topk, searcher.metric)
     served = all_q.shape[0]
     out = {"n": n, "d": d, "device": str(device), "scorer": args.scorer,
+           "entry": args.entry, "term": args.term, "restarts": args.restarts,
            "queries": served, "seconds": dt, "qps": served / dt,
-           **summarize(results, gt, args.topk)}
+           **summarize(results, gt, args.topk),
+           "seed_comps_per_query": seed_comps(searcher, spec, stream, seeds),
+           "hnsw_layers": layer_sizes}
     mode = f"stream[{args.stream_tile}]" if args.stream_tile else "batch"
-    print(f"[serve-ann] entry=random scorer={args.scorer} ef={args.ef} "
+    print(f"[serve-ann] entry={args.entry} scorer={args.scorer} term={args.term} "
+          f"restarts={args.restarts} ef={args.ef} "
           f"k={args.topk} mode={mode}: {served} queries in {dt * 1e3:.0f} ms "
           f"({out['qps']:.0f} qps), recall@1={out['recall@1']:.3f}, "
           f"recall@{args.topk}={out[f'recall@{args.topk}']:.3f}, "
-          f"comps/query={out['comps_per_query']:.0f}, "
+          f"comps/query={out['comps_per_query']:.0f} "
+          f"(seed phase {out['seed_comps_per_query']:.1f}), "
           f"bytes/query={out['bytes_per_query']:.0f}")
     return ServeRun(summary=out, searcher=searcher, build=result, spec=spec,
                     stream=stream, seeds=seeds, results=results,
@@ -271,8 +309,24 @@ def parser() -> argparse.ArgumentParser:
                     help="raw k-NN degree out of NN-Descent")
     ap.add_argument("--build-rounds", type=int, default=15,
                     help="NN-Descent round budget")
-    ap.add_argument("--diversify", default="gd", choices=["gd", "none"],
-                    help="diversify stage")
+    ap.add_argument("--entry", default="random",
+                    choices=["random", "projection", "hierarchy", "lsh", "hubs"],
+                    help="[ann] entry strategy: where the beam starts")
+    ap.add_argument("--term", default="fixed", choices=["fixed", "stable"],
+                    help="[ann] per-query termination: fixed = the classic rule; "
+                         "stable = also freeze a row once its top-k stops "
+                         "improving for --stable-steps steps")
+    ap.add_argument("--stable-steps", type=int, default=8,
+                    help="[ann] --term stable patience window (steps)")
+    ap.add_argument("--restarts", type=int, default=0,
+                    help="[ann] fresh-seed restarts per converged query "
+                         "(comps charged to the query)")
+    ap.add_argument("--build-construct", default="auto",
+                    choices=["auto", "nndescent", "exact", "hnsw"],
+                    help="[ann] construct stage (auto = hnsw for --entry "
+                         "hierarchy, else nndescent)")
+    ap.add_argument("--diversify", default=None, choices=["gd", "none"],
+                    help="[ann] diversify stage (default: gd; none for hnsw)")
     ap.add_argument("--scorer", default="exact", choices=["exact", "sq8", "pq"],
                     help="per-hop scorer (sq8/pq: compressed traversal + "
                          "exact rerank)")

@@ -169,7 +169,7 @@ def test_specs_mirror_the_reference():
     assert SearchSpec().num_seeds == jengine.SearchSpec().num_seeds
 
 
-@pytest.mark.parametrize("stage", [dict(construct="hnsw"), dict(diversify="dpg"),
+@pytest.mark.parametrize("stage", [dict(compress="bogus"), dict(diversify="dpg"),
                                    dict(construct="incremental"), dict(construct="bogus")])
 def test_unported_or_unknown_stages_raise(stage):
     with pytest.raises(ValueError, match="unknown"):

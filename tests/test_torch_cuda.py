@@ -68,9 +68,9 @@ def test_cuda_gather_kernels_match_plain(cuda, metric, Q, R, n, d):
     queries, base, ids, visited = _world(Q, R, n, d, seed=4)
     qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
     vt = convert.bitmap_from_uint32(visited, cuda)
-    got = cuda_gd.gather_distance(qt, it, bt, metric)
     want = ref.gather_distance_ref(qt, it, bt, metric)
-    torch.testing.assert_close(got, want, **GATHER_TOL)
+    for gather in (cuda_gd.gather_distance, cuda_gd.gather_distance_generic):
+        torch.testing.assert_close(gather(qt, it, bt, metric), want, **GATHER_TOL)
     want_d, want_i = ref.gather_distance_masked_ref(qt, it, bt, vt, metric)
     for masked in (cuda_gd.gather_distance_masked, cuda_gd.gather_distance_masked_generic):
         got_d, got_i = masked(qt, it, bt, vt, metric)
@@ -132,10 +132,65 @@ def test_cuda_hop_kernel_matches_plain_at_ragged_d(cuda, metric, d):
         torch.testing.assert_close(got_d, want_d, **_gather_tol(d))
 
 
+def _pair_world(Q, R, n, d, seed):
+    """_world's ids with what the unmasked gather meets on the hierarchy
+    path: rows that are all padding (0 and, where Q > 4, 4: a descent step's
+    finished rows), a row with ids past n - 1 (3)."""
+    queries, base, ids, _ = _world(Q, R, n, d, seed)
+    ids[0] = -1
+    if Q > 3:
+        ids[3, ::2] = n + np.arange(len(ids[3, ::2]), dtype=np.int32) % 40
+    if Q > 4:
+        ids[4] = -1
+    return queries, base, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [32, 64, 130, 960])
+@pytest.mark.parametrize("Q,R,n", [(64, 1, 5000), (64, 10, 5000), (64, 32, 5000),
+                                   (64, 64, 5000), (7, 33, 1000), (1, 1, 1)])
+def test_cuda_pair_kernel_is_bit_identical_to_the_generic_kernel(cuda, metric, d, Q, R, n):
+    """The unmasked pair kernel (one 8-lane group a pair) gives the generic
+    kernel's distances bit for bit at the hierarchy path's R (a layer start,
+    a descent step, the hubs scan, the rerank), ragged d included: padding
+    rows +inf, ids past n - 1 read row n - 1; a query row at a 4-byte
+    offset (scalar loads) too."""
+    queries, base, ids = _pair_world(Q, R, n, d, seed=12)
+    it, bt = _c(ids, cuda, torch.int32), _c(base, cuda)
+    flat = torch.zeros(queries.size + 1, device=cuda)
+    flat[1:] = _c(queries, cuda).flatten()
+    for qt in (_c(queries, cuda), flat[1:].view(queries.shape)):
+        ops.reset_launch_counts()
+        got = cuda_gd.gather_distance(qt, it, bt, metric)
+        gen = cuda_gd.gather_distance_generic(qt, it, bt, metric)
+        assert torch.equal(got, gen)
+        counts = ops.launch_counts()
+        assert counts["gather_distance"] == 1 and counts["gather_distance_generic"] == 1
+        torch.testing.assert_close(got, ref.gather_distance_ref(qt, it, bt, metric),
+                                   **_gather_tol(d))
+        assert torch.isinf(got[0]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_pair_kernel_takes_d_past_the_generic_limit(cuda):
+    """The pair kernel stages nothing: d past the generic kernel's 48 KB
+    query row runs (against the plain version), where the generic kernel
+    raises."""
+    d = cuda_gd.GENERIC_MAX_D + 4
+    queries, base, ids = _pair_world(3, 5, 20, d, seed=13)
+    qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
+    assert cuda_gd.gather_route(3, 5, 20, d) == ("pairs", 1)
+    got = ops.gather_distance(qt, it, bt)
+    torch.testing.assert_close(got, ref.gather_distance_ref(qt, it, bt), **_gather_tol(d))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        cuda_gd.gather_distance_generic(qt, it, bt)
+
+
 def _gather_kernel_pass(base, pool, metric, chunk=1024):
     """The scoring pass as the generic gather kernel ran it: one launch per
     ``chunk`` rows."""
-    return chunked_pass(cuda_gd.gather_distance, base, pool, metric, chunk)
+    return chunked_pass(cuda_gd.gather_distance_generic, base, pool, metric, chunk)
 
 
 @pytest.mark.cuda
@@ -471,7 +526,8 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
     q = torch.randn((1, 16, 4, 8), device=cuda)
     ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
     ops.gather_distance_pool(bt, it.repeat(25, 1))
-    assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_pool": 4,
+    assert ops.launch_counts() == {"gather_distance": 1, "gather_distance_generic": 0,
+                                   "gather_distance_pool": 4,
                                    "gather_distance_masked": 1,
                                    "gather_distance_masked_generic": 0,
                                    "distance_matrix": 1, "distance_matrix_small": 0,

@@ -246,7 +246,7 @@ def test_pool_division_magic_is_exact(C, bits):
 
 def test_pool_plan_raises_on_shapes_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported shape"):
-        cuda_gp.pool_plan(10, cuda_gd.MAX_D + 1, 4, 50 << 20)
+        cuda_gp.pool_plan(10, cuda_gd.GENERIC_MAX_D + 1, 4, 50 << 20)
     with pytest.raises(ValueError, match="unsupported shape"):
         cuda_gp.pool_plan(2**31, 8, 4, 50 << 20)
     with pytest.raises(ValueError, match="empty shape"):
@@ -266,7 +266,7 @@ def test_pool_plan_raises_on_shapes_the_kernel_does_not_take():
 def test_pool_plan_goes_direct_where_staging_does_not_pay(n, d, C, staged):
     """On a 50 MiB L2, the plan stages a shape only where its windows hold
     at least n pairs, its buckets stage in shared memory and number at most
-    MAX_BUCKETS; every other shape the generic gather takes (d <= MAX_D)
+    MAX_BUCKETS; every other shape the generic gather takes (d <= GENERIC_MAX_D)
     gets None, one launch of the direct kernel, and no exception."""
     plan = cuda_gp.pool_plan(n, d, C, 50 << 20)
     assert (plan is not None) == staged
@@ -975,6 +975,38 @@ def test_adc_hop_grid_rejects_what_it_cannot_take(Q, R, n, M, K, W):
     assert cuda_ga._fn is None and cuda_ga.LAUNCHES["gather_adc_masked"] == 0
 
 
+@pytest.mark.parametrize("Q,R,n,d,blocks", [
+    (64, 64, 10**6, 64, 256),          # the rerank
+    (64, 10, 10**6, 64, 40),           # a descent step at M = 10
+    (64, 1, 10**6, 64, 4),             # a layer start
+    (64, 32, 10**6, 64, 128),          # the hubs scan
+    (7, 33, 1000, 12289, 15),          # d past the generic kernel's 48 KB query row
+    (3, 32 * 65536, 10, 8, 3 * 2 * 65536),  # R past the generic kernel's 65535 tiles
+    (0, 5, 10, 8, 0), (1, 1, 1, 1, 1)])
+def test_gather_route_sends_every_shape_to_the_pair_kernel(Q, R, n, d, blocks):
+    """gather_distance launches the pair kernel at every shape it takes,
+    16 pairs a block, the generic kernel's limits on d and R gone; nothing
+    is built or counted by the route."""
+    assert cuda_gd.gather_route(Q, R, n, d) == ("pairs", blocks)
+    assert cuda_gd._pair_fn is None and cuda_gd.LAUNCHES["gather_distance"] == 0
+
+
+@pytest.mark.parametrize("Q,R,n,d", [
+    (2**20, 2**15, 10, 8),             # Q x R pairs past 2^31 - 1 blocks of 16
+    (1, 1, 2**31, 8),                  # n past int32
+    (1, 1, 10, 2**31),                 # d past int32
+    (2**31, 1, 10, 8),                 # Q past int32
+    (1, 1, 0, 8),                      # an empty base
+    (-1, 1, 10, 8)])
+def test_gather_route_rejects_what_the_pair_kernel_cannot_take(Q, R, n, d):
+    """The pair kernel's limits are its grid and its int32 indexing, raised
+    before any launch; the largest grid it takes is 2^31 - 1 blocks."""
+    with pytest.raises(ValueError, match="int32 indexing|unsupported shape"):
+        cuda_gd.gather_route(Q, R, n, d)
+    assert cuda_gd.pair_grid(2**20, 2**15 - 1, 10, 8) == 2**31 - 2**16
+    assert cuda_gd._pair_fn is None
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_compressed_plain_versions_match_pallas_interpret(metric):
     """One small shape of each compressed kernel against its Pallas body in
@@ -1036,7 +1068,7 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
     assert torch.equal(ops.gather_distance_pool(bt, pool, "cos", chunk=7),
                        ref.gather_distance_pool_ref(bt, pool, "cos"))
     assert ops.launch_counts() == before  # no kernel ran
-    assert set(before) == {"gather_distance", "gather_distance_pool",
+    assert set(before) == {"gather_distance", "gather_distance_generic", "gather_distance_pool",
                            "gather_distance_masked", "gather_distance_masked_generic",
                            "distance_matrix", "distance_matrix_small",
                            "distance_matrix_tile32", "gather_sq8_masked",
@@ -1076,8 +1108,9 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
     before anything is compiled or launched."""
     queries, base, ids, visited = _world(2, 3, 40, 8)
     qt, it, bt = _t(queries), _t(ids, torch.int32), _t(base)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda_gd.gather_distance(qt, it, bt)
+    for gather in (cuda_gd.gather_distance, cuda_gd.gather_distance_generic):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            gather(qt, it, bt)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_gd.gather_distance_masked(qt, it, bt,
                                        convert.bitmap_from_uint32(visited, "cpu"))
@@ -1104,6 +1137,7 @@ def test_cuda_wrappers_reject_cpu_tensors_before_building():
     assert all(m._fn is None for m in (cuda_gd, cuda_gp, cuda_dm, cuda_gs, cuda_ga,
                                        cuda_pa))
     assert cuda_gd._hop_fn is None and cuda_gs._hop_fn is None and cuda_dm._small_fn is None
+    assert cuda_gd._pair_fn is None
     assert cuda_pa._scan_fn is None
 
 

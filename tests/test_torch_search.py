@@ -199,10 +199,16 @@ def test_searcher_rejects_unported_options(world):
     base, queries, nbrs, _ = world
     s = convert.searcher_from_numpy(base, nbrs, device="cpu")
     q = _t(queries)
-    for kw in (dict(entry="hubs"), dict(base_placement="disk"), dict(base_placement="host"),
-               dict(term="stable"), dict(restarts=1), dict(filter=object())):
+    for kw in (dict(base_placement="disk"), dict(base_placement="host"),
+               dict(filter=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             s.search(q, s.spec(**kw))
+    with pytest.raises(ValueError, match="unknown entry strategy"):
+        s.search(q, s.spec(entry="bogus"))
+    with pytest.raises(ValueError, match="needs a Searcher built from an HnswIndex"):
+        s.search(q, s.spec(entry="hierarchy"))
+    with pytest.raises(ValueError, match="unknown termination mode"):
+        s.search(q, s.spec(term="bogus"))
     with pytest.raises(ValueError, match="metric"):
         s.search(q, SearchSpec(metric="ip"))
     with pytest.raises(ValueError, match="unknown scorer"):
