@@ -1,2 +1,3 @@
-"""Baselines the paper compares graph search with; this package ports the
-product-quantization baseline (``pq``) and the SRS projection LSH (``lsh``)."""
+"""Baselines the paper compares graph search with (fig3): product
+quantization (``pq``), the SRS projection LSH (``lsh``) and the RP-tree
+forest (``tree``)."""

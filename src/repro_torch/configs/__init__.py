@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the LM archs it serves, under the
-reference's arch ids (``repro/configs``). Each is a reduced ``ArchDef``
-with only what serving reads."""
+"""Configurations of the port: the registry of the LM archs it serves,
+under the reference's arch ids (``repro/configs``; each a reduced
+``ArchDef`` with only what serving reads), and the paper's ANN
+experiments (``ann_paper``)."""
 from __future__ import annotations
 
 import dataclasses

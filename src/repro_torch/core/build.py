@@ -3,10 +3,10 @@
 The same composable stages as ``repro.core.build``: a construct stage makes
 the raw neighborhood graph, a diversify stage selects its edges, a compress
 stage trains codes for compressed scorers. The port registers the
-``nndescent``, ``exact`` and ``hnsw`` constructs, the ``none`` and ``gd``
-diversifiers and the ``none``, ``pq`` and ``opq`` compressors; the rest
-(``incremental``, ``dpg``) come with later slices, and naming one raises as
-an unknown stage does. ``hnsw`` prunes every layer itself, so it pairs with
+``nndescent``, ``exact`` and ``hnsw`` constructs, the ``none``, ``gd`` and
+``dpg`` diversifiers and the ``none``, ``pq`` and ``opq`` compressors;
+``incremental`` comes with a later slice, and naming it raises as an
+unknown stage does. ``hnsw`` prunes every layer itself, so it pairs with
 ``diversify="none"`` only.
 
 ``GraphBuilder(spec).build(base, seed)`` runs on ``base``'s device and emits
@@ -234,6 +234,17 @@ def _diversify_gd(base, graph: KnnGraph, spec: BuildSpec):
     kept = gd_prune(base, graph, max_keep=spec.max_keep or None,
                     metric=spec.metric)
     return _finish_prune(kept, spec, default_degree=graph.degree)
+
+
+@register_diversifier("dpg")
+def _diversify_dpg(base, graph: KnnGraph, spec: BuildSpec):
+    """DPG [Li TKDE'19]: angular max-min + reverse union, default cap
+    2 * keeps (DPG keeps the full union, ~2x GD's index size)."""
+    from .diversify import dpg_prune
+
+    kept = dpg_prune(base, graph, max_keep=spec.max_keep or None)
+    default_degree = 2 * (spec.max_keep or graph.degree // 2)
+    return _finish_prune(kept, spec, default_degree=default_degree)
 
 
 # -- compress stages ----------------------------------------------------------

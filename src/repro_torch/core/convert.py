@@ -2,7 +2,8 @@
 
 Takes numpy arrays as ``repro`` produces them (``np.asarray(graph.neighbors)``,
 ``.dists``, ``hubs`` through :func:`tensor`, the base, a uint32 visited or
-tombstone bitmap, the sq8 and PQ tables, an ``HnswIndex``'s layer arrays)
+tombstone bitmap, the sq8 and PQ tables, an ``HnswIndex``'s layer arrays,
+a ``ForestIndex``'s planes, offsets and leaves)
 and returns the port's tensors, tables, indexes and ``Searcher``. uint32 bitmap words become int32 words bit for bit
 (torch has no unsigned shift or scatter-add on the CPU);
 :func:`bitmap_to_uint32` goes back.
@@ -14,6 +15,7 @@ import torch
 
 from .._device import resolve_device
 from ..baselines.pq import PQIndex
+from ..baselines.tree import ForestIndex
 from .engine import Searcher
 from .graph_index import HnswIndex, KnnGraph
 from .scorers import Sq8Index
@@ -82,6 +84,16 @@ def pq_index_from_numpy(codebooks, codes, rotation=None, device="cuda") -> PQInd
                    M=cb.shape[0], K=cb.shape[1],
                    rotation=(None if rotation is None
                              else tensor(rotation, torch.float32, device)))
+
+
+def forest_from_reference(planes, offsets, leaves, depth: int,
+                          device="cuda") -> ForestIndex:
+    """The reference's ``ForestIndex`` (planes (T, n_internal, d), offsets
+    (T, n_internal), leaves (T, n_leaves, leaf_cap), as numpy) -> the
+    port's."""
+    return ForestIndex(planes=tensor(planes, torch.float32, device),
+                       offsets=tensor(offsets, torch.float32, device),
+                       leaves=tensor(leaves, torch.int32, device), depth=int(depth))
 
 
 def searcher_from_numpy(base, neighbors, *, metric: str = "l2",

@@ -3,12 +3,17 @@
 * **GD** (HNSW's occlusion heuristic, paper Fig. 2): keep candidate c iff
   d(v,c) < d(s,c) for every already-kept s; at most L/2 survivors; then union
   with reverse edges ("KGraph+GD").
+* **DPG** [Li TKDE'19]: greedy max-min *angular* selection among the edge
+  directions (c - v), L/2 survivors, then the full reverse union (DPG's
+  index is ~2x GD's, as the paper notes).
 
 Each vertex's candidate geometry is an (L, L) distance matrix; a block of
 vertices is one batched ``ops.distance_matrix`` call (one kernel launch for
 the whole block instead of one per vertex). The greedy selection is a Python
 loop over the L candidate slots, vectorized across every vertex of the
-block. DPG comes with a later slice of the port.
+block. DPG's (L, L) cosine similarities are one ``torch.bmm`` a block (the
+reference computes them with ``jnp.einsum`` outside any kernel) and its
+greedy selection a loop of ``max_keep - 1`` steps over the block's rows.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ from .graph_index import KnnGraph
 from .topk import INVALID, sort_by_distance
 
 GD_BLOCK = 1 << 16   # vertices whose (L, L) matrices one launch computes
+DPG_BLOCK_BYTES = 1 << 30  # a DPG block's (B, L, max(d, L)) float32 operands
 
 _INT32_MAX = 2**31 - 1
 
@@ -150,5 +156,78 @@ def build_gd_graph(base: torch.Tensor, graph: KnnGraph, metric: str = "l2",
     L = graph.degree
     kept = gd_prune(base, graph, max_keep=max_keep, metric=metric)
     merged = add_reverse_edges(kept, max_degree or L)
+    return KnnGraph(neighbors=merged,
+                    dists=torch.full(merged.shape, float("nan"), device=merged.device))
+
+
+# -- DPG: angular diversification ---------------------------------------------
+
+
+def _angular_select(cos_sim: torch.Tensor, valid: torch.Tensor,
+                    max_keep: int) -> torch.Tensor:
+    """Greedy max-min angular selection, vertices (B,): cos_sim (B, L, L)
+    between edge directions (c_i - v), valid (B, L) -> keep mask (B, L).
+
+    Seeded with the nearest valid candidate (candidates arrive
+    distance-sorted); each of the ``max_keep - 1`` steps keeps the candidate
+    whose largest similarity to the kept set is smallest (the first such on
+    a tie, as ``jnp.argmin``)."""
+    B, L = valid.shape
+    rows = torch.arange(B, device=valid.device)
+    seed = valid.to(torch.int8).argmax(dim=1)
+    keep = torch.zeros((B, L), dtype=torch.bool, device=valid.device)
+    keep[rows, seed] = valid[rows, seed]
+    neg_inf = torch.tensor(float("-inf"), device=valid.device)
+    inf = torch.tensor(float("inf"), device=valid.device)
+    for _ in range(1, max_keep):
+        sim_to_kept = torch.where(keep[:, None, :], cos_sim, neg_inf).amax(dim=2)
+        score = torch.where(valid & ~keep, sim_to_kept, inf)
+        j = score.argmin(dim=1)
+        keep[rows, j] |= score[rows, j] < inf
+    return keep
+
+
+def dpg_keep(base: torch.Tensor, vertices: torch.Tensor, ids: torch.Tensor,
+             max_keep: int) -> torch.Tensor:
+    """DPG's keep mask (B, L) for ``vertices`` (B,) whose distance-sorted
+    candidate ids are ``ids`` (B, L), INVALID padded."""
+    v = base[vertices.long()]                                     # (B, d)
+    e = base[ids.clamp(min=0).long()] - v[:, None, :]              # (B, L, d)
+    e = e * torch.rsqrt(torch.clamp((e * e).sum(-1, keepdim=True), min=1e-12))
+    cs = torch.bmm(e, e.transpose(1, 2))                           # (B, L, L)
+    return _angular_select(cs, ids >= 0, max_keep)
+
+
+def dpg_prune(base: torch.Tensor, graph: KnnGraph, max_keep: int | None = None,
+              chunk: int | None = None) -> torch.Tensor:
+    """DPG's angular pruning of a flat graph; returns (n, L) ids, -1 padded,
+    at most ``max_keep`` (default L/2) kept per vertex, compacted to the
+    front in distance order. ``chunk`` (vertices a block; default: as many
+    as keep a block's operands within ``DPG_BLOCK_BYTES``) does not change
+    the result."""
+    n, L = graph.neighbors.shape
+    if max_keep is None:
+        max_keep = L // 2
+    if chunk is None:
+        chunk = max(512, DPG_BLOCK_BYTES // (4 * L * max(base.shape[1], L)))
+    _, ids = sort_by_distance(graph.dists, graph.neighbors)
+    base = base.float().contiguous()
+    keep = torch.empty((n, L), dtype=torch.bool, device=ids.device)
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        rows = torch.arange(lo, hi, device=ids.device)
+        keep[lo:hi] = dpg_keep(base, rows, ids[lo:hi], max_keep)
+    kept_ids = torch.where(keep, ids, torch.full_like(ids, INVALID))
+    _, order = torch.sort((~keep).to(torch.int8), dim=1, stable=True)
+    return kept_ids.gather(1, order)
+
+
+def build_dpg_graph(base: torch.Tensor, graph: KnnGraph, max_keep: int | None = None,
+                    max_degree: int | None = None) -> KnnGraph:
+    """DPG = angular diversification + reverse edges [Li TKDE'19]; the
+    union keeps up to 2x the kept degree by default."""
+    L = graph.degree
+    kept = dpg_prune(base, graph, max_keep=max_keep)
+    merged = add_reverse_edges(kept, max_degree or 2 * (max_keep or L // 2))
     return KnnGraph(neighbors=merged,
                     dists=torch.full(merged.shape, float("nan"), device=merged.device))

@@ -1,0 +1,96 @@
+"""Synthetic ANN datasets (paper Tab. I), as ``repro.data.synthetic``.
+
+Uniform RAND* sets, plus *manifold* stand-ins for the real-world corpora:
+points drawn on a low-dimensional latent manifold and lifted nonlinearly
+into R^d, matching each corpus's (n, d, LID) profile (SIFT1M: d=128,
+GIST1M: d=960, GloVe1M: d=100). Nothing is downloaded.
+
+Every draw comes from a ``torch.Generator`` on the target device, so a
+10M-row set is drawn where it is used, never built on the host and copied.
+The lift is split from its draws (:func:`manifold_lift`), so the tests can
+feed it the same numpy draws as the reference's formula. The draws differ
+from ``jax.random``'s: a dataset agrees with the reference's in its law
+(LID, ``tab1_datasets``), not bit for bit.
+
+The LM, recsys and GNN substrates of the reference module are not here.
+"""
+from __future__ import annotations
+
+import math
+import zlib
+
+import torch
+
+from .._device import resolve_device
+
+
+def rand_dataset(generator: torch.Generator, n: int, d: int) -> torch.Tensor:
+    """Paper's synthetic family: each dim uniform in [0, 1), on the
+    generator's device."""
+    return torch.rand((n, d), generator=generator, device=generator.device)
+
+
+def manifold_lift(z: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  eps: torch.Tensor, noise: float = 0.01) -> torch.Tensor:
+    """tanh(z @ w1) @ w2 + noise * eps: latent points z (n, latent) through
+    the 2-layer random lift (w1 (latent, 2 latent), w2 (2 latent, d)), plus
+    isotropic noise eps (n, d)."""
+    x = torch.tanh(z @ w1) @ w2
+    return x.add_(eps, alpha=noise)
+
+
+def manifold_dataset(generator: torch.Generator, n: int, d: int, latent_dim: int,
+                     noise: float = 0.01) -> torch.Tensor:
+    """Low-LID data embedded in R^d: latent uniform -> 2-layer random tanh
+    lift -> small isotropic noise. Draws z, w1, w2 and the noise, in that
+    order, from ``generator``."""
+    dev = generator.device
+    z = torch.rand((n, latent_dim), generator=generator, device=dev)
+    w1 = torch.randn((latent_dim, 2 * latent_dim), generator=generator,
+                     device=dev) / math.sqrt(latent_dim)
+    w2 = torch.randn((2 * latent_dim, d), generator=generator,
+                     device=dev) / math.sqrt(2 * latent_dim)
+    eps = torch.randn((n, d), generator=generator, device=dev)
+    return manifold_lift(z, w1, w2, eps, noise)
+
+
+PAPER_DATASETS: dict[str, dict] = {
+    # name: (n, d, latent/None, metric, paper LID)
+    "RAND10M4D": dict(n=10_000_000, d=4, latent=None, metric="l2", paper_lid=3.6),
+    "RAND10M8D": dict(n=10_000_000, d=8, latent=None, metric="l2", paper_lid=6.5),
+    "RAND10M16D": dict(n=10_000_000, d=16, latent=None, metric="l2", paper_lid=11.6),
+    "RAND10M32D": dict(n=10_000_000, d=32, latent=None, metric="l2", paper_lid=19.4),
+    "RAND1M": dict(n=1_000_000, d=100, latent=None, metric="l2", paper_lid=48.9),
+    "SIFT1M": dict(n=1_000_000, d=128, latent=16, metric="l2", paper_lid=16.3),
+    "GIST1M": dict(n=1_000_000, d=960, latent=38, metric="l2", paper_lid=38.1),
+    "GLOVE1M": dict(n=1_200_000, d=100, latent=40, metric="cos", paper_lid=39.5),
+}
+
+
+def default_seed(name: str) -> int:
+    """The seed of a dataset drawn without one: crc32 of its name. The
+    reference keys on ``hash(name)``, which Python salts per process for
+    str unless PYTHONHASHSEED is set, so its default world changes from run
+    to run; this one does not."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
+def make_ann_dataset(name: str, seed: int | None = None, scale: float = 1.0,
+                     n_queries: int = 1000, device="cuda"):
+    """Returns (base (n, d), queries (q, d), metric) on ``device``. ``scale``
+    shrinks n (n = max(int(n * scale), 1000)); the default ``seed`` is
+    :func:`default_seed`. Manifold queries are drawn from the same manifold
+    as the base, as the rows after it."""
+    spec = PAPER_DATASETS[name]
+    if seed is None:
+        seed = default_seed(name)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = max(int(spec["n"] * scale), 1000)
+    if spec["latent"] is None:
+        base = rand_dataset(gen, n, spec["d"])
+        queries = rand_dataset(gen, n_queries, spec["d"])
+    else:
+        both = manifold_dataset(gen, n + n_queries, spec["d"], spec["latent"])
+        base, queries = both[:n], both[n:n + n_queries].clone()
+    return base, queries, spec["metric"]

@@ -169,7 +169,7 @@ def test_specs_mirror_the_reference():
     assert SearchSpec().num_seeds == jengine.SearchSpec().num_seeds
 
 
-@pytest.mark.parametrize("stage", [dict(compress="bogus"), dict(diversify="dpg"),
+@pytest.mark.parametrize("stage", [dict(compress="bogus"), dict(diversify="bogus"),
                                    dict(construct="incremental"), dict(construct="bogus")])
 def test_unported_or_unknown_stages_raise(stage):
     with pytest.raises(ValueError, match="unknown"):
@@ -178,7 +178,7 @@ def test_unported_or_unknown_stages_raise(stage):
         build.GraphBuilder(build.BuildSpec(reverse="both"))
 
 
-@pytest.mark.parametrize("diversify_stage", ["gd", "none"])
+@pytest.mark.parametrize("diversify_stage", ["gd", "none", "dpg"])
 def test_graph_builder_report(small_world, diversify_stage):
     base = _t(small_world[0][:1200])
     spec = build.BuildSpec(graph_k=10, nd_rounds=4, diversify=diversify_stage,

@@ -173,6 +173,33 @@ def test_cuda_pair_kernel_is_bit_identical_to_the_generic_kernel(cuda, metric, d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [4, 128])
+@pytest.mark.parametrize("Q,R,n", [(1000, 20, 30001), (64, 1824, 30001), (7, 33, 1000)])
+def test_cuda_paper_shapes_match_plain(cuda, metric, d, Q, R, n):
+    """The paper path's shapes: a hop of 1,000 queries x R=20 and the
+    forest rerank's R = 12 x 152 = 1,824, at d=4 (RAND10M4D: half the
+    lanes of each 8-lane group hold no column) and d=128 (SIFT1M). The pair
+    kernel bit for bit against the generic kernel and within GATHER_TOL of
+    the plain version; the hop kernel's ids identical to the plain
+    version's, its distances within GATHER_TOL, and bit for bit against
+    the generic masked kernel where d % 32 == 0."""
+    queries, base, ids, visited = _hop_world(Q, R, n, d, seed=14)
+    qt, it, bt = _c(queries, cuda), _c(ids, cuda, torch.int32), _c(base, cuda)
+    vt = convert.bitmap_from_uint32(visited, cuda)
+    got = cuda_gd.gather_distance(qt, it, bt, metric)
+    assert torch.equal(got, cuda_gd.gather_distance_generic(qt, it, bt, metric))
+    torch.testing.assert_close(got, ref.gather_distance_ref(qt, it, bt, metric), **GATHER_TOL)
+    got_d, got_i = cuda_gd.gather_distance_masked(qt, it, bt, vt, metric)
+    want_d, want_i = ref.gather_distance_masked_ref(qt, it, bt, vt, metric)
+    assert torch.equal(got_i, want_i)
+    torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+    if d % 32 == 0:
+        gen_d, gen_i = cuda_gd.gather_distance_masked_generic(qt, it, bt, vt, metric)
+        assert torch.equal(got_d, gen_d) and torch.equal(got_i, gen_i)
+
+
+@pytest.mark.cuda
 def test_cuda_pair_kernel_takes_d_past_the_generic_limit(cuda):
     """The pair kernel stages nothing: d past the generic kernel's 48 KB
     query row runs (against the plain version), where the generic kernel
