@@ -156,6 +156,35 @@ Phases (each prints its seconds):
    floor (``tests/test_system.py``: the SIFT1M stand-in at scale 0.004,
    recall@1 >= 0.9 at fewer than n/4 comps).
 
+8. The saved, tiered and filtered index, on phase 4's searcher (it runs
+   after phase 5, before phase 6 frees that searcher). Each step's seconds
+   come from CUDA events. (a) ``core.io.save_index`` into a temporary
+   directory (removed at the end): unsharded, in 65,536-row f32 shards
+   and in bf16 shards; each loaded back with every array bit-identical to
+   the live searcher's (a bf16 base to its bf16 cast); bytes and seconds.
+   (b) ``serve --index <saved> --scorer pq --base-placement disk`` with the
+   launch counts set to 0 before it: no pool kernel, no GD block, no PQ
+   training, ``distance_matrix`` exactly as often as the stream's ground
+   truth, and ids, dists, n_comps, n_steps bit-identical to phase 4's
+   device run. (c) pq and sq8 at device, host and disk (the disk tier
+   reranking off the artifact's shard files), f32 and bf16 stores: f32
+   answers bit-identical across placements, host bytes equal to device
+   bytes, disk bills whole pages, bf16 rows 2d bytes less a reranked row;
+   qps and recall@10 of each. (d) ``search_stream`` over the 512 queries
+   (tile_q=64) on host and disk, bit-identical to its tiles' searches.
+   (e) metadata from the seed (tenant in [0, 16), tag in [0, 64),
+   timestamp a permutation) and the filters tenant=3, tags_any=(5, 9), a
+   time range of 192 ids (the exact-scan route) and deny_ids = the
+   unfiltered top-10s, each under exact (device) and pq (device, host,
+   disk): no answer outside the allowed set, recall@10 against ground
+   truth over the allowed set (1.0 on the exact-scan route), pq's
+   placements bit-identical, and kernel path against plain path in
+   lock-step (graph route) or the scan's pair kernel against the plain
+   gather (near-tie rows at most 1%). (f) a batch's tier gather split into
+   its host part and the H2D copy, the device-busy share of a host-tier
+   batch, and the launches over phase 8's runs into the kernels line
+   (``phase8_launches``).
+
 Prints a ``{"kernels": [...]}`` line (each row also names the ``kernel``
 symbol timed and its ``yardstick``) and the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
@@ -167,6 +196,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -204,6 +234,12 @@ REF_SMOKE_RECALL10_HIERARCHY = 0.7433593273162842
 PLAIN_RECALL_SLACK = 0.005
 SCORERS = ("exact", "sq8", "pq")
 PQ_SEARCH_RERANK = 64
+# phase 8: the artifact's shards, the stream's tiles, and the filtered runs
+PHASE8_SHARD_ROWS = 65_536
+PHASE8_TILE_Q = 64
+PHASE8_FILTER_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "host"), ("pq", "disk"))
+PHASE8_KERNELS = ("gather_distance", "gather_distance_masked", "gather_adc_masked",
+                  "gather_sq8_masked", "distance_matrix")
 # phase 7: the paper's worlds (repro_torch.data.synthetic) and the figures
 # each runs; PAPER_SCALE lists a cut of n where the run needs one (none)
 PAPER_WORLDS = (("SIFT1M", ("fig3", "fig4", "fig5", "fig6")),
@@ -1462,18 +1498,18 @@ def ground_truth_against_plain(run) -> None:
     check(bool(tie[differ].all()), "a ground-truth id differs without a near-tie")
 
 
-def lockstep(searcher, spec, queries, entries, state):
+def lockstep(searcher, spec, queries, entries, state, deny=None):
     """Run the beam with the CUDA kernel (scorer ``spec.scorer``) and with
-    the plain version side by side, from the same entries and scorer state.
-    Returns (kernel result, plain result, {row: near-tie?} for each row at
-    its first divergence)."""
+    the plain version side by side, from the same entries, scorer state
+    and filter ``deny`` words. Returns (kernel result, plain result, {row:
+    near-tie?} for each row at its first divergence)."""
     from repro_torch.core import beam_search as bs
 
     args = (queries, searcher.base, searcher.neighbors)
     entries = entries.to(torch.int32)
     kernel, plain = spec.scorer, f"{spec.scorer}-plain"
-    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, kernel, state)
-    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, plain, state)
+    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, kernel, state, None, deny)
+    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, plain, state, None, deny)
     max_steps = bs.default_max_steps(spec.ef, spec.expand_width)
     first: dict[int, bool] = {}
 
@@ -1512,12 +1548,16 @@ def lockstep(searcher, spec, queries, entries, state):
 def lockstep_rung(searcher, spec, stream, seeds, served) -> None:
     """Every served batch of one scorer again, kernel and plain path in
     lock-step; checks the kernel path against the served run and counts
-    the rows where the two paths differ."""
+    the rows where the two paths differ. Under ``spec.filter`` both paths
+    start from the served run's redrawn entries and carry its deny words."""
     rows_total = rows_diff = near_ties = 0
+    cf = None if spec.filter is None else searcher.compiled_filter(spec.filter)
     for q, seed, res in zip(stream, seeds, served):
         entries, _ = searcher.seed(q, spec, seed)
+        entries = searcher._remap_entries(entries, cf, seed)
         state = searcher.scorer_state(q, spec)
-        kres, pres, first = lockstep(searcher, spec, q, entries, state)
+        kres, pres, first = lockstep(searcher, spec, q, entries, state,
+                                     None if cf is None else cf.deny)
         check(torch.equal(kres.ids, res.ids) and torch.equal(kres.n_comps, res.n_comps),
               f"the lock-step kernel path differs from the served run ({spec.scorer})")
         rows_total += q.shape[0]
@@ -2451,6 +2491,347 @@ def batch_share(run, spec) -> None:
     busy_share(lambda: run.searcher.search(q, spec, seed), f"{entry}{spec.scorer} beam batch")
 
 
+# -- phase 8: the saved, tiered and filtered index ----------------------------
+
+
+def event_s(fn):
+    """(result, seconds) of one ``fn`` call between two CUDA events, the
+    device synchronised before and after."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end) / 1e3
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase8_metadata(n: int, seed: int = 0) -> dict:
+    """The filters' columns, from ``seed``: tenant uniform in [0, 16), tag
+    uniform in [0, 64), timestamp a permutation of [0, n)."""
+    rng = np.random.default_rng(seed + 8)
+    return {"tenant": rng.integers(0, 16, n).astype(np.int32),
+            "tag": rng.integers(0, 64, n).astype(np.int32),
+            "timestamp": rng.permutation(n).astype(np.int64)}
+
+
+def same_result(a, b) -> bool:
+    return (torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+            and torch.equal(a.n_comps, b.n_comps) and int(a.n_steps) == int(b.n_steps))
+
+
+def check_artifact(art, s, label: str, bf16: bool) -> None:
+    """Every array of a loaded artifact against the live searcher's, bit for
+    bit (a bf16-sharded base against the bf16 cast of the live one)."""
+    from repro_torch.core import io as index_io
+    from repro_torch.core.base_store import bf16_bits, bf16_to_f32
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    base = host(s.base)
+    pairs = {"base": (art.base, bf16_to_f32(bf16_bits(base)) if bf16 else base),
+             "neighbors": (art.neighbors, host(s.neighbors)),
+             "hubs": (art.hubs, host(s.hubs)),
+             "pq_codebooks": (art.pq.codebooks, host(s.pq.codebooks)),
+             "pq_codes": (art.pq.codes, host(s.pq.codes)),
+             "key": (art.key, index_io.key_payload(s.rng_seed))}
+    pairs.update({f"meta_{k}": (art.metadata[k], v) for k, v in s.metadata.items()})
+    for name, (got, want) in pairs.items():
+        got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+        check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"{label}: the reloaded {name} differs from the live searcher's")
+
+
+def filtered_ground_truth(queries, base, allow, k: int, chunk: int = 64):
+    """Top-k ids over the allowed set: ``distance_matrix`` chunks with the
+    denied columns set to +inf."""
+    from repro_torch.core.topk import topk_smallest
+    from repro_torch.kernels import ops
+
+    out = []
+    for lo in range(0, queries.shape[0], chunk):
+        dm = ops.distance_matrix(queries[lo:lo + chunk], base)
+        out.append(topk_smallest(dm.masked_fill(~allow[None, :], float("inf")), k)[1])
+    return torch.cat(out).to(torch.int32)
+
+
+def brute_against_plain(s, spec, stream) -> None:
+    """The exact-scan route with the pair kernel and with the plain gather,
+    on every batch: ids that differ must be near-ties, at most 1% of rows."""
+    from repro_torch.kernels import ref
+
+    cf = s.compiled_filter(spec.filter)
+    rows = differ = 0
+    for q in stream:
+        kres = s._filtered_brute(q, cf, spec)
+        with ops_replaced(gather_distance=ref.gather_distance_ref):
+            pres = s._filtered_brute(q, cf, spec)
+        rows += q.shape[0]
+        differ += int((kres.ids != pres.ids).any(1).sum())
+        check(bool(torch.isclose(kres.dists, pres.dists, **GATHER_TOL).all()),
+              "the exact-scan route's distances differ from the plain gather's")
+    print(f"  exact-scan route, pair kernel vs plain gather: {rows} rows, {differ} differ "
+          f"(near-ties only; at most {NEAR_TIE_ROWS_MAX:.0%} allowed)")
+    check(differ <= NEAR_TIE_ROWS_MAX * rows, "too many near-tie rows on the exact-scan route")
+
+
+def tier_gather_split(s, spec, q, seed, store) -> tuple[float, float, int]:
+    """One batch's tier gather in two parts: the host part of
+    ``gather_start`` (ids to the host, rows sliced into a pinned buffer,
+    copy issued; host clock over 20 calls, each synchronised) and the copy
+    of those bytes from pinned memory to the card (CUDA events, 20 copies).
+    Returns (host ms, copy ms, bytes)."""
+    p = s._host_start(q, spec, seed)
+    p.staged.wait()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        staged = store.gather_start(p.cand)
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) / 20 * 1e3
+    rows = staged.rows
+    pinned = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    dst = torch.empty_like(rows)
+    copy_ms = cuda_ms(lambda: dst.copy_(pinned, non_blocking=True), reps=20)
+    return host_ms, copy_ms, rows.numel() * rows.element_size()
+
+
+def save_and_load(s, tmp: str) -> dict:
+    """(a): the index saved unsharded, in f32 shards and in bf16 shards,
+    each loaded back and held to the live searcher. Returns the paths."""
+    from repro_torch.core import io as index_io
+
+    n = s.base.shape[0]
+    paths = {}
+    for label, kw in (("unsharded", {}),
+                      ("f32-shards", dict(shard_rows=PHASE8_SHARD_ROWS)),
+                      ("bf16-shards", dict(shard_rows=PHASE8_SHARD_ROWS, shard_dtype="bf16"))):
+        art = index_io.IndexArtifact.from_searcher(s)
+        path, save_s = event_s(lambda: index_io.save_index(os.path.join(tmp, label), art, **kw))
+        files = [path]
+        if kw:
+            files += [os.path.join(tmp, f) for f in
+                      index_io.shard_file_names(path, -(-n // kw["shard_rows"]))]
+        nbytes = sum(os.path.getsize(f) for f in files)
+        loaded, load_s = event_s(lambda: index_io.load_index(path))
+        check_artifact(loaded, s, label, bf16="bf16" in label)
+        print(f"save/load {label}: {nbytes:,} bytes in {len(files)} files, saved in "
+              f"{save_s:.3f} s, loaded in {load_s:.3f} s; every array bit-identical to the "
+              f"live searcher's{' (the base: its bf16 cast)' if 'bf16' in label else ''}")
+        paths[label] = path
+    return paths
+
+
+def reloaded_entry_point(run, path: str, launches8: dict) -> None:
+    """(b): ``serve --index <saved> --scorer pq --base-placement disk``:
+    no build kernel, no k-means, and the in-memory device run's answers."""
+    from repro_torch.core.bruteforce import ground_truth
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    args = serve.parser().parse_args(["--arch", "ann", "--device", "cuda", "--scorer", "pq",
+                                      "--index", path, "--base-placement", "disk"])
+    ops.reset_launch_counts()
+    r, serve_s = event_s(lambda: serve.serve_ann(args))
+    lc = ops.launch_counts()
+    add_launches(launches8, lc)
+    ops.reset_launch_counts()
+    ground_truth(torch.cat(run.stream), run.searcher.base, run.spec.k, run.searcher.metric)
+    gt_launches = ops.launch_counts()["distance_matrix"]
+    print(f"reloaded entry point (--index, --base-placement disk): {serve_s:.2f} s, launches "
+          f"{lc}; the stream's ground truth alone launches distance_matrix {gt_launches} times")
+    check(r.build is None and not r.searcher._pq and r.searcher.pq is not None,
+          "the reloaded entry point built or trained")
+    check(lc["gather_distance_pool"] == 0 and lc["distance_matrix_small"] == 0
+          and lc["distance_matrix"] == gt_launches,
+          "the reloaded entry point launched a build kernel")
+    for a, b, qa, qb in zip(r.results, run.results, r.stream, run.stream):
+        check(torch.equal(qa, qb) and same_result(a, b),
+              "the reloaded disk-tier run differs from the in-memory device run")
+    print(f"  its {len(r.results)} batches: ids, dists, n_comps and n_steps bit-identical to "
+          f"the in-memory searcher's under device placement; recall@10 "
+          f"{r.summary['recall@10']:.4f}, {r.summary['qps']:.1f} qps, "
+          f"{r.summary['tier_gathered_bytes']:,} tier bytes")
+    r.searcher.base_store("disk").close()
+
+
+def placements(run, launches8: dict) -> dict:
+    """(c): pq and sq8 at device, host and disk (f32 and bf16 stores).
+    Returns qps by (scorer, placement, dtype)."""
+    from repro_torch.core.topk import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    s = run.searcher
+    d, ef, nq = s.base.shape[1], run.spec.ef, sum(q.shape[0] for q in run.stream)
+    by, qps = {}, {}
+    for scorer in ("pq", "sq8"):
+        for placement in ("device", "host", "disk"):
+            for dtype in (("f32", "bf16") if placement != "device" else ("f32",)):
+                sp = run.spec._replace(scorer=scorer, base_placement=placement, store_dtype=dtype)
+                s.search(run.stream[0], sp, serve.batch_seed(0, -1))
+                ops.reset_launch_counts()
+                res, secs = serve.serve_batches(s, sp, run.stream, run.seeds)
+                add_launches(launches8, ops.launch_counts())
+                sm = serve.summarize(res, run.ground_truth, run.spec.k)
+                by[(scorer, placement, dtype)] = res
+                qps[(scorer, placement, dtype)] = nq / secs
+                print(f"{scorer} {placement} {dtype}: {nq / secs:.1f} qps, recall@10 "
+                      f"{sm['recall@10']:.4f}, bytes/query {sm['bytes_per_query']:.1f}, "
+                      f"{sm['steps_per_batch']:.1f} steps/batch")
+        for a, h, dk in zip(*(by[(scorer, p, "f32")] for p in ("device", "host", "disk"))):
+            check(same_result(a, h) and same_result(a, dk),
+                  f"{scorer}: the placements' answers differ")
+            check(torch.equal(a.bytes_touched, h.bytes_touched),
+                  f"{scorer}: host bytes differ from device bytes")
+            pages = dk.bytes_touched - (h.bytes_touched - ef * 4 * d)
+            check(bool((pages > 0).all() and (pages % 4096 == 0).all()),
+                  f"{scorer}: the disk tier does not bill whole pages")
+        for h, hb in zip(by[(scorer, "host", "f32")], by[(scorer, "host", "bf16")]):
+            check(torch.equal(h.bytes_touched - hb.bytes_touched,
+                              torch.full_like(h.bytes_touched, ef * 2 * d)),
+                  f"{scorer}: bf16 rows are not 2d bytes less a reranked row")
+        rec = {dt: recall_at_k(torch.cat([x.ids for x in by[(scorer, "host", dt)]]),
+                               run.ground_truth) for dt in ("f32", "bf16")}
+        print(f"  {scorer}: device, host and disk (f32) bit-identical (ids, dists, n_comps, "
+              f"n_steps), host bytes = device bytes, disk billed in whole pages; bf16 rows "
+              f"{2 * d} bytes less a reranked row, recall@10 bf16 {rec['bf16']:.4f} vs f32 "
+              f"{rec['f32']:.4f}")
+    return qps
+
+
+def streaming(run, launches8: dict) -> None:
+    """(d): search_stream over the whole stream against per-tile searches."""
+    from repro_torch.core.engine import _fold
+    from repro_torch.kernels import ops
+
+    s = run.searcher
+    all_q = torch.cat(run.stream)
+    for placement in ("host", "disk"):
+        sp = run.spec._replace(base_placement=placement)
+        ops.reset_launch_counts()
+        st, st_s = event_s(lambda: s.search_stream(all_q, sp, 7, tile_q=PHASE8_TILE_Q))
+        add_launches(launches8, ops.launch_counts())
+        for i, lo in enumerate(range(0, all_q.shape[0], PHASE8_TILE_Q)):
+            one = s.search(all_q[lo:lo + PHASE8_TILE_Q], sp, _fold(7, i))
+            sl = slice(lo, lo + PHASE8_TILE_Q)
+            check(torch.equal(st.ids[sl], one.ids) and torch.equal(st.dists[sl], one.dists)
+                  and torch.equal(st.n_comps[sl], one.n_comps)
+                  and torch.equal(st.bytes_touched[sl], one.bytes_touched),
+                  f"search_stream ({placement}) differs from its tiles' searches")
+        print(f"search_stream {placement} (tile_q={PHASE8_TILE_Q}): {all_q.shape[0]} queries in "
+              f"{st_s:.3f} s ({all_q.shape[0] / st_s:.1f} qps), bit-identical to the per-tile "
+              f"searches")
+
+
+def filtered(run, launches8: dict, dev) -> None:
+    """(e): four filters under exact (device) and pq (device, host, disk)."""
+    from repro_torch.core.engine import filtered_brute_cutoff
+    from repro_torch.core.filters import FilterSpec
+    from repro_torch.core.topk import recall_at_k
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    s = run.searcher
+    n = s.base.shape[0]
+    all_q = torch.cat(run.stream)
+    unfiltered = set()
+    for scorer in ("exact", "pq"):
+        res, _ = serve.serve_batches(s, run.spec._replace(scorer=scorer), run.stream, run.seeds)
+        unfiltered |= {int(i) for x in res for i in x.ids.flatten().tolist() if i >= 0}
+    filters = {"tenant=3": FilterSpec(tenant=3),
+               "tags_any=(5, 9)": FilterSpec(tags_any=(5, 9)),
+               "time_range=(0, 191)": FilterSpec(time_range=(0, 191)),
+               "deny_ids=unfiltered top-10": FilterSpec(deny_ids=tuple(sorted(unfiltered)))}
+    for name, f in filters.items():
+        cf, compile_s = event_s(lambda: s.compiled_filter(f))
+        allow = torch.zeros(n, dtype=torch.bool, device=dev)
+        allow[cf.allowed_ids[:cf.n_allowed].long()] = True
+        gt = filtered_ground_truth(all_q, s.base, allow, run.spec.k)
+        brute = cf.n_allowed <= filtered_brute_cutoff(run.spec)
+        print(f"filter {name}: {cf.n_allowed:,} allowed, compiled in {compile_s:.3f} s, "
+              f"{'exact-scan' if brute else 'graph'} route")
+        got = {}
+        for scorer, placement in PHASE8_FILTER_RUNS:
+            sp = run.spec._replace(scorer=scorer, base_placement=placement, filter=f)
+            ops.reset_launch_counts()
+            res, secs = serve.serve_batches(s, sp, run.stream, run.seeds)
+            add_launches(launches8, ops.launch_counts())
+            ids = torch.cat([x.ids for x in res])
+            check(bool(((ids < 0) | allow[ids.clamp(min=0).long()]).all()),
+                  f"filter {name}: an answer outside the allowed set ({scorer} {placement})")
+            rec = recall_at_k(ids, gt)
+            got[(scorer, placement)] = res
+            print(f"  {scorer} {placement}: recall@10 {rec:.4f} over the allowed set, "
+                  f"{all_q.shape[0] / secs:.1f} qps, comps/query "
+                  f"{float(torch.cat([x.n_comps for x in res]).float().mean()):.1f}")
+            if brute:
+                check(rec == 1.0, f"filter {name}: the exact-scan route's recall@10 < 1")
+        for placement in ("host", "disk"):
+            check(all(same_result(a, b) for a, b in zip(got[("pq", "device")],
+                                                      got[("pq", placement)])),
+                  f"filter {name}: pq {placement} differs from pq device")
+        if brute:
+            brute_against_plain(s, run.spec._replace(filter=f), run.stream)
+        else:
+            for scorer in ("exact", "pq"):
+                lockstep_rung(s, run.spec._replace(scorer=scorer, filter=f), run.stream,
+                              run.seeds, got[(scorer, "device")])
+
+
+def saved_tiered_filtered(run, rows: list, dev) -> None:
+    """Phase 8 on phase 4's world and searcher (module docstring). Each
+    driven run's launches are summed into the rows as ``phase8_launches``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import io as index_io
+    from repro_torch.core.base_store import BaseStore
+
+    s = run.searcher
+    s.metadata = phase8_metadata(s.base.shape[0])
+    launches8: dict[str, int] = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-index-")
+    try:
+        paths = save_and_load(s, tmp)
+        reloaded_entry_point(run, paths["unsharded"], launches8)
+        # the disk tier reranks straight off the artifact's shard files
+        for label in ("f32-shards", "bf16-shards"):
+            s.attach_store(BaseStore.from_shards(*index_io.open_base_shards(paths[label]),
+                                                 device=s.device))
+        qps = placements(run, launches8)
+        streaming(run, launches8)
+        filtered(run, launches8, dev)
+        sp = run.spec._replace(base_placement="host")
+        for placement in ("host", "disk"):
+            host_ms, copy_ms, nbytes = tier_gather_split(
+                s, sp._replace(base_placement=placement), run.stream[0], run.seeds[0],
+                s.base_store(placement))
+            print(f"{placement} tier gather of one batch ({nbytes:,} bytes of rows): host part "
+                  f"{host_ms:.3f} ms (ids to the host, rows sliced into pinned memory, copy "
+                  f"issued), H2D copy {copy_ms:.4f} ms (CUDA events)")
+        busy_share(lambda: s.search(run.stream[0], sp, run.seeds[0]), "pq host-tier batch")
+        print(f"qps by (scorer, placement, store): "
+              f"{ {' '.join(key): round(v, 1) for key, v in qps.items()} }")
+    finally:
+        for store in s._stores.values():
+            store.close()
+        s._stores.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"launches over phase 8's runs: {launches8}")
+    check(all(launches8.get(name, 0) > 0 for name in PHASE8_KERNELS),
+          f"a kernel of phase 8's path never launched: {launches8}")
+    for r in rows:
+        r["phase8_launches"] = launches8.get(r["name"], 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2645,9 +3026,13 @@ def main(argv=None) -> int:
     batch_share(run, specs["exact"])
     batch_share(run, specs["pq"])
     round_profile(run.searcher.base)
-    del run
     flash_row = time_flash_attention(errs)
     done(t0, "phase 5")
+
+    t0 = phase("phase 8: the saved, tiered and filtered index on phase 4's world")
+    saved_tiered_filtered(run, rows, dev)
+    del run
+    done(t0, "phase 8")
 
     t0 = phase("phase 6: LM serving, TinyLlama-1.1B at full width")
     flash_row["launches"] = lm_serving()

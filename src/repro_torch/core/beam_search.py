@@ -26,7 +26,9 @@ count, never of the batch shape, so a padded batch restarts its rows as a
 direct search does. The draws differ from the reference's ``jax.random``
 ones. ``search_with_trace`` runs a fixed number of steps and records the
 best distance and the cumulative comparisons after each (paper Fig. 6).
-Filter deny bitmaps come with a later slice.
+A filter's ``deny`` bitmap ORs with the tombstones into every row's initial
+visited set (``core.filters``). ``beam_traverse`` is the loop without its
+rerank, for the host and disk tiers (``core.base_store``): it takes no base.
 """
 from __future__ import annotations
 
@@ -44,8 +46,25 @@ class SearchResult(NamedTuple):
     n_comps: torch.Tensor    # (Q,) distance computations (paper's cost currency)
     n_steps: torch.Tensor    # () loop iterations executed
     # bytes of base representation fetched per query: the scorer's scored
-    # bytes (4d exact / d sq8 / M pq per vertex) plus 4d per reranked row
+    # bytes (4d exact / d sq8 / M pq per vertex) plus the rerank rows, billed
+    # at the tier's grain (4d a row on device and host, whole deduplicated
+    # 4 KiB pages on disk)
     bytes_touched: torch.Tensor | int = 0
+
+    @property
+    def host_bytes(self):
+        """The reference's older name for :attr:`bytes_touched`."""
+        return self.bytes_touched
+
+
+class TraverseResult(NamedTuple):
+    """A finished traversal before the rerank: the full candidate list in
+    the scorer's currency, for the tiers' rerank (``core.base_store``)."""
+
+    cand_ids: torch.Tensor    # (Q, ef) ascending by scorer distance
+    cand_dists: torch.Tensor  # (Q, ef) scorer currency (ADC under pq)
+    n_comps: torch.Tensor     # (Q,) raw scored-id count (unscaled)
+    n_steps: torch.Tensor     # () loop iterations executed
 
 
 class _State(NamedTuple):
@@ -126,18 +145,22 @@ def _mark_visited(visited: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def _init_state(queries, base, neighbors, entry_ids, ef, metric,
                 r_tile: int = 0, scorer: str = "exact", scorer_state=None,
-                tombstones=None) -> _State:
+                tombstones=None, deny=None) -> _State:
     Q = queries.shape[0]
+    # n from the adjacency: beam_traverse runs with base=None
     n = neighbors.shape[0]
     W = (n + 31) // 32
     E = entry_ids.shape[1]
     dev = queries.device
-    # deleted/unallocated ids (tombstones, (W,) int32) seed every row's
-    # visited set, so the mask epilogue drops them everywhere
-    if tombstones is None:
-        init = torch.zeros((Q, W), dtype=torch.int32, device=dev)
-    else:
-        init = tombstones.to(torch.int32).reshape(1, W).expand(Q, W).contiguous()
+    # deleted/unallocated ids (tombstones, (W,) int32 words) and a filter's
+    # denied ids (deny, (W,) shared or (Q, W) per query) OR into every row's
+    # initial visited set, so the mask epilogue drops them everywhere
+    init = torch.zeros((1, W), dtype=torch.int32, device=dev)
+    if tombstones is not None:
+        init = init | tombstones.to(torch.int32).reshape(1, W)
+    if deny is not None:
+        init = init | deny.to(torch.int32).reshape(-1, W)
+    init = init.expand(Q, W).contiguous()
     d0, entry_ids = get_scorer(scorer).score(
         scorer_state, queries, base, entry_ids.contiguous(), init,
         metric=metric, r_tile=r_tile,
@@ -379,14 +402,24 @@ def beam_search(
     ``term="stable"`` freezes rows whose top-k stalls for ``stable_steps``
     steps; ``restarts``, ``restart_gate`` and ``restart_keys`` ((Q,) int64,
     needed when restarts > 0) resurrect converged rows (module docstring).
-    ``deny`` is not ported and raises. Compressed scorers (``sq8``, ``pq``)
-    take their per-batch ``scorer_state`` and rerank the best ``rerank``
-    survivors exactly (0 = the whole ef list); the exact scorer ignores
-    ``rerank``."""
+    ``deny`` ((W,) or (Q, W) int32 words, a filter's denied ids) ORs with
+    the tombstones into the initial visited set. Compressed scorers (``sq8``,
+    ``pq``) take their per-batch ``scorer_state`` and rerank the best
+    ``rerank`` survivors exactly (0 = the whole ef list); the exact scorer
+    ignores ``rerank``."""
+    state = _run(queries, base, neighbors, entry_ids, ef, metric, max_steps,
+                 expand_width, r_tile, scorer, scorer_state, q_valid, k, term,
+                 stable_steps, restarts, restart_gate, restart_keys, tombstones, deny)
+    return _finalize(state, queries, base, k, metric, r_tile, scorer,
+                     scorer_state, rerank)
+
+
+def _run(queries, base, neighbors, entry_ids, ef, metric, max_steps, expand_width,
+         r_tile, scorer, scorer_state, q_valid, k, term, stable_steps, restarts,
+         restart_gate, restart_keys, tombstones, deny) -> _State:
+    """The beam loop shared by :func:`beam_search` and :func:`beam_traverse`:
+    checks, seeding and steps until every row is done or ``max_steps``."""
     check_termination(term, restarts, restart_keys)
-    if deny is not None:
-        raise NotImplementedError(
-            "filter deny bitmaps are not ported yet (ROADMAP.md, queue A item 11)")
     if expand_width < 1 or entry_ids.shape[1] > ef:
         raise ValueError(f"need expand_width >= 1 and E <= ef, got "
                          f"expand_width={expand_width}, E={entry_ids.shape[1]}, ef={ef}")
@@ -394,13 +427,53 @@ def beam_search(
         max_steps = default_max_steps(ef, expand_width)
     entry_ids = mask_padded_queries(entry_ids.to(torch.int32), q_valid)
     state = _init_state(queries, base, neighbors, entry_ids, ef, metric,
-                        r_tile, scorer, scorer_state, tombstones)
+                        r_tile, scorer, scorer_state, tombstones, deny)
     while state.step < max_steps and not bool(state.done.all()):
         state = _step(state, queries, base, neighbors, metric, expand_width,
                       r_tile, scorer, scorer_state, k, term, stable_steps,
                       restarts, restart_gate, restart_keys)
-    return _finalize(state, queries, base, k, metric, r_tile, scorer,
-                     scorer_state, rerank)
+    return state
+
+
+def beam_traverse(
+    queries: torch.Tensor,
+    neighbors: torch.Tensor,
+    entry_ids: torch.Tensor,
+    ef: int,
+    metric: str = "l2",
+    max_steps: int | None = None,
+    expand_width: int = 1,
+    r_tile: int = 0,
+    scorer: str = "pq",
+    scorer_state=None,
+    q_valid: torch.Tensor | None = None,
+    k: int = 1,
+    term: str = "fixed",
+    stable_steps: int = 8,
+    restarts: int = 0,
+    restart_gate: float = 0.0,
+    restart_keys=None,
+    tombstones: torch.Tensor | None = None,
+    deny: torch.Tensor | None = None,
+) -> TraverseResult:
+    """The beam loop without its rerank: the device half of a host- or
+    disk-tier search. It takes no base, so the scorer must be base-free
+    (``needs_base=False``: ``pq``, ``sq8``); the caller reranks
+    ``cand_ids`` against wherever the float rows live. Same loop, operands
+    and numerics as :func:`beam_search` (``k`` only sizes the stable-term
+    window; the whole ef list comes back)."""
+    if getattr(get_scorer(scorer), "needs_base", True):
+        raise ValueError(
+            f"beam_traverse needs a base-free scorer (got {scorer!r}): the "
+            "float base is not an operand here — use beam_search, or a "
+            "base-free scorer ('pq', 'sq8')"
+        )
+    state = _run(queries, None, neighbors, entry_ids, ef, metric, max_steps,
+                 expand_width, r_tile, scorer, scorer_state, q_valid, k, term,
+                 stable_steps, restarts, restart_gate, restart_keys, tombstones, deny)
+    return TraverseResult(cand_ids=state.cand_ids, cand_dists=state.cand_dists,
+                          n_comps=state.n_comps,
+                          n_steps=torch.tensor(state.step, dtype=torch.int32))
 
 
 def search_with_trace(
@@ -423,6 +496,7 @@ def search_with_trace(
     restart_gate: float = 0.0,
     restart_keys=None,
     tombstones: torch.Tensor | None = None,
+    deny: torch.Tensor | None = None,
 ):
     """The beam for exactly ``max_steps`` steps (default
     :func:`default_max_steps`), recording the paper's Fig. 6 statistics:
@@ -438,7 +512,7 @@ def search_with_trace(
     if max_steps is None:
         max_steps = default_max_steps(ef, expand_width)
     state = _init_state(queries, base, neighbors, entry_ids.to(torch.int32), ef, metric,
-                        r_tile, scorer, scorer_state, tombstones)
+                        r_tile, scorer, scorer_state, tombstones, deny)
     td, tc = [], []
     for _ in range(max_steps):
         state = _step(state, queries, base, neighbors, metric, expand_width, r_tile,

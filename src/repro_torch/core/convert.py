@@ -6,7 +6,9 @@ tombstone bitmap, the sq8 and PQ tables, an ``HnswIndex``'s layer arrays,
 a ``ForestIndex``'s planes, offsets and leaves)
 and returns the port's tensors, tables, indexes and ``Searcher``. uint32 bitmap words become int32 words bit for bit
 (torch has no unsigned shift or scatter-add on the CPU);
-:func:`bitmap_to_uint32` goes back.
+:func:`bitmap_to_uint32` goes back. A saved index needs no carrying by
+hand: ``core.io.load_index(path).to_searcher(device)`` reads an artifact
+the reference wrote (and ``core.io.save_index`` writes one it reads).
 """
 from __future__ import annotations
 
@@ -99,11 +101,11 @@ def forest_from_reference(planes, offsets, leaves, depth: int,
 def searcher_from_numpy(base, neighbors, *, metric: str = "l2",
                         tombstones=None, rng_seed: int = 0, pq=None,
                         hierarchy: HnswIndex | None = None, hubs=None,
-                        device="cuda") -> Searcher:
+                        metadata: dict | None = None, device="cuda") -> Searcher:
     """A port ``Searcher`` over the reference's base and adjacency (and
     optionally its uint32 tombstone bitmap, a port ``PQIndex`` to attach, a
-    port ``HnswIndex`` from :func:`hnsw_from_numpy` and the reference's hub
-    list)."""
+    port ``HnswIndex`` from :func:`hnsw_from_numpy`, the reference's hub
+    list and its metadata columns, kept as numpy for filters)."""
     return Searcher(
         tensor(base, torch.float32, device),
         tensor(neighbors, torch.int32, device),
@@ -111,4 +113,6 @@ def searcher_from_numpy(base, neighbors, *, metric: str = "l2",
         hubs=None if hubs is None else tensor(hubs, torch.int32, device),
         tombstones=(None if tombstones is None
                     else bitmap_from_uint32(tombstones, device)),
+        metadata=(None if metadata is None
+                  else {name: np.asarray(col) for name, col in metadata.items()}),
     )

@@ -14,9 +14,13 @@ reference's (``src/repro/core/engine.py``):
 Seed-phase comparisons are charged to ``SearchResult.n_comps`` in the
 paper's currency, as the reference charges them. The port has the
 ``exact``, ``sq8`` and ``pq`` scorers, ``term="fixed"`` and ``"stable"``,
-restarts and the device-resident base; any other ``scorer``,
-``base_placement`` or ``filter`` raises ``NotImplementedError`` naming the
-roadmap item that ports it.
+restarts, the three base placements (``core.base_store``: the float base on
+the device, in host memory or in mmap'd shards, the last two traversing on
+the compressed table and reranking from the tier) and filters
+(``core.filters``: a metadata predicate compiled into a deny bitmap, or an
+exact scan of the allowed ids where the filter is too selective to
+traverse). ``Searcher.base`` stays on the device under every placement, as
+the reference's does.
 
 Seeding draws from ``torch.Generator``s seeded from ints (the Searcher's
 ``rng_seed``, or a per-call ``seed``), not from ``jax.random`` keys, so
@@ -29,17 +33,23 @@ per-layer loop on the host, one device sync a step (as the beam does);
 from __future__ import annotations
 
 import zlib
+from collections import OrderedDict
 from typing import NamedTuple, Protocol
 
 import torch
 
+from .base_store import BaseStore, StagedRows, check_placement, rerank_gathered
 from .beam_search import (
     SearchResult,
+    TraverseResult,
     beam_search,
+    beam_traverse,
     projection_entries,
     random_entries,
+    rerank_slice,
     search_with_trace,
 )
+from .filters import CompiledFilter, FilterSpec, compile_filter, remap_denied_seeds
 from .graph_index import HnswIndex, KnnGraph
 from .scorers import get_scorer
 from .topk import INVALID, topk_smallest
@@ -64,15 +74,18 @@ class SearchSpec(NamedTuple):
     pq_m: int = 8
     pq_k: int = 256
     pq_iters: int = 15
-    base_placement: str = "device"  # where the float base lives
-    store_dtype: str = "f32"
+    base_placement: str = "device"  # where the float base lives: "device",
+                                # "host" (host memory) or "disk" (mmap'd
+                                # shards); the last two need pq or sq8
+    store_dtype: str = "f32"    # the host/disk tier's row width: "f32"
+                                # (bit-identical to device) or "bf16"
     hub_count: int = 32         # hubs scanned per query by the hubs seeder
     term: str = "fixed"         # "fixed" (classic rule) or "stable" (also
                                 # freeze a row whose top-k stalls)
     stable_steps: int = 8       # the "stable" freeze's patience, in steps
     restarts: int = 0           # fresh-seed restarts per converged row
     restart_gate: float = 0.0   # restart only rows still > gate * seed best
-    filter: object | None = None
+    filter: FilterSpec | None = None  # metadata predicate / tenant namespace
 
     @property
     def num_seeds(self) -> int:
@@ -82,6 +95,22 @@ class SearchSpec(NamedTuple):
 # HNSW descents run and their loop steps, summed over layers (read and
 # reset by chip_smoke.py)
 DESCENT_STEPS = {"descents": 0, "steps": 0}
+
+
+class _HostPending(NamedTuple):
+    """A host- or disk-tier search in flight: traversal done, the survivor
+    rows on their way to the device. ``Searcher._host_finish`` turns it
+    into a :class:`SearchResult`; ``search_stream`` holds one while the
+    next tile traverses."""
+
+    spec: SearchSpec
+    queries: torch.Tensor
+    trav: TraverseResult
+    cand: torch.Tensor         # (Q, r) survivor slice the rerank scores
+    staged: StagedRows         # its rows and tier traffic, in flight
+    scorer_state: object
+    entry_comps: torch.Tensor | None
+    d: int
 
 
 class EntryStrategy(Protocol):
@@ -263,6 +292,15 @@ def hierarchy_entries(queries: torch.Tensor, base: torch.Tensor, index: HnswInde
     return cur[:, None], comps
 
 
+def filtered_brute_cutoff(spec: SearchSpec) -> int:
+    """Allowed-set size at or below which a filtered search scans the
+    allowed ids exactly instead of walking the graph (the reference's
+    policy): masking hides denied ids but cannot make the allowed subgraph
+    connected, and near ``ef`` allowed ids an exact scan is both cheaper
+    and recall 1.0."""
+    return max(4 * spec.ef, 192)
+
+
 def _fold(seed: int, i: int) -> int:
     """A deterministic per-tile seed derived from (seed, i)."""
     return (seed * 0x9E3779B1 + 0x632BE5AB * (i + 1)) % (2**63 - 1)
@@ -276,12 +314,18 @@ class Searcher:
     """(entry strategy x graph x beam core), bound to one dataset: the base
     (n, d) float32 and the flat adjacency (n, R) int32, on one device, and
     optionally an :class:`HnswIndex` whose upper layers back the
-    ``hierarchy`` seeder and the build's hub list backing ``hubs``."""
+    ``hierarchy`` seeder and the build's hub list backing ``hubs``. Also
+    bound per index: metadata columns for filters, with one
+    :class:`~repro_torch.core.filters.CompiledFilter` cached per
+    :class:`FilterSpec` in a bounded LRU, and a
+    :class:`~repro_torch.core.base_store.BaseStore` per (placement,
+    dtype)."""
 
     def __init__(self, base: torch.Tensor, neighbors: torch.Tensor, *,
                  hierarchy: HnswIndex | None = None, metric: str = "l2",
                  rng_seed: int = 0, pq=None, hubs: torch.Tensor | None = None,
-                 tombstones: torch.Tensor | None = None):
+                 tombstones: torch.Tensor | None = None,
+                 metadata: dict | None = None):
         if base.device != neighbors.device:
             raise ValueError(f"base on {base.device} but neighbors on "
                              f"{neighbors.device}")
@@ -295,6 +339,22 @@ class Searcher:
         self.hubs = hubs
         # (ceil(n/32),) int32 words marking deleted/unallocated ids
         self.tombstones = tombstones
+        # the persisted PRNG key (uint32 payload, impl tag) of a loaded
+        # artifact, written back unchanged on save (core.io); None writes
+        # PRNGKey(rng_seed)'s payload
+        self.key = None
+        # metadata columns ((n,) numpy arrays: "tenant", "tag",
+        # "timestamp", ...) that SearchSpec.filter predicates read
+        self.metadata = metadata
+        # CompiledFilter LRU keyed by FilterSpec; filter_compiles counts
+        # compiles (an evicted filter compiles again on return)
+        self._filters: OrderedDict[FilterSpec, CompiledFilter] = OrderedDict()
+        self.filter_cache_size = 64
+        self.filter_compiles = 0
+        # BaseStore per (placement, dtype): "host" is a one-time host copy of
+        # the base, "disk" a one-time spill to mmap'd temporary shards, or an
+        # artifact's shards through attach_store
+        self._stores: dict[tuple, BaseStore] = {}
         self.build_report = None
         # per-strategy prepared state, keyed by (entry, proj_dim, hub_count)
         self._aux: dict[tuple, object] = {}
@@ -368,13 +428,6 @@ class Searcher:
             )
         get_entry_strategy(spec.entry)   # an unknown name raises ValueError
         get_scorer(spec.scorer)          # likewise
-        if spec.base_placement != "device":
-            raise NotImplementedError(
-                f"base_placement={spec.base_placement!r} is not ported yet "
-                "(ROADMAP.md, queue A item 10)")
-        if spec.filter is not None:
-            raise NotImplementedError(
-                "filtered search is not ported yet (ROADMAP.md, queue A item 11)")
 
     def prepare(self, spec: SearchSpec):
         """Build (or fetch) the entry strategy's per-index state, from a seed
@@ -472,6 +525,153 @@ class Searcher:
         luts = build_adc_luts(q, idx.codebooks, spec.metric).contiguous()
         return (idx.codes, luts)
 
+    # -- filtering ------------------------------------------------------------
+
+    def compiled_filter(self, fspec: FilterSpec) -> CompiledFilter:
+        """``fspec`` evaluated against this index's metadata, cached per
+        filter value in a ``filter_cache_size``-bounded LRU. Tombstoned rows
+        are taken out of the allowed set at compile time."""
+        cached = self._filters.get(fspec)
+        if cached is not None:
+            self._filters.move_to_end(fspec)
+            return cached
+        cf = compile_filter(fspec, self.metadata, self.neighbors.shape[0],
+                            dead=self.tombstones, device=self.device)
+        self.filter_compiles += 1
+        self._filters[fspec] = cf
+        while len(self._filters) > self.filter_cache_size:
+            self._filters.popitem(last=False)
+        return cf
+
+    def _filtered_brute(self, queries, cf: CompiledFilter, spec: SearchSpec, *,
+                        q_valid: torch.Tensor | None = None) -> SearchResult:
+        """Exact scan of the allowed ids, for filters too selective to
+        traverse: ``n_allowed`` exact comparisons a query against the device
+        base, whatever ``spec.scorer`` and ``spec.base_placement`` say, and
+        recall 1.0. ``allowed_ids`` is padded to a power of two, so filters
+        of similar selectivity share a shape."""
+        from ..kernels import ops
+
+        Q = queries.shape[0]
+        allowed = cf.allowed_ids
+        if spec.k > allowed.shape[0]:  # k answers need a scan >= k wide
+            allowed = torch.cat([allowed, allowed.new_full((spec.k - allowed.shape[0],),
+                                                           INVALID)])
+        ids = allowed[None, :].expand(Q, allowed.shape[0]).contiguous()
+        d = ops.gather_distance(queries, ids, self.base, metric=spec.metric)
+        dd, sel = topk_smallest(d, spec.k)
+        out = ids.gather(1, sel)
+        out = torch.where(torch.isfinite(dd), out, torch.full_like(out, INVALID))
+        comps = torch.full((Q,), cf.n_allowed, dtype=torch.int32, device=queries.device)
+        if q_valid is not None:  # padding rows answer (INVALID, +inf, 0)
+            out = torch.where(q_valid[:, None], out, torch.full_like(out, INVALID))
+            dd = torch.where(q_valid[:, None], dd, torch.full_like(dd, float("inf")))
+            comps = torch.where(q_valid, comps, torch.zeros_like(comps))
+        return SearchResult(ids=out, dists=dd, n_comps=comps,
+                            n_steps=torch.tensor(0, dtype=torch.int32),
+                            bytes_touched=comps * (4 * queries.shape[1]))
+
+    def _filter_plan(self, spec: SearchSpec):
+        """(CompiledFilter or None, whether to route to the exact scan)."""
+        if spec.filter is None:
+            return None, False
+        cf = self.compiled_filter(spec.filter)
+        return cf, cf.n_allowed <= filtered_brute_cutoff(spec)
+
+    def _remap_entries(self, entries, cf: CompiledFilter | None, seed: int | None):
+        """Denied seeds become draws from the allowed set, keyed on the row
+        index (``filters.remap_denied_seeds``)."""
+        if cf is None:
+            return entries
+        return remap_denied_seeds(entries, cf, self.rng_seed if seed is None else seed)
+
+    # -- tiered base ----------------------------------------------------------
+
+    def base_store(self, placement: str = "device", dtype: str = "f32") -> BaseStore:
+        """The base behind (``placement``, ``dtype``), built once and cached
+        (a disk store spills the base to mmap'd temporary shards on first
+        use; :meth:`attach_store` adopts an artifact's shards instead)."""
+        check_placement(placement)
+        ck = (placement, dtype)
+        if ck not in self._stores:
+            self._stores[ck] = BaseStore(self.base, placement, dtype=dtype,
+                                         device=self.device)
+        return self._stores[ck]
+
+    def attach_store(self, store: BaseStore) -> BaseStore:
+        """Adopt a built store as this searcher's (placement, dtype) tier:
+        ``attach_store(BaseStore.from_shards(*io.open_base_shards(path)))``
+        reranks straight off an artifact's shard files."""
+        if store.device != self.device:
+            raise ValueError(f"store copies rows to {store.device} but the index is "
+                             f"on {self.device}")
+        self._stores[(store.placement, store.dtype)] = store
+        return store
+
+    def _check_tier(self, spec: SearchSpec) -> None:
+        check_placement(spec.base_placement)
+        if spec.base_placement == "device":
+            return
+        sc = get_scorer(spec.scorer)
+        if getattr(sc, "needs_base", True) or not sc.needs_rerank:
+            raise ValueError(
+                f"base_placement={spec.base_placement!r} traverses "
+                "device-resident compressed state and reranks from the "
+                f"backing tier; scorer={spec.scorer!r} reads the float base "
+                "per hop — use a base-free scorer ('pq', 'sq8')")
+
+    def _host_start(self, queries, spec: SearchSpec, seed: int | None = None, *,
+                    entries: torch.Tensor | None = None,
+                    entry_comps: torch.Tensor | None = None,
+                    q_valid: torch.Tensor | None = None,
+                    cf: CompiledFilter | None = None) -> _HostPending:
+        """The device half of a host- or disk-tier search: seed, traverse on
+        the compressed table, and issue the copy of the top-``rerank``
+        survivor rows. Returns the search in flight; :meth:`_host_finish`
+        completes it."""
+        self._check_spec(spec)
+        self._check_tier(spec)
+        store = self.base_store(spec.base_placement, spec.store_dtype)
+        queries = queries.float().contiguous()
+        if entries is None:
+            entries, entry_comps = self.seed(queries, spec, seed)
+        entries = self._remap_entries(entries, cf, seed)
+        if q_valid is not None and entry_comps is not None:
+            entry_comps = torch.where(q_valid, entry_comps, torch.zeros_like(entry_comps))
+        state = self.scorer_state(queries, spec)
+        trav = beam_traverse(
+            queries, self.neighbors, entries,
+            ef=spec.ef, metric=spec.metric, max_steps=spec.max_steps,
+            expand_width=spec.expand_width, r_tile=spec.r_tile,
+            scorer=spec.scorer, scorer_state=state, q_valid=q_valid,
+            k=spec.k, term=spec.term, stable_steps=spec.stable_steps,
+            restarts=spec.restarts, restart_gate=spec.restart_gate,
+            restart_keys=self.restart_keys(queries.shape[0], spec, seed),
+            tombstones=self.tombstones, deny=None if cf is None else cf.deny,
+        )
+        cand = trav.cand_ids[:, :rerank_slice(spec.ef, spec.k, spec.rerank)].contiguous()
+        return _HostPending(spec=spec, queries=queries, trav=trav, cand=cand,
+                            staged=store.gather_start(cand), scorer_state=state,
+                            entry_comps=entry_comps, d=store.d)
+
+    def _host_finish(self, p: _HostPending) -> SearchResult:
+        """Exact rerank of the gathered tier rows: the same survivors,
+        distances and comparison bill as the device tier's ``_finalize``,
+        so every placement gives the same answers (f32 stores).
+        ``bytes_touched`` is the scorer's scored bytes plus the tier's own
+        bill for the rerank rows."""
+        rows, tier_bytes = p.staged.wait()
+        dd, ids = rerank_gathered(p.queries, p.cand, rows, k=p.spec.k,
+                                  metric=p.spec.metric)
+        sc = get_scorer(p.spec.scorer)
+        n_comps = (sc.scale_comps(p.scorer_state, p.trav.n_comps, p.d)
+                   + (p.cand >= 0).sum(dim=1, dtype=torch.int32))
+        if p.entry_comps is not None:
+            n_comps = n_comps + p.entry_comps
+        return SearchResult(
+            ids=ids, dists=dd, n_comps=n_comps, n_steps=p.trav.n_steps,
+            bytes_touched=sc.scored_bytes(p.scorer_state, p.trav.n_comps, p.d) + tier_bytes)
+
     # -- search ---------------------------------------------------------------
 
     def search(self, queries: torch.Tensor, spec: SearchSpec,
@@ -481,11 +681,27 @@ class Searcher:
                q_valid: torch.Tensor | None = None) -> SearchResult:
         """Seed (unless ``entries`` are given) + beam. ``q_valid`` (Q,) bool
         marks real rows of a padded batch: padding rows cost zero
-        comparisons and return (INVALID, +inf, 0)."""
+        comparisons and return (INVALID, +inf, 0).
+
+        ``spec.filter`` restricts answers to a metadata predicate: its deny
+        bitmap ORs into the visited seeding, denied seeds are redrawn from
+        the allowed set, and a filter selective past
+        :func:`filtered_brute_cutoff` scans the allowed ids exactly instead
+        (``entries``, ``scorer`` and ``base_placement`` are then ignored).
+        ``spec.base_placement`` "host" or "disk" traverses on the compressed
+        table and reranks from that tier."""
         self._check_spec(spec)
         queries = queries.float().contiguous()
+        cf, brute = self._filter_plan(spec)
+        if brute:
+            return self._filtered_brute(queries, cf, spec, q_valid=q_valid)
+        if spec.base_placement != "device":
+            return self._host_finish(self._host_start(
+                queries, spec, seed, entries=entries, entry_comps=entry_comps,
+                q_valid=q_valid, cf=cf))
         if entries is None:
             entries, entry_comps = self.seed(queries, spec, seed)
+        entries = self._remap_entries(entries, cf, seed)
         if q_valid is not None and entry_comps is not None:
             entry_comps = torch.where(q_valid, entry_comps,
                                       torch.zeros_like(entry_comps))
@@ -498,7 +714,7 @@ class Searcher:
             q_valid=q_valid, term=spec.term, stable_steps=spec.stable_steps,
             restarts=spec.restarts, restart_gate=spec.restart_gate,
             restart_keys=self.restart_keys(queries.shape[0], spec, seed),
-            tombstones=self.tombstones,
+            tombstones=self.tombstones, deny=None if cf is None else cf.deny,
         )
         if entry_comps is not None:
             res = res._replace(n_comps=res.n_comps + entry_comps)
@@ -510,19 +726,37 @@ class Searcher:
         """Split a large Q into fixed ``tile_q``-row tiles (the last one
         padded and masked through ``q_valid``), each seeded from
         ``(seed, tile index)``. ``n_steps`` sums the tiles' loop steps. A
-        compressed scorer's table is trained or quantized once, before the
-        tiles."""
+        compressed scorer's table is trained or quantized once, and a
+        filter compiled once, before the tiles.
+
+        Under a host or disk placement the tiles pipeline against the tier's
+        copies: tile i's survivor rows are copied while tile i+1 seeds and
+        traverses, and only then is tile i reranked."""
         self._check_spec(spec)
         Q = queries.shape[0]
         if Q <= tile_q:
             return self.search(queries, spec, seed)
         seed = self.rng_seed if seed is None else seed
+        self.prepare(spec)
         if spec.scorer == "pq":
             self.pq_index(spec)
         elif spec.scorer == "sq8":
             self.sq8_index()
+        cf, brute = self._filter_plan(spec)
+        # a filter routed to the exact scan ignores placement
+        tiered = spec.base_placement != "device" and not brute
         ids, dists, comps, tbytes = [], [], [], []
         n_steps = 0
+        pending: tuple[_HostPending, int] | None = None
+
+        def collect(res: SearchResult, take: int) -> None:
+            nonlocal n_steps
+            ids.append(res.ids[:take])
+            dists.append(res.dists[:take])
+            comps.append(res.n_comps[:take])
+            tbytes.append(res.bytes_touched[:take])
+            n_steps += int(res.n_steps)
+
         for i, lo in enumerate(range(0, Q, tile_q)):
             tile = queries[lo:lo + tile_q]
             take = tile.shape[0]
@@ -530,12 +764,15 @@ class Searcher:
             if pad:
                 tile = torch.cat([tile, tile.new_zeros((pad, tile.shape[1]))])
             valid = torch.arange(tile_q, device=tile.device) < take
-            res = self.search(tile, spec, _fold(seed, i), q_valid=valid)
-            ids.append(res.ids[:take])
-            dists.append(res.dists[:take])
-            comps.append(res.n_comps[:take])
-            tbytes.append(res.bytes_touched[:take])
-            n_steps += int(res.n_steps)
+            if tiered:
+                p = self._host_start(tile, spec, _fold(seed, i), q_valid=valid, cf=cf)
+                if pending is not None:  # the previous tile, its copy overlapped
+                    collect(self._host_finish(pending[0]), pending[1])
+                pending = (p, take)
+                continue
+            collect(self.search(tile, spec, _fold(seed, i), q_valid=valid), take)
+        if pending is not None:
+            collect(self._host_finish(pending[0]), pending[1])
         return SearchResult(
             ids=torch.cat(ids), dists=torch.cat(dists),
             n_comps=torch.cat(comps),
@@ -549,10 +786,20 @@ class Searcher:
         distance after each step (steps, Q), cumulative comparisons (steps,
         Q)), the seed phase's comparisons included. ``spec.max_steps``, when
         set, overrides ``max_steps``; when both are unset the core's
-        default applies."""
+        default applies. Device placement only, and never on the exact-scan
+        route of a filter."""
         self._check_spec(spec)
+        if spec.base_placement != "device":
+            raise ValueError("search_with_trace requires base_placement='device'")
+        cf, brute = self._filter_plan(spec)
+        if brute:
+            raise ValueError(
+                "search_with_trace traces the graph walk; this filter routes "
+                f"to the exact-scan fallback (n_allowed <= {filtered_brute_cutoff(spec)})"
+                " — loosen the filter or trace unfiltered")
         queries = queries.float().contiguous()
         ent, extra = self.seed(queries, spec, seed)
+        ent = self._remap_entries(ent, cf, seed)
         if spec.max_steps is not None:
             max_steps = spec.max_steps
         res, td, tc = search_with_trace(
@@ -563,6 +810,6 @@ class Searcher:
             term=spec.term, stable_steps=spec.stable_steps,
             restarts=spec.restarts, restart_gate=spec.restart_gate,
             restart_keys=self.restart_keys(queries.shape[0], spec, seed),
-            tombstones=self.tombstones,
+            tombstones=self.tombstones, deny=None if cf is None else cf.deny,
         )
         return res._replace(n_comps=res.n_comps + extra), td, tc + extra[None, :]

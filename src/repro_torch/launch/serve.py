@@ -4,7 +4,7 @@ greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b``).
 Builds the paper's index through ``core.build`` (``--build-construct``:
 NN-Descent + GD by default, HNSW with no diversify stage for ``--entry
 hierarchy``; plus PQ codes under ``--scorer pq``), then answers batched
-query streams through ``Searcher.search`` with a device-resident base, and
+query streams through ``Searcher.search``, and
 scores recall against brute-force ground truth. ``--entry`` picks where the
 beam starts: ``random`` (flat-HNSW), ``projection``, ``hierarchy`` (HNSW's
 greedy descent), ``lsh`` (the SRS probe) or ``hubs``; ``--term stable``
@@ -16,6 +16,15 @@ compressed two rerank the ``--rerank`` best survivors exactly (0 = all ef):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch ann --smoke \
         --batch 64 --batches 8 --device cpu [--scorer sq8|pq] \
         [--entry hierarchy|hubs|projection|lsh] [--term stable] [--restarts 1]
+
+``--index path.npz`` loads a saved index artifact (``core.io``, the
+reference's format: flat graph, hierarchy, PQ codes, hubs, metadata and
+key) when the file exists, and otherwise builds and saves one there;
+``--save-index`` writes elsewhere (re-saving a loaded artifact migrates a
+legacy file to the current schema). A reloaded index runs no NN-Descent
+and no k-means. ``--base-placement host|disk`` keeps the float base in
+host memory or in mmap'd shards and reranks from there (needs ``--scorer
+pq`` or ``sq8``); ``--store-dtype bf16`` halves the tier's rows.
 
 The world is float32 Gaussian, ``(20_000, 32)`` under ``--smoke`` and
 ``(1_000_000, 64)`` otherwise, made with numpy from ``--seed`` so the same
@@ -35,6 +44,7 @@ prints tok/s and ms/token:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import NamedTuple
 
@@ -43,6 +53,7 @@ import torch
 
 from .. import configs
 from .._device import resolve_device
+from ..core import io as index_io
 from ..core.bruteforce import ground_truth
 from ..core.build import BuildSpec, GraphBuilder
 from ..core.engine import Searcher, SearchSpec
@@ -77,7 +88,7 @@ class ServeRun(NamedTuple):
 
     summary: dict
     searcher: Searcher
-    build: object            # core.build.BuildResult
+    build: object            # core.build.BuildResult (None for a loaded index)
     spec: SearchSpec
     stream: list             # (batch, d) query tensors, in serving order
     seeds: list              # random-entry seed of each batch
@@ -156,10 +167,32 @@ def summarize(results: list, gt: torch.Tensor, topk: int) -> dict:
     }
 
 
-def serve_ann(args) -> ServeRun:
-    """Build, serve ``args.batches`` batches, score recall; prints the
-    reference's report lines."""
-    device = resolve_device(args.device)
+def load_or_build(args, device: torch.device):
+    """``--index``: load the artifact where it exists (re-saving it to
+    ``--save-index`` when that names another file), else build the world's
+    index and save it to ``--save-index`` or ``--index``. Returns
+    (Searcher, BuildResult or None, HNSW layer sizes)."""
+    index_path = index_io.normalize_path(args.index) if args.index else None
+    save_path = (index_io.normalize_path(args.save_index) if args.save_index
+                 else index_path)
+    if index_path and os.path.exists(index_path):
+        art = index_io.load_index(index_path)
+        searcher = art.to_searcher(device)
+        hier = art.hierarchy
+        layer_sizes = [] if hier is None else [int(x.shape[0]) for x in hier.layers_nodes]
+        print(f"[serve-ann] loaded artifact {index_path} (v{art.version}): "
+              f"n={art.n} d={art.d} metric={art.metric} layers={len(layer_sizes)} "
+              f"pq={'yes' if art.pq is not None else 'no'}")
+        if args.entry == "hierarchy" and searcher.hierarchy is None:
+            raise SystemExit("--entry hierarchy: this artifact has no hierarchy; rebuild "
+                             "with --build-construct hnsw --save-index " + index_path)
+        if args.save_index and save_path != index_path:
+            p = index_io.save_index(save_path, index_io.IndexArtifact.from_searcher(
+                searcher, art.provenance))
+            print(f"[serve-ann] re-saved loaded index to {p} "
+                  f"(schema v{index_io.ARTIFACT_VERSION})")
+        return searcher, None, layer_sizes
+
     n, d = SMOKE_WORLD if args.smoke else FULL_WORLD
     base = torch.from_numpy(numpy_world(n, d, args.seed)).to(device)
     compress = "pq" if args.scorer == "pq" else "none"
@@ -178,11 +211,39 @@ def serve_ann(args) -> ServeRun:
     if layer_sizes:
         print(f"[serve-ann] hnsw layers (nodes, bottom first): {layer_sizes}; sources "
               f"{[layer['source'] for layer in rep.layers]}")
+    if save_path:
+        p = index_io.save_index(save_path, index_io.IndexArtifact.from_build(
+            base, result, metric="l2", rng_seed=args.seed))
+        print(f"[serve-ann] saved index artifact to {p} (hierarchy and PQ persist: "
+              f"reloads skip both rebuild and k-means)")
+    return searcher, result, layer_sizes
+
+
+def serve_ann(args) -> ServeRun:
+    """Load or build the index, serve ``args.batches`` batches, score
+    recall; prints the reference's report lines."""
+    device = resolve_device(args.device)
+    searcher, result, layer_sizes = load_or_build(args, device)
+    n, d = searcher.base.shape
 
     spec = searcher.spec(ef=args.ef, k=args.topk, entry=args.entry,
                          scorer=args.scorer, pq_m=args.pq_m, rerank=args.rerank,
+                         base_placement=args.base_placement,
+                         store_dtype=args.store_dtype,
                          term=args.term, stable_steps=args.stable_steps,
                          restarts=args.restarts)
+    if args.base_placement != "device" and args.scorer == "exact":
+        raise SystemExit(f"--base-placement {args.base_placement} traverses "
+                         "device-resident compressed codes; add --scorer pq "
+                         "or --scorer sq8")
+    store = None
+    if args.base_placement != "device":
+        # the rerank's rows come from here; the device keeps the compressed
+        # table, the adjacency (and Searcher.base, as the reference keeps it)
+        store = searcher.base_store(args.base_placement, args.store_dtype)
+        print(f"[serve-ann] base {args.base_placement}-resident "
+              f"({args.store_dtype}): {store.nbytes / 2**20:.1f} MiB "
+              f"off-device; device keeps codes + adjacency")
     if args.scorer == "pq":
         t0 = time.time()
         attached = searcher.pq
@@ -211,6 +272,7 @@ def serve_ann(args) -> ServeRun:
     served = all_q.shape[0]
     out = {"n": n, "d": d, "device": str(device), "scorer": args.scorer,
            "entry": args.entry, "term": args.term, "restarts": args.restarts,
+           "base_placement": args.base_placement, "store_dtype": args.store_dtype,
            "queries": served, "seconds": dt, "qps": served / dt,
            **summarize(results, gt, args.topk),
            "seed_comps_per_query": seed_comps(searcher, spec, stream, seeds),
@@ -224,6 +286,14 @@ def serve_ann(args) -> ServeRun:
           f"comps/query={out['comps_per_query']:.0f} "
           f"(seed phase {out['seed_comps_per_query']:.1f}), "
           f"bytes/query={out['bytes_per_query']:.0f}")
+    if store is not None:
+        out["tier_gathered_rows"] = store.gathered_rows
+        out["tier_gathered_bytes"] = store.gathered_bytes
+        print(f"[serve-ann] {args.base_placement} tier: "
+              f"{store.gathered_bytes / max(served, 1) / 1024:.1f} KiB "
+              f"gathered/query ({store.gathered_rows} rerank rows "
+              f"total) vs {store.nbytes / 2**20:.1f} MiB base kept "
+              f"off-device")
     return ServeRun(summary=out, searcher=searcher, build=result, spec=spec,
                     stream=stream, seeds=seeds, results=results,
                     ground_truth=gt)
@@ -337,6 +407,22 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream-tile", type=int, default=0,
                     help="split batches into tiles of this many queries "
                          "(0 = one search per batch)")
+    ap.add_argument("--index", default=None,
+                    help="[ann] index-artifact .npz to load (or save after "
+                         "build); flat, hierarchical and PQ state all "
+                         "round-trip (core/io.py)")
+    ap.add_argument("--save-index", default=None,
+                    help="[ann] write the built artifact here (defaults to "
+                         "--index when that file does not exist yet)")
+    ap.add_argument("--base-placement", default="device",
+                    choices=["device", "host", "disk"],
+                    help="[ann] where the float base lives: host/disk keep "
+                         "only compressed codes + adjacency on device and "
+                         "gather rerank rows from the tier (needs --scorer pq "
+                         "or sq8)")
+    ap.add_argument("--store-dtype", default="f32", choices=["f32", "bf16"],
+                    help="[ann] residual storage dtype for host/disk tiers "
+                         "(bf16 = half the rerank bandwidth)")
     return ap
 
 

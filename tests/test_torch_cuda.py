@@ -652,6 +652,121 @@ def test_cuda_compressed_beam_search_matches_cpu(cuda, scorer):
     torch.testing.assert_close(got.dists.cpu(), want.dists, **GATHER_TOL)
 
 
+def _tier_world(cuda, n=3000, d=32, seed=12):
+    """A searcher on the card over an exact 12-NN graph with reverse edges,
+    a PQ table (M=8, K=64), tenant/tag/timestamp columns, and 100 queries."""
+    from repro_torch.baselines.pq import build_pq
+    from repro_torch.core import bruteforce, diversify
+
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32))
+    queries = torch.from_numpy(rng.standard_normal((100, d), dtype=np.float32)).to(cuda)
+    nbrs = diversify.add_reverse_edges(bruteforce.exact_knn_graph(base, 12).neighbors, 16)
+    metadata = {"tenant": rng.integers(0, 4, n), "tag": rng.integers(0, 16, n),
+                "timestamp": rng.permutation(n)}
+    s = convert.searcher_from_numpy(base, nbrs, device=cuda, metadata=metadata, rng_seed=5,
+                                    pq=build_pq(base.to(cuda), M=8, K=64, iters=4, key=1))
+    return s, queries
+
+
+def _same_result(a, b, bytes_too=True):
+    for f in ("ids", "dists", "n_comps") + (("bytes_touched",) if bytes_too else ()):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert int(a.n_steps) == int(b.n_steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", ["sq8", "pq"])
+def test_cuda_tier_rerank_is_bit_identical_to_device_placement(cuda, scorer):
+    """Host and disk tiers rerank their staged rows through the pair kernel
+    (ops.gather_distance with the rows as the base): ids, dists, n_comps and
+    n_steps bit for bit against device placement, f32 stores; the rows came
+    through pinned buffers and a side-stream copy."""
+    s, q = _tier_world(cuda)
+    spec = s.spec(ef=48, k=10, scorer=scorer, pq_k=64)
+    ops.reset_launch_counts()
+    dev = s.search(q, spec, 3)
+    host = s.search(q, spec._replace(base_placement="host"), 3)
+    disk = s.search(q, spec._replace(base_placement="disk"), 3)
+    _same_result(dev, host)
+    _same_result(dev, disk, bytes_too=False)
+    assert ops.launch_counts()["gather_distance"] == 3      # one rerank per placement
+    assert s.base_store("host").gathered_rows == 100 * 48
+
+
+@pytest.mark.cuda
+def test_cuda_staged_rows_rerank_equals_the_base_gather(cuda):
+    """rerank_gathered over rows staged from the host equals
+    ops.gather_distance over the device base, bit for bit, INVALIDs
+    included."""
+    from repro_torch.core.base_store import BaseStore, rerank_gathered
+    from repro_torch.core.topk import topk_smallest
+
+    s, q = _tier_world(cuda)
+    rng = np.random.default_rng(3)
+    cand = torch.from_numpy(rng.integers(-1, s.base.shape[0], (100, 64)).astype(np.int32)).to(cuda)
+    for dtype in ("f32", "bf16"):
+        store = BaseStore(s.base, "host", dtype=dtype)
+        rows, nbytes = store.gather(cand)
+        assert rows.device == s.device
+        assert int(nbytes.sum()) == int((cand >= 0).sum()) * store.row_bytes
+        dd, ids = rerank_gathered(q, cand, rows, k=10)
+        base = s.base if dtype == "f32" else s.base.to(torch.bfloat16).float()
+        want_d, sel = topk_smallest(ops.gather_distance(q, cand, base.contiguous()), 10)
+        assert torch.equal(dd, want_d) and torch.equal(ids, cand.gather(1, sel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["host", "disk"])
+def test_cuda_stream_pipeline_equals_per_tile_search(cuda, placement):
+    """search_stream copies tile i's rows while tile i+1 traverses: every
+    tile equals its own direct search, bit for bit (no staging buffer
+    overwritten in flight)."""
+    from repro_torch.core.engine import _fold
+
+    s, q = _tier_world(cuda)
+    spec = s.spec(ef=48, k=10, scorer="pq", pq_k=64, base_placement=placement)
+    stream = s.search_stream(q, spec, 9, tile_q=16)
+    for i, lo in enumerate(range(0, 100, 16)):
+        tile = q[lo:lo + 16]
+        valid = torch.arange(16, device=cuda) < tile.shape[0]
+        padded = torch.cat([tile, tile.new_zeros((16 - tile.shape[0], tile.shape[1]))])
+        want = s.search(padded, spec, _fold(9, i), q_valid=valid)
+        take = tile.shape[0]
+        assert torch.equal(stream.ids[lo:lo + take], want.ids[:take])
+        assert torch.equal(stream.dists[lo:lo + take], want.dists[:take])
+
+
+@pytest.mark.cuda
+def test_cuda_filtered_search_stays_in_the_allowed_set(cuda):
+    from repro_torch.core.filters import FilterSpec
+
+    s, q = _tier_world(cuda)
+    for f in (FilterSpec(tenant=1), FilterSpec(tags_any=(2, 5)),
+              FilterSpec(time_range=(0, 150))):
+        cf = s.compiled_filter(f)
+        allowed = set(cf.allowed_ids[:cf.n_allowed].tolist())
+        for kw in (dict(), dict(scorer="pq", pq_k=64),
+                   dict(scorer="pq", pq_k=64, base_placement="disk")):
+            res = s.search(q, s.spec(ef=48, k=10, filter=f, **kw), 4)
+            ids = res.ids[res.ids >= 0].tolist()
+            assert ids and all(i in allowed for i in ids)
+
+
+@pytest.mark.cuda
+def test_cuda_saved_index_reloads_on_the_card(cuda, tmp_path):
+    from repro_torch.core import io as index_io
+
+    s, q = _tier_world(cuda)
+    spec = s.spec(ef=48, k=10, scorer="pq", pq_k=64)
+    want = s.search(q, spec, 2)
+    path = index_io.save_index(str(tmp_path / "idx"), index_io.IndexArtifact.from_searcher(s),
+                               shard_rows=1000)
+    got = index_io.load_index(path).to_searcher(cuda)
+    assert got.device.type == "cuda" and got.pq.codes.is_cuda
+    _same_result(want, got.search(q, spec, 2))
+
+
 @pytest.mark.cuda
 def test_cuda_pq_training_is_deterministic(cuda):
     """Same-seed PQ training on the card gives identical codebooks and

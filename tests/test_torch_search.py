@@ -199,10 +199,17 @@ def test_searcher_rejects_unported_options(world):
     base, queries, nbrs, _ = world
     s = convert.searcher_from_numpy(base, nbrs, device="cpu")
     q = _t(queries)
-    for kw in (dict(base_placement="disk"), dict(base_placement="host"),
-               dict(filter=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            s.search(q, s.spec(**kw))
+    # the tiers are ported: what still raises is the reference's errors
+    for placement in ("host", "disk"):
+        with pytest.raises(ValueError, match="use a base-free scorer"):
+            s.search(q, s.spec(base_placement=placement, scorer="exact"))
+    with pytest.raises(ValueError, match="unknown base_placement"):
+        s.search(q, s.spec(base_placement="tape", scorer="pq", pq_k=16))
+    with pytest.raises(ValueError, match="unknown store_dtype"):
+        s.search(q, s.spec(base_placement="host", store_dtype="f16", scorer="sq8"))
+    from repro_torch.core.filters import FilterSpec
+    with pytest.raises(ValueError, match="needs metadata column 'tenant'"):
+        s.search(q, s.spec(filter=FilterSpec(tenant=1)))
     with pytest.raises(ValueError, match="unknown entry strategy"):
         s.search(q, s.spec(entry="bogus"))
     with pytest.raises(ValueError, match="needs a Searcher built from an HnswIndex"):
