@@ -185,6 +185,38 @@ Phases (each prints its seconds):
    batch, and the launches over phase 8's runs into the kernels line
    (``phase8_launches``).
 
+9. Streaming mutation on phase 4's world and searcher (after phase 8,
+   before phase 6 frees them); each step's seconds from CUDA events. (a)
+   ``MutableIndex.from_build`` over the NN-Descent + GD graph, its edge
+   distances through the pair kernel (held to the plain gather). (b) 1,000
+   inserts drawn from the seed at insert_ef=32 with GD inline (the
+   reference's ``--serve-mutate`` settings); the first doubles the
+   capacity to 2M (its seconds and the bytes of each device mirror);
+   insert_rate and an insert's ms by part; one insert's device-busy
+   share; then 20% of the original ids deleted. (c) The 8 x 64 stream at
+   ef=64, k=10 under exact/device, pq/device, pq/disk and sq8/disk: no
+   dead or unallocated id in any answer, recall@10 against ground truth
+   over the live set, pq's placements bit-identical, kernel path against
+   plain path in lock-step with the tombstones (exact and pq), and 64
+   inserted points searched as queries (printed, not gated). (g) The new
+   shapes per recorded launch beside their plain versions, library calls
+   and bounds: the Q=1 hop over the 2M capacity rows, the exact scan's
+   forward (128-row block x 2M) and reverse (2M x 128-row block) calls
+   with the one-row operand's bits and time beside them, the inline GD
+   select's 32 x 32 block, the 1M x 20 edge-distance pass. (d) compact
+   with a seed against ``build_index`` of the ~801k survivors with the
+   same spec and seed: neighbors, hubs and base bit-identical,
+   ``last_id_map``, version, staleness. (e) checkpoint into a temporary
+   directory (removed), ``load_index`` and ``from_artifact``: arrays and a
+   batch from the same entries bit-identical. (f) ``construct=
+   "incremental"``: exact mode (insert_ef=0, graph_k=20) on the smoke
+   world bit-identical to ``construct="exact"``; beam mode (insert_ef=64,
+   GD inline) through ``serve.build_searcher`` on the smoke world's first
+   2,000 points (cut: an insert's Q=1 beam is host-bound), recall@10 of
+   512 queries against NN-Descent + GD over the same points. The launches
+   over phase 9's driven runs go into the kernels line
+   (``phase9_launches``), the new shapes into the rows' ``shapes``.
+
 Prints a ``{"kernels": [...]}`` line (each row also names the ``kernel``
 symbol timed and its ``yardstick``) and the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
@@ -240,6 +272,20 @@ PHASE8_TILE_Q = 64
 PHASE8_FILTER_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "host"), ("pq", "disk"))
 PHASE8_KERNELS = ("gather_distance", "gather_distance_masked", "gather_adc_masked",
                   "gather_sq8_masked", "distance_matrix")
+# phase 9: the mutation path on phase 4's world (the reference's
+# --serve-mutate settings: insert_ef=32, GD inline; 20% of the ids deleted as
+# in its tests) and the incremental construct's beam-mode cut
+PHASE9_INSERTS = 1000
+PHASE9_PROFILED_INSERTS = 5
+PHASE9_INSERT_EF = 32
+PHASE9_DELETE_SHARE = 0.2
+PHASE9_SELF_QUERIES = 64
+PHASE9_CHECK_ROWS = 65_536
+PHASE9_BEAM_POINTS = 2000
+PHASE9_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "disk"), ("sq8", "disk"))
+PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
+                  "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
+                  "distance_matrix_small")
 # phase 7: the paper's worlds (repro_torch.data.synthetic) and the figures
 # each runs; PAPER_SCALE lists a cut of n where the run needs one (none)
 PAPER_WORLDS = (("SIFT1M", ("fig3", "fig4", "fig5", "fig6")),
@@ -1500,16 +1546,18 @@ def ground_truth_against_plain(run) -> None:
 
 def lockstep(searcher, spec, queries, entries, state, deny=None):
     """Run the beam with the CUDA kernel (scorer ``spec.scorer``) and with
-    the plain version side by side, from the same entries, scorer state
-    and filter ``deny`` words. Returns (kernel result, plain result, {row:
-    near-tie?} for each row at its first divergence)."""
+    the plain version side by side, from the same entries, scorer state,
+    the searcher's tombstones and filter ``deny`` words. Returns (kernel
+    result, plain result, {row: near-tie?} for each row at its first
+    divergence)."""
     from repro_torch.core import beam_search as bs
 
     args = (queries, searcher.base, searcher.neighbors)
     entries = entries.to(torch.int32)
     kernel, plain = spec.scorer, f"{spec.scorer}-plain"
-    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, kernel, state, None, deny)
-    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, plain, state, None, deny)
+    dead = searcher.tombstones
+    sk = bs._init_state(*args, entries, spec.ef, spec.metric, 0, kernel, state, dead, deny)
+    sp = bs._init_state(*args, entries, spec.ef, spec.metric, 0, plain, state, dead, deny)
     max_steps = bs.default_max_steps(spec.ef, spec.expand_width)
     first: dict[int, bool] = {}
 
@@ -2832,6 +2880,412 @@ def saved_tiered_filtered(run, rows: list, dev) -> None:
         r["phase8_launches"] = launches8.get(r["name"], 0)
 
 
+# -- phase 9: streaming mutation ------------------------------------------------
+
+
+def counted(launches: dict, fn):
+    """``fn()`` with the launch counts set to 0 just before it and added to
+    ``launches`` just after."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    add_launches(launches, ops.launch_counts())
+    return res
+
+
+def mutable_wrap(run, launches9: dict):
+    """(a): ``MutableIndex.from_build`` over phase 4's NN-Descent + GD graph;
+    its edge distances (NaN out of GD) recomputed through the pair kernel,
+    held to the plain gather on the first 65,536 rows."""
+    from repro_torch.core.mutable import MutableIndex
+    from repro_torch.kernels import ref
+
+    s = run.searcher
+    midx, secs = event_s(lambda: counted(launches9, lambda: MutableIndex.from_build(
+        s.base, run.build, rng_seed=0, insert_ef=PHASE9_INSERT_EF, diversify="gd")))
+    nb = s.neighbors[:PHASE9_CHECK_ROWS]
+    want = ref.gather_distance_ref(s.base[:PHASE9_CHECK_ROWS], nb.clamp(min=0), s.base)
+    want = torch.where(nb >= 0, want, torch.full_like(want, float("inf")))
+    got = torch.from_numpy(midx.dists[:PHASE9_CHECK_ROWS].copy()).to(s.device)
+    err = max_abs_err(got, want)
+    print(f"(a) MutableIndex.from_build over the n={midx.n_alloc:,} NN-Descent + GD graph "
+          f"(R={midx.R}): {secs:.3f} s, its {midx.n_alloc:,} x {midx.R} edge distances "
+          f"through the pair kernel; the first {PHASE9_CHECK_ROWS:,} rows against the plain "
+          f"gather: max abs error {err:.3g}")
+    check(bool(torch.isclose(got, want, **GATHER_TOL).all()),
+          "the mutable index's edge distances differ from the plain gather's")
+    return midx
+
+
+def mutable_inserts(midx, launches9: dict, seed: int = 9):
+    """(b): PHASE9_INSERTS inserts drawn from ``seed`` (the first one doubles
+    the capacity), then PHASE9_DELETE_SHARE of the original ids deleted.
+    Returns (inserted points, their ids, the deleted ids)."""
+    from repro_torch.kernels import ops
+
+    n0, d = midx.n_alloc, midx.d
+    rng = np.random.default_rng(seed)
+    # spare rows for profiler windows taken again (device_profile)
+    xs = rng.standard_normal((PHASE9_INSERTS + 8 * PHASE9_PROFILED_INSERTS, d),
+                             dtype=np.float32)
+    first, first_s = event_s(lambda: counted(launches9, lambda: midx.insert(xs[0])))
+    mirrors = {name: t.numel() * t.element_size() for name, t in
+               (("base", midx._base_dev), ("neighbors", midx._nbrs_dev),
+                ("alive", midx._alive_dev), ("tombstones", midx._tomb_dev))}
+    print(f"(b) first insert (id {first}): {first_s:.3f} s, the capacity doubled "
+          f"{n0:,} -> {midx.capacity:,} in {midx.part_s['grow']:.3f} s; bytes per device "
+          f"mirror {mirrors}")
+    check(midx.capacity == 2 * n0 and first == n0, "the first insert did not double the capacity")
+    rest = PHASE9_INSERTS - 1 - PHASE9_PROFILED_INSERTS
+    ids, rest_s = event_s(lambda: counted(launches9, lambda: midx.insert_batch(xs[1:1 + rest])))
+    tail = iter(xs[1 + rest:])
+    ops.reset_launch_counts()
+    device_profile(lambda: midx.insert(next(tail)),
+                   "one insert (Q=1 beam at ef=32, GD select, link, row writes)",
+                   calls=PHASE9_PROFILED_INSERTS - 1)
+    torch.cuda.synchronize()
+    add_launches(launches9, ops.launch_counts())
+    new_ids = np.arange(n0, midx.n_alloc)
+    xs = xs[: new_ids.size]
+    check(new_ids.size >= PHASE9_INSERTS and np.array_equal(ids, new_ids[1:1 + rest]),
+          "inserts were not given consecutive ids")
+    split = midx.insert_ms()
+    print(f"  {rest} inserts in {rest_s:.2f} s; insert_rate {midx.insert_rate:.1f} inserts/s "
+          f"over all {midx.total_inserts}; ms an insert by part (device synchronised at each "
+          f"part's end): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    dead = rng.choice(n0, size=int(PHASE9_DELETE_SHARE * n0), replace=False)
+    _, del_s = event_s(lambda: midx.delete(dead))
+    print(f"  deleted {dead.size:,} of the original ids in {del_s:.3f} s: n_live "
+          f"{midx.n_live:,}, n_dead {midx.n_dead:,}, staleness {midx.staleness:.4f}, "
+          f"stats {midx.stats()}")
+    check(midx.n_live == n0 + new_ids.size - dead.size, "n_live after the deletes")
+    return xs, new_ids, dead
+
+
+def mutable_search(run, midx, xs, new_ids, launches9: dict) -> dict:
+    """(c): the stream under exact/device, pq/device, pq/disk and sq8/disk
+    on the mutated index: no dead or unallocated id in any answer,
+    recall@10 over the live set, pq's placements bit-identical, kernel path
+    against plain path in lock-step with the tombstones, and inserted
+    points searched as queries. Returns the served results by run."""
+    from repro_torch.core.topk import recall_at_k
+    from repro_torch.launch import serve
+
+    s9 = midx.searcher()
+    dev = s9.device
+    all_q = torch.cat(run.stream)
+    alive = midx._alive_dev
+    gt, gt_s = event_s(lambda: counted(launches9, lambda: filtered_ground_truth(
+        all_q, s9.base, alive, run.spec.k)))
+    print(f"(c) searcher over the {midx.capacity:,}-row mirrors ({midx.n_live:,} live); "
+          f"ground truth over the live set in {gt_s:.3f} s")
+    specs = {(sc, pl): run.spec._replace(scorer=sc, base_placement=pl) for sc, pl in PHASE9_RUNS}
+    _, pq_s = event_s(lambda: counted(launches9, lambda: s9.pq_index(specs[("pq", "device")])))
+    _, spill_s = event_s(lambda: s9.base_store("disk"))
+    pq_spec = specs[("pq", "device")]
+    print(f"  pq table (M={pq_spec.pq_m}, K={pq_spec.pq_k}) trained on the capacity rows in "
+          f"{pq_s:.2f} s; the base "
+          f"spilled to the disk tier in {spill_s:.2f} s")
+    served = {}
+    nq = all_q.shape[0]
+    for key, sp in specs.items():
+        res, secs = event_s(lambda: counted(launches9, lambda: serve.serve_batches(
+            s9, sp, run.stream, run.seeds)[0]))
+        ids = torch.cat([x.ids for x in res])
+        valid = ids >= 0
+        bad = valid & ((ids >= midx.n_alloc) | ~alive[ids.clamp(min=0).long()])
+        served[key] = res
+        print(f"  {key[0]} {key[1]}: {nq / secs:.1f} qps, recall@10 over the live set "
+              f"{recall_at_k(ids, gt):.4f}, comps/query "
+              f"{float(torch.cat([x.n_comps for x in res]).float().mean()):.1f}, dead or "
+              f"unallocated ids in the answers: {int(bad.sum())}")
+        check(int(bad.sum()) == 0, f"a dead or unallocated id answered ({key})")
+        check(bool(valid.any()), f"no answers at all ({key})")
+    check(all(same_result(a, b) for a, b in zip(served[("pq", "device")],
+                                              served[("pq", "disk")])),
+          "pq disk differs from pq device on the mutated index")
+    print("  pq device and disk: ids, dists, n_comps and n_steps bit-identical")
+    for scorer in ("exact", "pq"):
+        lockstep_rung(s9, specs[(scorer, "device")], run.stream, run.seeds,
+                      served[(scorer, "device")])
+    x64 = torch.from_numpy(xs[:PHASE9_SELF_QUERIES]).to(dev)
+    res = counted(launches9, lambda: s9.search(x64, specs[("exact", "device")], 5))
+    hits = int((res.ids[:, 0].cpu().numpy() == new_ids[:PHASE9_SELF_QUERIES]).sum())
+    print(f"  {PHASE9_SELF_QUERIES} inserted points searched as queries (exact, ef="
+          f"{run.spec.ef}): {hits} find themselves at rank 1 (not gated: this world's "
+          f"recall@1 is 0.0645)")
+    for store in s9._stores.values():
+        store.close()
+    s9._stores.clear()
+    return served
+
+
+def mutable_compact(midx, dev, launches9: dict):
+    """(d): compact with a seed, then ``build_index`` of the survivors with
+    the same spec and seed: neighbors and base bit-identical on the card."""
+    from repro_torch.core.build import BuildSpec, build_index
+    from repro_torch.core.topk import INVALID
+
+    spec9 = BuildSpec(graph_k=20, nd_rounds=15)
+    alive = midx.alive
+    survivors = midx.base[alive].copy()
+    n_alloc = midx.n_alloc
+    cres, c_s = event_s(lambda: counted(launches9, lambda: midx.compact(spec9, seed=9)))
+    fresh, f_s = event_s(lambda: build_index(torch.from_numpy(survivors).to(dev), spec9, seed=9))
+    rep = cres.report
+    differ = int((cres.graph.neighbors != fresh.graph.neighbors).any(1).sum())
+    print(f"(d) compact of {survivors.shape[0]:,} survivors: {c_s:.2f} s (rounds {rep.rounds}, "
+          f"graph-recall proxy {rep.graph_recall_proxy}, construct {rep.wall_construct_s:.2f} "
+          f"s, diversify {rep.wall_diversify_s:.2f} s); report stamps staleness "
+          f"{rep.staleness}, inserts {rep.inserts}, insert_rate {rep.insert_rate}; a fresh "
+          f"build of the survivors {f_s:.2f} s (rounds {fresh.report.rounds}); rows whose "
+          f"neighbors differ: {differ}")
+    check(differ == 0 and torch.equal(cres.graph.neighbors, fresh.graph.neighbors),
+          "compaction differs from a fresh build of the survivors on the card")
+    check(torch.equal(cres.hubs, fresh.hubs), "compaction's hubs differ from the fresh build's")
+    check(np.array_equal(midx.base, survivors), "the compacted base is not the survivors")
+    id_map = midx.last_id_map
+    check(id_map.shape == (n_alloc,) and bool((id_map[~alive] == INVALID).all())
+          and np.array_equal(id_map[alive], np.arange(survivors.shape[0])),
+          "last_id_map does not map the survivors in order")
+    check(midx.version == 1 and midx.staleness == 0.0 and midx.n_dead == 0,
+          "compaction did not reset the index")
+    print("  neighbors, hubs and base bit-identical to the fresh build; last_id_map, "
+          "version 1, staleness 0")
+    return spec9, cres
+
+
+def mutable_checkpoint(run, midx, spec9, cres, dev) -> None:
+    """(e): checkpoint into a temporary directory, then load_index and
+    from_artifact: every array bit-identical, and a batch from the same
+    entries bit-identical to the compacted index's."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import io as index_io
+    from repro_torch.core.beam_search import random_entries
+    from repro_torch.core.mutable import MutableIndex
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mutable-")
+    try:
+        (path, ck), ck_s = event_s(lambda: midx.checkpoint(os.path.join(tmp, "mutable"), spec9,
+                                                           seed=9))
+        check(torch.equal(ck.graph.neighbors, cres.graph.neighbors),
+              "the checkpoint's rebuild differs from the compaction's")
+        nbytes = os.path.getsize(path)
+        art, load_s = event_s(lambda: index_io.load_index(path))
+        m2, wrap_s = event_s(lambda: MutableIndex.from_artifact(art, device=dev))
+        for name in ("base", "neighbors", "dists", "alive"):
+            check(np.array_equal(getattr(m2, name), getattr(midx, name)),
+                  f"the reloaded {name} differs")
+        check(art.provenance["mutable_version"] == midx.version == 2
+              and m2.rng_seed == midx.rng_seed, "the checkpoint's version or key")
+        q = run.stream[0]
+        gen = torch.Generator(device=dev).manual_seed(11)
+        ent = random_entries(gen, midx.n_alloc, q.shape[0], run.spec.num_seeds)
+        sp = run.spec._replace(scorer="exact")
+        a = midx.search(q, sp, entries=ent)
+        b = m2.search(q, sp, entries=ent)
+        check(same_result(a, b), "the reloaded index answers otherwise than the compacted one")
+        print(f"(e) checkpoint (compact again, then save): {ck_s:.2f} s, {nbytes:,} bytes; "
+              f"load_index {load_s:.3f} s, from_artifact {wrap_s:.3f} s (edge distances "
+              f"recomputed); base, neighbors, dists and alive bit-identical, version "
+              f"{art.provenance['mutable_version']}; a batch from the same entries "
+              f"bit-identical (ids, dists, n_comps, n_steps)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def incremental_construct(dev, launches9: dict) -> None:
+    """(f): the incremental construct on the smoke world: exact mode
+    bit-identical to ``construct="exact"``; beam mode (insert_ef=64, GD
+    inline) through ``serve.build_searcher`` on the first
+    PHASE9_BEAM_POINTS points against NN-Descent + GD over the same points."""
+    from repro_torch.core.bruteforce import ground_truth
+    from repro_torch.core.build import BuildSpec, build_index
+    from repro_torch.core.topk import recall_at_k
+    from repro_torch.launch import serve
+
+    n, d = serve.SMOKE_WORLD
+    base = torch.from_numpy(serve.numpy_world(n, d, 0)).to(dev)
+    kw = dict(diversify="none", graph_k=20)
+    inc, inc_s = event_s(lambda: counted(launches9, lambda: build_index(
+        base, BuildSpec(construct="incremental", insert_ef=0, **kw), seed=0)))
+    bat, bat_s = event_s(lambda: build_index(base, BuildSpec(construct="exact", **kw), seed=0))
+    same = (torch.equal(inc.graph.neighbors, bat.graph.neighbors)
+            and torch.equal(inc.graph.dists, bat.graph.dists))
+    print(f"(f) construct=incremental, insert_ef=0, n={n:,}, d={d}, graph_k=20: {inc_s:.2f} s "
+          f"({inc.report.insert_rate:.1f} inserts/s, {1e3 / inc.report.insert_rate:.3f} ms an "
+          f"insert); construct=exact {bat_s:.2f} s; neighbors and dists bit-identical: {same}")
+    check(same, "exact-mode incremental differs from construct='exact' on the card")
+    sub = base[:PHASE9_BEAM_POINTS].contiguous()
+    (s_inc, r_inc), b_s = event_s(lambda: counted(launches9, lambda: serve.build_searcher(
+        sub, construct="incremental", seed=0)))
+    (s_nd, r_nd), nd_s = event_s(lambda: serve.build_searcher(sub, construct="nndescent",
+                                                              seed=0))
+    stream = [torch.from_numpy(q).to(dev) for q in serve.numpy_queries(d, 64, 8, 0)]
+    seeds = [serve.batch_seed(0, b) for b in range(len(stream))]
+    gt = ground_truth(torch.cat(stream), sub, 10)
+    rec = {}
+    for name, s in (("incremental", s_inc), ("nndescent", s_nd)):
+        res, _ = serve.serve_batches(s, s.spec(ef=64, k=10), stream, seeds)
+        rec[name] = recall_at_k(torch.cat([x.ids for x in res]), gt)
+    print(f"  construct=incremental (insert_ef=64, GD inline) on the first "
+          f"{PHASE9_BEAM_POINTS:,} points (cut: an insert's Q=1 beam is host-bound): "
+          f"{b_s:.2f} s, {r_inc.report.insert_rate:.1f} inserts/s, degree mean "
+          f"{r_inc.report.degree['mean']}; recall@10 of {len(stream) * 64} queries (ef=64) "
+          f"{rec['incremental']:.4f} against nndescent + gd's {rec['nndescent']:.4f} over "
+          f"the same points (built in {nd_s:.2f} s)")
+    check(r_inc.report.inserts == PHASE9_BEAM_POINTS and 0.0 < rec["incremental"] <= 1.0,
+          "the beam-mode incremental construct")
+
+
+def time_mutation_shapes(run, midx, rows: list, errs: dict) -> None:
+    """(g): the mutation path's new shapes per recorded launch, each beside
+    its plain version (and the library call where there is one) on the
+    same inputs, held to it, into the rows' ``shapes``: the Q=1 hop, the
+    exact scan's forward and reverse blocks over the capacity rows (and the
+    one-row operand's bits and time beside them), the GD select's 32 x 32
+    block and the 1M x 20 edge-distance pass."""
+    from repro_torch.kernels import gather_distance as kgd
+    from repro_torch.kernels import ops, ref
+    from repro_torch.core.mutable import SCAN_BLOCK
+
+    by_name = {r["name"]: r for r in rows}
+    base = midx._base_dev
+    C, d = base.shape
+    dev = base.device
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = midx.n_alloc
+
+    def add(name, shape, k_ms, p_ms, nbytes, flops, lib_ms=None, **extra):
+        b_ms, b_by = bound(nbytes, flops)
+        by_name[name].setdefault("shapes", []).append(dict(
+            shape=shape, launches=1, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, **extra))
+        print(f"  {name} {shape}: {k_ms * 1e3:.3f} us per recorded launch, plain "
+              f"{p_ms * 1e3:.3f} us" + ("" if lib_ms is None else f", library {lib_ms * 1e3:.3f} us")
+              + f"; bound {b_ms * 1e3:.3f} us ({b_by}; {k_ms / b_ms:.1f}x)")
+
+    # the insert's beam hop: Q=1 x R=20 over the capacity rows
+    R = midx.R
+    sets = [torch.randint(0, n, (1, R), generator=gen, device=dev, dtype=torch.int32)
+            for _ in range(16)]
+    x = base[:1].clone()
+    visited = torch.zeros((1, (C + 31) // 32), dtype=torch.int32, device=dev)
+    it = iter(range(10**9))
+    k_ms = device_ms(lambda: ops.gather_distance_masked(x, sets[next(it) % 16], base, visited),
+                     reps=64, match=HOP_KERNEL, launches=1)
+    p_ms = cuda_ms(lambda: ref.gather_distance_masked_ref(x, sets[next(it) % 16], base, visited),
+                   reps=64)
+    kd, ki = ops.gather_distance_masked(x, sets[0], base, visited)
+    pd, pi = ref.gather_distance_masked_ref(x, sets[0], base, visited)
+    check(torch.equal(ki, pi) and bool(torch.isclose(kd, pd, **GATHER_TOL).all()),
+          "the Q=1 hop differs from the plain version")
+    errs["gather_distance_masked"] = max(errs["gather_distance_masked"], max_abs_err(kd, pd))
+    add("gather_distance_masked", f"insert hop, Q=1 x R={R}, d={d}, over {C:,} rows", k_ms, p_ms,
+        d * 4 + R * 4 + R * (4 * d + 4) + R * 8, R * 3 * d)
+
+    # the exact scan: forward (128-row block x C) and reverse (C x 128 block)
+    block = torch.zeros((SCAN_BLOCK, d), dtype=torch.float32, device=dev)
+    block[0] = base[n // 2]
+    scan_bytes = SCAN_BLOCK * d * 4 + C * d * 4 + SCAN_BLOCK * C * 4
+    scan_flops = 2.0 * SCAN_BLOCK * C * d + 3.0 * SCAN_BLOCK * C
+    for label, fn, plain, lib, one in (
+            ("forward", lambda: ops.distance_matrix(block, base),
+             lambda: ref.distance_matrix_ref(block, base),
+             lambda: torch.cdist(block, base) ** 2,
+             lambda: ops.distance_matrix(block[:1], base)),
+            ("reverse", lambda: ops.distance_matrix(base, block),
+             lambda: ref.distance_matrix_ref(base, block),
+             lambda: torch.cdist(base, block) ** 2,
+             lambda: ops.distance_matrix(base, block[:1]))):
+        k_ms = device_ms(fn, reps=5, match=MATRIX_KERNEL, launches=1)
+        one_ms = device_ms(one, reps=5, match=MATRIX_KERNEL, launches=1)
+        p_ms = cuda_ms(plain, reps=3)
+        lib_ms = cuda_ms(lib, reps=3)
+        got, want, row = fn(), plain(), one()
+        vec = got[0] if label == "forward" else got[:, 0]
+        vec1 = row[0] if label == "forward" else row[:, 0]
+        same = int((vec != vec1).sum())
+        check(bool(torch.isclose(got, want, rtol=MATRIX_RTOL, atol=MATRIX_ATOL * d).all()),
+              f"the {label} scan differs from the plain matrix")
+        errs["distance_matrix"] = max(errs["distance_matrix"], max_abs_err(got, want))
+        one_bound, one_by = bound(d * 4 + C * d * 4 + C * 4, 2.0 * C * d + 3.0 * C)
+        print(f"  exact scan {label}: the block's entries of the point against the one-row "
+              f"operand's: {same} of {C:,} differ (one-row call {one_ms * 1e3:.3f} us, its own "
+              f"bound {one_bound * 1e3:.3f} us ({one_by}; {one_ms / one_bound:.1f}x))")
+        shape = (f"exact insert's {label} scan, {SCAN_BLOCK}-row block x {C:,} x {d}"
+                 if label == "forward" else
+                 f"exact insert's {label} scan, {C:,} x {SCAN_BLOCK}-row block x {d}")
+        add("distance_matrix", shape, k_ms, p_ms, scan_bytes, scan_flops, lib_ms,
+            one_row_ms=one_ms, one_row_bound_ms=one_bound, one_row_bits_differ=same)
+        del got, want, row
+        torch.cuda.empty_cache()
+
+    # the GD select's pair matrix at insert_ef=32: 32 x 32 x d, x is y
+    ids = torch.randint(0, n, (PHASE9_INSERT_EF,), generator=gen, device=dev)
+    rows32 = base[ids]
+    k_ms = device_ms(lambda: ops.distance_matrix(rows32, rows32), reps=64,
+                     match=SMALL_MATRIX_KERNEL, launches=1)
+    p_ms = cuda_ms(lambda: ref.distance_matrix_ref(rows32, rows32), reps=64)
+    lib_ms = cuda_ms(lambda: torch.cdist(rows32, rows32) ** 2, reps=64)
+    got, want = ops.distance_matrix(rows32, rows32), ref.distance_matrix_ref(rows32, rows32)
+    check(bool(torch.isclose(got, want, rtol=MATRIX_RTOL, atol=MATRIX_ATOL * d).all()),
+          "the GD select's matrix differs from the plain version")
+    errs["distance_matrix_small"] = max(errs["distance_matrix_small"], max_abs_err(got, want))
+    L = PHASE9_INSERT_EF
+    add("distance_matrix_small", f"inline GD select, {L} x {L} x {d}, x is y", k_ms, p_ms,
+        L * d * 4 + L * L * 4, 2.0 * L * L * d + 3.0 * L * L, lib_ms)
+
+    # the edge-distance pass of MutableIndex.from_build: 1M x R pairs
+    s = run.searcher
+    nb = s.neighbors.clamp(min=0).contiguous()
+    N1, R1 = nb.shape
+    k_ms = device_ms(lambda: kgd.gather_distance(s.base, nb, s.base), reps=3,
+                     match=PAIR_KERNEL, launches=1)
+    p_ms = cuda_ms(lambda: ref.gather_distance_ref(s.base, nb, s.base), reps=1, warmup=1)
+    got = kgd.gather_distance(s.base[:PHASE9_CHECK_ROWS], nb[:PHASE9_CHECK_ROWS], s.base)
+    want = ref.gather_distance_ref(s.base[:PHASE9_CHECK_ROWS], nb[:PHASE9_CHECK_ROWS], s.base)
+    check(bool(torch.isclose(got, want, **GATHER_TOL).all()),
+          "the edge-distance pass differs from the plain gather")
+    errs["gather_distance"] = max(errs["gather_distance"], max_abs_err(got, want))
+    add("gather_distance", f"edge distances, {N1:,} x {R1}, d={d}", k_ms, p_ms,
+        N1 * d * 4 * 2 + N1 * R1 * 4 * 2, N1 * R1 * 3.0 * d)
+    torch.cuda.empty_cache()
+
+
+def mutation_phase(run, rows: list, errs: dict, dev) -> dict:
+    """Phase 9 on phase 4's world (module docstring). Returns the launches
+    over its driven runs, by kernel."""
+    launches9: dict[str, int] = {}
+    t = time.perf_counter()
+    midx = mutable_wrap(run, launches9)
+    xs, new_ids, dead = mutable_inserts(midx, launches9)
+    print(f"  [(a)-(b)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    mutable_search(run, midx, xs, new_ids, launches9)
+    print(f"  [(c)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    time_mutation_shapes(run, midx, rows, errs)
+    print(f"  [(g)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    spec9, cres = mutable_compact(midx, dev, launches9)
+    mutable_checkpoint(run, midx, spec9, cres, dev)
+    del midx
+    torch.cuda.empty_cache()
+    print(f"  [(d)-(e)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    incremental_construct(dev, launches9)
+    print(f"  [(f)] {time.perf_counter() - t:.1f} s")
+    print(f"launches over phase 9's runs: {launches9}")
+    check(all(launches9.get(name, 0) > 0 for name in PHASE9_KERNELS),
+          f"a kernel of phase 9's path never launched: {launches9}")
+    return launches9
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3031,8 +3485,12 @@ def main(argv=None) -> int:
 
     t0 = phase("phase 8: the saved, tiered and filtered index on phase 4's world")
     saved_tiered_filtered(run, rows, dev)
-    del run
     done(t0, "phase 8")
+
+    t0 = phase("phase 9: streaming mutation on phase 4's world")
+    launches9 = mutation_phase(run, rows, errs, dev)
+    del run
+    done(t0, "phase 9")
 
     t0 = phase("phase 6: LM serving, TinyLlama-1.1B at full width")
     flash_row["launches"] = lm_serving()
@@ -3043,6 +3501,8 @@ def main(argv=None) -> int:
     paper_phase(dev, errs, rows)
     done(t0, "phase 7")
 
+    for r in rows:
+        r["phase9_launches"] = launches9.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

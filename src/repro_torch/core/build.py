@@ -3,11 +3,12 @@
 The same composable stages as ``repro.core.build``: a construct stage makes
 the raw neighborhood graph, a diversify stage selects its edges, a compress
 stage trains codes for compressed scorers. The port registers the
-``nndescent``, ``exact`` and ``hnsw`` constructs, the ``none``, ``gd`` and
-``dpg`` diversifiers and the ``none``, ``pq`` and ``opq`` compressors;
-``incremental`` comes with a later slice, and naming it raises as an
-unknown stage does. ``hnsw`` prunes every layer itself, so it pairs with
-``diversify="none"`` only.
+``nndescent``, ``exact``, ``hnsw`` and ``incremental`` constructs, the
+``none``, ``gd`` and ``dpg`` diversifiers and the ``none``, ``pq`` and
+``opq`` compressors. ``hnsw`` prunes every layer itself, so it pairs with
+``diversify="none"`` only. ``incremental`` inserts the points one by one
+through ``core.mutable.MutableIndex`` and applies ``spec.diversify`` per
+insert, so ``GraphBuilder`` skips its global diversify stage.
 
 ``GraphBuilder(spec).build(base, seed)`` runs on ``base``'s device and emits
 a :class:`BuildReport` (rounds, update curve, realized degree distribution,
@@ -148,6 +149,31 @@ def _construct_exact(base, spec: BuildSpec, seed, verbose) -> ConstructResult:
     graph = exact_knn_graph(base, k, metric=spec.metric)
     return ConstructResult(graph, None,
                            {"rounds": 0, "update_curve": [], "converged": True})
+
+
+@register_constructor("incremental")
+def _construct_incremental(base, spec: BuildSpec, seed, verbose) -> ConstructResult:
+    """Streaming construction: every point arrives through
+    ``MutableIndex.insert``, by beam search and link (``spec.insert_ef >
+    0``) with ``spec.diversify`` applied inline, or by exact-scan
+    maintenance (``insert_ef = 0``), which equals ``construct='exact'`` bit
+    for bit at matched capacity. The stats' ``inline_diversify`` tells
+    :class:`GraphBuilder` to skip the global diversify stage."""
+    from .mutable import MutableIndex
+
+    n, d = base.shape
+    idx = MutableIndex.empty(
+        d, min(spec.graph_k, max(n - 1, 1)), capacity=n, metric=spec.metric,
+        rng_seed=seed, insert_ef=spec.insert_ef, diversify=spec.diversify,
+        max_keep=spec.max_keep, device=base.device)
+    t0 = time.perf_counter()
+    idx.insert_batch(base.cpu().numpy())
+    wall = time.perf_counter() - t0
+    return ConstructResult(idx.live_graph(), None, {
+        "rounds": 0, "update_curve": [], "converged": True,
+        "inline_diversify": spec.diversify, "inserts": n,
+        "insert_rate": round(n / max(wall, 1e-9), 1),
+    })
 
 
 @register_constructor("hnsw")
@@ -419,7 +445,12 @@ class GraphBuilder:
                                        sample=spec.proxy_sample)
 
         t2 = clock.start()
-        graph, dstats = self._diversify(base, cres.graph, spec)
+        if cres.stats.get("inline_diversify"):
+            # the construct diversified per insert; a second pass would
+            # prune the same edges again
+            graph, dstats = cres.graph, {"dropped_reverse_edges": 0}
+        else:
+            graph, dstats = self._diversify(base, cres.graph, spec)
         wall_diversify = clock.stop(t2, "diversify", peaks)
 
         t3 = clock.start()
@@ -461,6 +492,8 @@ class GraphBuilder:
             in_degree=in_degree_distribution(graph.neighbors),
             hub_ids=[int(h) for h in hubs],
             lid=round(lid, 2),
+            inserts=int(cres.stats.get("inserts", 0)),
+            insert_rate=float(cres.stats.get("insert_rate", -1.0)),
             peak_memory_bytes=peaks,
         )
         return BuildResult(graph=graph, hierarchy=cres.hierarchy, pq=pq,

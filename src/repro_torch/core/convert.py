@@ -3,8 +3,9 @@
 Takes numpy arrays as ``repro`` produces them (``np.asarray(graph.neighbors)``,
 ``.dists``, ``hubs`` through :func:`tensor`, the base, a uint32 visited or
 tombstone bitmap, the sq8 and PQ tables, an ``HnswIndex``'s layer arrays,
-a ``ForestIndex``'s planes, offsets and leaves)
-and returns the port's tensors, tables, indexes and ``Searcher``. uint32 bitmap words become int32 words bit for bit
+a ``ForestIndex``'s planes, offsets and leaves, a ``MutableIndex``'s
+state) and returns the port's tensors, tables, indexes, ``Searcher`` and
+``MutableIndex``. uint32 bitmap words become int32 words bit for bit
 (torch has no unsigned shift or scatter-add on the CPU);
 :func:`bitmap_to_uint32` goes back. A saved index needs no carrying by
 hand: ``core.io.load_index(path).to_searcher(device)`` reads an artifact
@@ -20,6 +21,7 @@ from ..baselines.pq import PQIndex
 from ..baselines.tree import ForestIndex
 from .engine import Searcher
 from .graph_index import HnswIndex, KnnGraph
+from .mutable import MutableIndex
 from .scorers import Sq8Index
 
 
@@ -116,3 +118,22 @@ def searcher_from_numpy(base, neighbors, *, metric: str = "l2",
         metadata=(None if metadata is None
                   else {name: np.asarray(col) for name, col in metadata.items()}),
     )
+
+
+def mutable_from_numpy(state: dict, *, metric: str = "l2", rng_seed: int = 0,
+                       insert_ef: int = 64, diversify: str = "none", max_keep: int = 0,
+                       n_entries: int = 8, device="cuda") -> MutableIndex:
+    """A reference ``MutableIndex``'s state -> the port's, to continue one
+    history in the other package. ``state`` holds the reference's
+    capacity-shaped host arrays as numpy (``base`` ``_base``, ``neighbors``
+    ``_nbrs``, ``dists`` ``_dists``, ``alive`` ``_alive``, ``tombstones``
+    ``_tomb``, uint32 words, and ``metadata`` its columns) and its numbers
+    (``n_alloc``, ``capacity``, ``inserts_since_compact``,
+    ``deletes_since_compact``, ``total_inserts``, ``insert_wall_s``,
+    ``version``), the layout of the port's ``MutableIndex.state()``. The
+    configuration (``max_keep`` as the reference resolved it) comes as
+    keywords; the reference's ``jax.random`` key has no counterpart, and
+    the port draws from ``rng_seed``."""
+    return MutableIndex.from_state(state, metric=metric, rng_seed=rng_seed,
+                                   insert_ef=insert_ef, diversify=diversify,
+                                   max_keep=max_keep, n_entries=n_entries, device=device)

@@ -3,8 +3,10 @@ greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b``).
 
 Builds the paper's index through ``core.build`` (``--build-construct``:
 NN-Descent + GD by default, HNSW with no diversify stage for ``--entry
-hierarchy``; plus PQ codes under ``--scorer pq``), then answers batched
-query streams through ``Searcher.search``, and
+hierarchy``, ``exact``, or ``incremental``: streaming inserts through
+``core.mutable.MutableIndex`` with ``--diversify`` applied per insert;
+``--diversify none|gd|dpg``; plus PQ codes under ``--scorer pq``), then
+answers batched query streams through ``Searcher.search``, and
 scores recall against brute-force ground truth. ``--entry`` picks where the
 beam starts: ``random`` (flat-HNSW), ``projection``, ``hierarchy`` (HNSW's
 greedy descent), ``lsh`` (the SRS probe) or ``hubs``; ``--term stable``
@@ -207,6 +209,9 @@ def load_or_build(args, device: torch.device):
           f"graph-recall~{rep.graph_recall_proxy}, degree "
           f"mean={rep.degree['mean']}, dropped reverse="
           f"{rep.dropped_reverse_edges})")
+    if rep.inserts:
+        print(f"[serve-ann] incremental construct: {rep.inserts} inserts at "
+              f"{rep.insert_rate:.1f} inserts/s, diversified per insert")
     layer_sizes = [layer["nodes"] for layer in rep.layers]
     if layer_sizes:
         print(f"[serve-ann] hnsw layers (nodes, bottom first): {layer_sizes}; sources "
@@ -392,10 +397,11 @@ def parser() -> argparse.ArgumentParser:
                     help="[ann] fresh-seed restarts per converged query "
                          "(comps charged to the query)")
     ap.add_argument("--build-construct", default="auto",
-                    choices=["auto", "nndescent", "exact", "hnsw"],
+                    choices=["auto", "nndescent", "exact", "hnsw", "incremental"],
                     help="[ann] construct stage (auto = hnsw for --entry "
-                         "hierarchy, else nndescent)")
-    ap.add_argument("--diversify", default=None, choices=["gd", "none"],
+                         "hierarchy, else nndescent; incremental = streaming "
+                         "inserts through core.mutable.MutableIndex)")
+    ap.add_argument("--diversify", default=None, choices=["none", "gd", "dpg"],
                     help="[ann] diversify stage (default: gd; none for hnsw)")
     ap.add_argument("--scorer", default="exact", choices=["exact", "sq8", "pq"],
                     help="per-hop scorer (sq8/pq: compressed traversal + "

@@ -169,9 +169,14 @@ def test_specs_mirror_the_reference():
     assert SearchSpec().num_seeds == jengine.SearchSpec().num_seeds
 
 
+# every stage the reference registers is ported (construct="incremental"
+# since the mutation slice); a scorer's name is no compress stage
 @pytest.mark.parametrize("stage", [dict(compress="bogus"), dict(diversify="bogus"),
-                                   dict(construct="incremental"), dict(construct="bogus")])
+                                   dict(compress="sq8"), dict(construct="bogus")])
 def test_unported_or_unknown_stages_raise(stage):
+    assert set(build.CONSTRUCTORS) == set(jbuild.CONSTRUCTORS)
+    assert set(build.DIVERSIFIERS) == set(jbuild.DIVERSIFIERS)
+    assert set(build.COMPRESSORS) == set(jbuild.COMPRESSORS)
     with pytest.raises(ValueError, match="unknown"):
         build.GraphBuilder(build.BuildSpec(**stage))
     with pytest.raises(ValueError, match="reverse"):

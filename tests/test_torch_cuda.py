@@ -923,3 +923,106 @@ def test_cuda_lm_matches_cpu(cuda, arch_id):
     a = serve.serve_lm(cpu_model, batch=3, tokens=20, max_len=32)
     b = serve.serve_lm(gpu_model, batch=3, tokens=20, max_len=32)
     assert torch.equal(a.tokens, b.tokens.cpu())
+
+
+# -- streaming mutation (core.mutable) on the card ------------------------------
+
+
+def _mutable_world(n, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d), dtype=np.float32),
+            rng.standard_normal((64, d), dtype=np.float32))
+
+
+@pytest.mark.cuda
+def test_cuda_exact_scan_has_the_batch_matrix_bits(cuda):
+    """The exact scan's block, in both directions, gives the batch distance
+    matrix's row and column of the point bit for bit, and so does a one-row
+    operand: the kernel's entries do not depend on the operand's shape."""
+    from repro_torch.core import mutable
+
+    base, _ = _mutable_world(3000, 64)
+    bt = _c(base, cuda)
+    alive = torch.ones(3000, dtype=torch.bool, device=cuda)
+    batch = ops.distance_matrix(bt, bt)
+    for i in (0, 17, 2999):
+        fwd, rev = mutable._exact_scan(bt[i], bt, alive, "l2")
+        assert torch.equal(fwd, batch[i]) and torch.equal(rev, batch[:, i])
+        assert torch.equal(ops.distance_matrix(bt[i:i + 1], bt)[0], fwd)
+        assert torch.equal(ops.distance_matrix(bt, bt[i:i + 1])[:, 0], rev)
+
+
+@pytest.mark.cuda
+def test_cuda_incremental_exact_equals_the_exact_build(cuda):
+    """construct="incremental", insert_ef=0 equals construct="exact" bit for
+    bit on the card (the tile route, n past 32)."""
+    from repro_torch.core.build import BuildSpec, build_index
+
+    base, _ = _mutable_world(1500, 32, seed=1)
+    kw = dict(diversify="none", graph_k=12, proxy_sample=0, lid_sample=0)
+    bt = _c(base, cuda)
+    inc = build_index(bt, BuildSpec(construct="incremental", insert_ef=0, **kw), seed=2)
+    bat = build_index(bt, BuildSpec(construct="exact", **kw), seed=2)
+    assert torch.equal(inc.graph.neighbors, bat.graph.neighbors)
+    assert torch.equal(inc.graph.dists, bat.graph.dists)
+    assert inc.report.inserts == 1500
+
+
+@pytest.fixture(scope="module")
+def mutated_on_card():
+    """NN-Descent + GD over 3,000 points on the card, 60 inserts at
+    insert_ef=32 with GD inline, 20% of the original ids deleted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.core.build import BuildSpec, build_index
+    from repro_torch.core.mutable import MutableIndex
+
+    dev = torch.device("cuda")
+    base, queries = _mutable_world(3000, 32, seed=3)
+    spec = BuildSpec(graph_k=12, nd_rounds=8, proxy_sample=0, lid_sample=0)
+    midx = MutableIndex.from_build(_c(base, dev), build_index(_c(base, dev), spec, seed=4),
+                                   rng_seed=4, insert_ef=32, diversify="gd")
+    extra = np.random.default_rng(5).standard_normal((60, 32), dtype=np.float32)
+    new_ids = midx.insert_batch(extra)
+    dead = np.random.default_rng(6).choice(3000, size=600, replace=False)
+    midx.delete(dead)
+    return midx, spec, dead, new_ids, queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer,placement", [("exact", "device"), ("pq", "device"),
+                                              ("pq", "host"), ("pq", "disk"),
+                                              ("sq8", "disk")])
+def test_cuda_tombstones_never_answer(mutated_on_card, scorer, placement):
+    from repro_torch.core.engine import SearchSpec
+
+    midx, _, dead, _, queries = mutated_on_card
+    s = midx.searcher()
+    spec = SearchSpec(ef=48, k=8, scorer=scorer, base_placement=placement, pq_m=4, pq_k=16)
+    try:
+        ids = s.search(_c(queries, s.device), spec, seed=7).ids.cpu().numpy()
+    finally:
+        for store in s._stores.values():
+            store.close()
+        s._stores.clear()
+    assert (ids >= 0).any() and not np.isin(ids[ids >= 0], dead).any()
+    assert ids.max() < midx.n_alloc
+
+
+@pytest.mark.cuda
+def test_cuda_compact_equals_a_fresh_build(mutated_on_card):
+    """compact(spec, seed) on the card equals build_index of the survivors
+    with the same spec and seed, bit for bit; the inserted points were
+    searchable before it."""
+    from repro_torch.core.build import build_index
+    from repro_torch.core.engine import SearchSpec
+
+    midx, spec, _, new_ids, _ = mutated_on_card
+    x = torch.from_numpy(midx.base[new_ids[:16]].copy()).cuda()
+    found = midx.search(x, SearchSpec(ef=64, k=1), seed=8).ids[:, 0].cpu().numpy()
+    assert (found == new_ids[:16]).mean() >= 0.75
+    survivors = midx.base[midx.alive].copy()
+    cres = midx.compact(spec, seed=9)
+    fresh = build_index(torch.from_numpy(survivors).cuda(), spec, seed=9)
+    assert torch.equal(cres.graph.neighbors, fresh.graph.neighbors)
+    assert np.array_equal(midx.base, survivors) and midx.version == 1
