@@ -217,6 +217,35 @@ Phases (each prints its seconds):
    over phase 9's driven runs go into the kernels line
    (``phase9_launches``), the new shapes into the rows' ``shapes``.
 
+10. The continuous-batching server (``repro_torch.launch.server``, driven
+   by ``launch.loadgen``) on phase 4's world and searcher (after phase 9,
+   before phase 6 frees them); exact, ef=64, k=10, random entries, a
+   256-row query pool from the seed. (a) ``serve --arch ann --smoke
+   --serve`` at the reference's defaults (200 requests of 1-8 rows at 500
+   rows/s offered, buckets 1-16, 4 live, 16 queued): completed + shed =
+   200, every completed request bit-identical to its direct search (rerun
+   off the timed path), served recall@1 equal to the direct twins'. (b)
+   ``loadgen.serving_sweep`` over 120 requests: closed-batch capacity, the
+   paced single-request wall, then the open loop at 0.5x and 3x capacity
+   (the reference's 0.05x point is cut: ~5 minutes of arrivals alone):
+   p50/p90/p99, queue and service ms, sustained qps, shed, fill, buckets,
+   the largest live window; parity 1.0, completed + shed = 120,
+   timestamps in order, shed > 0 at 3x. (c) closed loops of 32 requests
+   under pq (device, host) and sq8, and exact with phase 8's tenant=3
+   filter on every third request: each bit-identical to its direct search.
+   (d) a ``MutableIndex`` of phase 4's graph (the first insert doubles the
+   capacity to 2M), a snapshot Searcher serving 40 requests, 499 more
+   inserts (insert_ef=32, GD inline) and 250 deletes, a hot swap with 8
+   requests queued at the flip, 120 more requests: the snapshot answers
+   as before the inserts, each mirror cloned once (its ms by CUDA events
+   and bytes printed), each side bit-identical to direct search on its
+   version, 0 dead or unallocated ids, nothing loaded or built after the
+   flip (``server.prepared_state``), ``warm_s``. (e) one bucket-16 request
+   under the profiler (device-busy share), and time in queue against time
+   in service at each sweep point. The launches over phase 10's driven
+   runs go into the kernels line (``phase10_launches``); every kernel of
+   the path must have launched.
+
 Prints a ``{"kernels": [...]}`` line (each row also names the ``kernel``
 symbol timed and its ``yardstick``) and the card's ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero on any failed check,
@@ -286,6 +315,20 @@ PHASE9_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "disk"), ("sq8", "d
 PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                   "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
                   "distance_matrix_small")
+# phase 10: the continuous-batching server on phase 4's world. The sweep
+# leaves out the reference's 0.05x load point: at ~0.1 s a request its 120
+# Poisson arrivals alone would take ~5 minutes.
+PHASE10_LOAD_FACTORS = (0.5, 3.0)
+PHASE10_SWEEP_REQUESTS = 120
+PHASE10_POOL = 256
+PHASE10_PARITY_REQUESTS = 32
+PHASE10_INSERTS = 500
+PHASE10_DELETES = 250
+PHASE10_QUEUED_AT_FLIP = 8
+PHASE10_POST_SWAP_REQUESTS = 120
+PHASE10_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
+                   "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
+                   "distance_matrix_small")
 # phase 7: the paper's worlds (repro_torch.data.synthetic) and the figures
 # each runs; PAPER_SCALE lists a cut of n where the run needs one (none)
 PAPER_WORLDS = (("SIFT1M", ("fig3", "fig4", "fig5", "fig6")),
@@ -3286,6 +3329,253 @@ def mutation_phase(run, rows: list, errs: dict, dev) -> dict:
     return launches9
 
 
+# -- phase 10: the continuous-batching server -----------------------------------
+
+
+def served_vs_direct(completed, requests, searcher, spec, offset: int = 0):
+    """(matched, checked, direct top-1 ids by rid): each completed request
+    whose rid - ``offset`` indexes ``requests`` against a direct
+    ``Searcher.search`` of its rows with its seed (and its filter), ids,
+    dists and n_comps bit for bit; run off the timed path."""
+    ok = checked = 0
+    top1 = {}
+    for req in completed:
+        i = req.rid - offset
+        if not 0 <= i < len(requests):
+            continue
+        r = requests[i]
+        sp = spec if req.filter is None else spec._replace(filter=req.filter)
+        res = searcher.search(torch.from_numpy(r.rows).to(searcher.device), sp, r.seed)
+        ids = res.ids.cpu().numpy()
+        top1[req.rid] = ids[:, 0]
+        checked += 1
+        ok += int(np.array_equal(req.ids, ids)
+                  and np.array_equal(req.dists, res.dists.cpu().numpy())
+                  and np.array_equal(req.n_comps, res.n_comps.cpu().numpy()))
+    return ok, checked, top1
+
+
+def serve_entry_point(launches10: dict) -> None:
+    """(a): ``serve --arch ann --smoke --serve`` at the reference's defaults;
+    every completed request against its direct search, and the served
+    recall@1 against the direct twins' on the completed rows."""
+    from repro_torch.launch import loadgen, serve
+
+    run10 = counted(launches10, lambda: serve.serve_ann(serve.parser().parse_args(
+        ["--arch", "ann", "--smoke", "--device", "cuda", "--serve"])))
+    st = run10.summary["serve"]
+    sv = run10.served
+    reqs, s = sv.streams[0]
+    ok, checked, top1 = served_vs_direct(sv.server.completed, reqs, s, run10.spec)
+    hits = sum(int((top1[rid] == sv.ground_truth[reqs[rid].start:
+                                                  reqs[rid].start + len(top1[rid]), 0]).sum())
+               for rid in top1)
+    twin_r1 = hits / max(sum(len(v) for v in top1.values()), 1)
+    served_r1, _ = loadgen._recall_comps(sv.server.completed, reqs, sv.ground_truth)
+    print(f"(a) serve --smoke --serve: {st['completed']} completed + {st['shed']} shed of "
+          f"{st['requests']} (offered {st['offered_qps']:.0f} rows/s), p50 {st.get('p50_ms')} ms, "
+          f"p99 {st.get('p99_ms')} ms, largest live window {st['max_live']}; parity "
+          f"{ok}/{checked}; served recall@1 {served_r1:.4f}, direct twins {twin_r1:.4f}")
+    check(st["completed"] + st["shed"] == st["requests"] == 200,
+          "serve --serve: completed + shed != 200")
+    check(ok == checked == st["completed"], "serve --serve: a served request differs from "
+                                            "its direct search")
+    check(served_r1 == twin_r1, "serve --serve: served recall@1 differs from the direct twins'")
+
+
+def sweep(run, spec, pool, gt, launches10: dict) -> dict:
+    """(b): closed-batch capacity, the paced single-request wall, and the
+    open loop at PHASE10_LOAD_FACTORS x capacity over 120 requests."""
+    from repro_torch.launch import loadgen
+
+    out = counted(launches10, lambda: loadgen.serving_sweep(
+        run.searcher, spec, pool, gt, load_factors=PHASE10_LOAD_FACTORS,
+        n_requests=PHASE10_SWEEP_REQUESTS, seed=0, out=lambda m: print(f"(b) {m}")))
+    print(f"(b) capacity {out['serving_capacity_qps']} rows/s, paced single-request wall p99 "
+          f"{out['serving_ref_wall_ms']} ms, direct twins recall@1 "
+          f"{out['serving_batch_recall_at_1']}, comps/query "
+          f"{out['serving_batch_comps_per_query']}")
+    for row in out["serving_sweep"]:
+        lf = row["load_factor"]
+        check(row["parity"] == 1.0, f"sweep x{lf}: parity {row['parity']}")
+        check(row["completed"] + row["shed"] == PHASE10_SWEEP_REQUESTS,
+              f"sweep x{lf}: completed + shed != {PHASE10_SWEEP_REQUESTS}")
+        check(row["timestamps_ordered"], f"sweep x{lf}: timestamps out of order")
+    check(out["serving_sweep"][-1]["shed"] > 0,
+          f"sweep x{PHASE10_LOAD_FACTORS[-1]}: nothing shed (the shedding path never ran)")
+    return out
+
+
+def scorer_parity(run, spec, pool, launches10: dict) -> None:
+    """(c): closed loops of 32 requests under pq (device and host) and sq8
+    (device), and one where every third request carries the tenant=3
+    filter: every request bit-identical to its direct search."""
+    from repro_torch.core.filters import FilterSpec
+    from repro_torch.launch import loadgen
+    from repro_torch.launch.server import AnnServer
+
+    s = run.searcher
+    reqs = loadgen.make_requests(pool, PHASE10_PARITY_REQUESTS, loadgen.REQUEST_SIZES, 3,
+                                 base_seed=11)
+    tenant = FilterSpec(tenant=3)
+    cases = {"pq device": (spec._replace(scorer="pq"), False),
+             "pq host": (spec._replace(scorer="pq", base_placement="host"), False),
+             "sq8 device": (spec._replace(scorer="sq8"), False),
+             "exact + tenant=3 on every third": (spec, True)}
+    try:
+        for label, (sp, filt) in cases.items():
+            server = AnnServer(s, sp, loadgen.SWEEP_CONFIG)
+            server.warmup()
+
+            def drive():
+                for i, r in enumerate(reqs):
+                    server.submit_wait(r.rows, r.seed,
+                                       filter=tenant if filt and i % 3 == 0 else None)
+                server.drain()
+
+            _, secs = event_s(lambda: counted(launches10, drive))
+            ok, checked, _ = served_vs_direct(server.completed, reqs, s, sp)
+            st = server.stats()
+            print(f"(c) {label}: {checked} requests in {secs:.2f} s, p50 {st['p50_ms']} ms, "
+                  f"parity {ok}/{checked}")
+            check(ok == checked == PHASE10_PARITY_REQUESTS,
+                  f"{label}: a served request differs from its direct search")
+            if filt:
+                allowed = s.metadata["tenant"] == 3
+                bad = sum(int((~allowed[req.ids[req.ids >= 0]]).sum())
+                          for req in server.completed if req.filter is not None)
+                check(bad == 0, f"{label}: {bad} answers outside tenant 3")
+    finally:
+        store = s._stores.pop(("host", "f32"), None)
+        if store is not None:
+            store.close()
+
+
+def serve_mutate(run, spec, pool, launches10: dict) -> dict:
+    """(d): a MutableIndex over phase 4's graph (the first insert doubles
+    the capacity to 2M), a snapshot Searcher serving a first stream, 500
+    inserts (insert_ef=32, GD inline) and 250 deletes, a hot swap with
+    requests queued at the flip, a second stream of 120 requests."""
+    from repro_torch.core.mutable import MutableIndex
+    from repro_torch.launch import loadgen
+    from repro_torch.launch.server import AnnServer, prepared_state
+
+    s = run.searcher
+    midx = counted(launches10, lambda: MutableIndex.from_build(
+        s.base, run.build, rng_seed=0, insert_ef=PHASE9_INSERT_EF, diversify="gd"))
+    n0, d = midx.n_alloc, midx.d
+    xs = np.random.default_rng(10).standard_normal((PHASE10_INSERTS, d), dtype=np.float32)
+    counted(launches10, lambda: midx.insert(xs[0]))       # the capacity doubles to 2M
+    s0 = midx.searcher()
+    q = torch.from_numpy(pool[:64]).to(s.device)
+    snap_before = s0.search(q, spec, 5)
+    mirrors = {name: getattr(midx, attr) for name, attr in
+               (("base", "_base_dev"), ("neighbors", "_nbrs_dev"), ("tombstones", "_tomb_dev"))}
+    clone_ms = {name: event_s(lambda t=t: t.clone())[1] * 1e3 for name, t in mirrors.items()}
+    clone_bytes = {name: t.numel() * t.element_size() for name, t in mirrors.items()}
+    print(f"(d) MutableIndex over n={n0:,} (capacity {midx.capacity:,} after the first insert); "
+          f"a clone of each mirror (the copy a write to a shared mirror makes; CUDA events): "
+          + ", ".join(f"{k} {clone_ms[k]:.3f} ms / {clone_bytes[k]:,} bytes" for k in clone_ms))
+
+    reqs_a = loadgen.make_requests(pool, 40, loadgen.REQUEST_SIZES, 4, base_seed=41)
+    reqs_q = loadgen.make_requests(pool, PHASE10_QUEUED_AT_FLIP, loadgen.REQUEST_SIZES, 5,
+                                   base_seed=42)
+    reqs_b = loadgen.make_requests(pool, PHASE10_POST_SWAP_REQUESTS, loadgen.REQUEST_SIZES, 6,
+                                   base_seed=43)
+    server = AnnServer(s0, spec, loadgen.SWEEP_CONFIG)
+    server.warmup()
+    counted(launches10, lambda: loadgen.run_closed_loop(server, reqs_a))
+
+    (_, mut_s) = event_s(lambda: counted(launches10, lambda: midx.insert_batch(xs[1:])))
+    dead = np.random.default_rng(0).choice(n0, size=PHASE10_DELETES, replace=False)
+    midx.delete(dead)
+    print(f"  {PHASE10_INSERTS - 1} more inserts in {mut_s:.2f} s "
+          f"({(PHASE10_INSERTS - 1) / mut_s:.1f}/s), {dead.size} deletes; clones made: "
+          f"{midx.cow_clones} ({midx.cow_bytes:,} bytes)")
+    check(midx.cow_clones == 3 and midx.cow_bytes == sum(clone_bytes.values()),
+          "the inserts after searcher() did not clone each shared mirror once")
+    snap_after = s0.search(q, spec, 5)
+    check(same_result(snap_before, snap_after),
+          "the Searcher taken before the inserts answers differently after them")
+
+    for r in reqs_q:
+        server.submit(r.rows, r.seed, advance=False)
+    s1 = midx.searcher()
+    version = counted(launches10, lambda: server.swap(s1, seed=23))
+    ev = server.swap_events[-1]
+    at_flip = prepared_state(s1)
+    counted(launches10, lambda: (server.drain(), loadgen.run_closed_loop(server, reqs_b)))
+    after = prepared_state(s1)
+    na = len(reqs_a)
+    ok_a, n_a, _ = served_vs_direct(server.completed, reqs_a, s0, spec)
+    ok_q, n_q, _ = served_vs_direct(server.completed, reqs_q, s1, spec, offset=na)
+    ok_b, n_b, _ = served_vs_direct(server.completed, reqs_b, s1, spec,
+                                    offset=na + len(reqs_q))
+    alive = midx._alive
+    post = [r for r in server.completed if r.rid >= na]
+    bad = sum(int(((req.ids >= midx.n_alloc) | ~alive[np.clip(req.ids, 0, None)])
+                  [req.ids >= 0].sum()) for req in post)
+    st = server.stats()
+    print(f"  hot swap v{version}: warm_s {ev['warm_s']} ({ev['live_at_flip']} live / "
+          f"{ev['queued_at_flip']} queued at the flip); parity before {ok_a}/{n_a}, queued "
+          f"{ok_q}/{n_q}, after {ok_b}/{n_b}; dead or unallocated ids in answers: {bad}; "
+          f"shed {st['shed']}; state at the flip {at_flip}, after the requests {after}")
+    check(ev["queued_at_flip"] == PHASE10_QUEUED_AT_FLIP and ok_q == n_q == len(reqs_q),
+          "the requests queued at the flip were not answered by the new version")
+    check(ok_a == n_a == na and ok_b == n_b == len(reqs_b),
+          "a served request differs from direct search on the version that served it")
+    check(bad == 0, f"{bad} dead or unallocated ids served after the swap")
+    check(after == at_flip, "a kernel library or per-index state was built after the flip")
+    check(st["shed"] == 0, "a closed-loop request was shed")
+    return {"warm_s": ev["warm_s"], "clone_ms": clone_ms, "clone_bytes": clone_bytes}
+
+
+def request_profile(run, spec, pool, sweep_out: dict) -> None:
+    """(e): one bucket-16 request under the profiler (device-busy share),
+    and the time in queue against the time in service at each sweep point."""
+    from repro_torch.launch import loadgen
+    from repro_torch.launch.server import AnnServer
+
+    server = AnnServer(run.searcher, spec, loadgen.SWEEP_CONFIG)
+    rows = pool[:16]
+    busy_share(lambda: server._search_padded(rows, 77, 16), "(e) one bucket-16 request")
+    for row in sweep_out["serving_sweep"]:
+        print(f"(e) x{row['load_factor']}: mean time in queue {row['mean_queue_ms']} ms, "
+              f"in service {row['mean_service_ms']} ms (admit -> complete)")
+
+
+def serving_phase(run, rows: list, dev) -> dict:
+    """Phase 10 on phase 4's world (module docstring). Returns the launches
+    over its driven runs, by kernel."""
+    from repro_torch.core.bruteforce import ground_truth
+
+    launches10: dict[str, int] = {}
+    spec = run.spec._replace(scorer="exact")
+    d = run.searcher.base.shape[1]
+    pool = np.random.default_rng(1010).standard_normal((PHASE10_POOL, d), dtype=np.float32)
+    gt = ground_truth(torch.from_numpy(pool).to(dev), run.searcher.base, 1).cpu().numpy()
+    t = time.perf_counter()
+    serve_entry_point(launches10)
+    print(f"  [(a)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    sweep_out = sweep(run, spec, pool, gt, launches10)
+    print(f"  [(b)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    scorer_parity(run, spec, pool, launches10)
+    print(f"  [(c)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    serve_mutate(run, spec, pool, launches10)
+    torch.cuda.empty_cache()
+    print(f"  [(d)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    request_profile(run, spec, pool, sweep_out)
+    print(f"  [(e)] {time.perf_counter() - t:.1f} s")
+    print(f"launches over phase 10's runs: {launches10}")
+    check(all(launches10.get(name, 0) > 0 for name in PHASE10_KERNELS),
+          f"a kernel of phase 10's path never launched: {launches10}")
+    return launches10
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3489,8 +3779,12 @@ def main(argv=None) -> int:
 
     t0 = phase("phase 9: streaming mutation on phase 4's world")
     launches9 = mutation_phase(run, rows, errs, dev)
-    del run
     done(t0, "phase 9")
+
+    t0 = phase("phase 10: the continuous-batching server on phase 4's world")
+    launches10 = serving_phase(run, rows, dev)
+    del run
+    done(t0, "phase 10")
 
     t0 = phase("phase 6: LM serving, TinyLlama-1.1B at full width")
     flash_row["launches"] = lm_serving()
@@ -3503,6 +3797,7 @@ def main(argv=None) -> int:
 
     for r in rows:
         r["phase9_launches"] = launches9.get(r["name"], 0)
+        r["phase10_launches"] = launches10.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

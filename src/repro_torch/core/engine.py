@@ -309,6 +309,30 @@ def _fold(seed: int, i: int) -> int:
 # the stream the restart keys draw from: (seed, RESTART_STREAM)
 RESTART_STREAM = 0x5EED
 
+# rows per block of the pq scorer's per-query state (the OPQ rotation and
+# the ADC LUTs): both are library products, which sum in another order at
+# another row count (MKL's one-row path on the CPU; the batched product on
+# an H100 too), so they run on zero-padded blocks of this many rows and a
+# row's bits never depend on its batch's size. A request padded into a
+# serving bucket gets the tables a direct search of its rows gets.
+SCORER_BLOCK = 16
+
+
+def _row_blocked(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` over ``x``'s rows in zero-padded SCORER_BLOCK-row blocks,
+    concatenated and cut back to ``x``'s rows."""
+    Q = x.shape[0]
+    if Q == 0:
+        return fn(x)
+    out = []
+    for lo in range(0, Q, SCORER_BLOCK):
+        blk = x[lo:lo + SCORER_BLOCK]
+        take = blk.shape[0]
+        if take < SCORER_BLOCK:
+            blk = torch.cat([blk, blk.new_zeros((SCORER_BLOCK - take,) + blk.shape[1:])])
+        out.append(fn(blk)[:take])
+    return out[0] if len(out) == 1 else torch.cat(out)
+
 
 class Searcher:
     """(entry strategy x graph x beam core), bound to one dataset: the base
@@ -512,7 +536,8 @@ class Searcher:
     def scorer_state(self, queries, spec: SearchSpec):
         """Per-batch operand of ``spec.scorer``: None for exact, the sq8
         table for sq8, and for pq the code table with per-query ADC LUTs
-        (queries rotated first under an OPQ table)."""
+        (queries rotated first under an OPQ table), built in SCORER_BLOCK-row
+        blocks."""
         if spec.scorer == "sq8":
             idx = self.sq8_index()
             return (idx.codes, idx.scale, idx.mn)
@@ -521,9 +546,12 @@ class Searcher:
         from ..baselines.pq import build_adc_luts
 
         idx = self.pq_index(spec)
-        q = queries if idx.rotation is None else queries @ idx.rotation
-        luts = build_adc_luts(q, idx.codebooks, spec.metric).contiguous()
-        return (idx.codes, luts)
+
+        def block_luts(q):
+            q = q if idx.rotation is None else q @ idx.rotation
+            return build_adc_luts(q, idx.codebooks, spec.metric)
+
+        return (idx.codes, _row_blocked(block_luts, queries).contiguous())
 
     # -- filtering ------------------------------------------------------------
 

@@ -23,10 +23,20 @@ Storage is capacity-padded: host numpy arrays of ``capacity`` rows are
 authoritative, with mirrors on the index's device. An insert writes its
 rows into the mirrors in place (``index_copy_`` and word writes), so the
 search shapes stay fixed until a capacity doubling; the adjacency rows an
-insert touches are written before the next beam or search reads them. A
-:class:`~repro_torch.core.engine.Searcher` from :meth:`searcher` reads the
-mirrors in place; it is rebuilt after every mutation (its cached tables
-would go stale). Deleted slots are not reused; compaction reclaims them.
+insert touches are written before the next beam or search reads them.
+Deleted slots are not reused; compaction reclaims them.
+
+A :class:`~repro_torch.core.engine.Searcher` from :meth:`searcher` is a
+snapshot, as the reference's is (its jax arrays are immutable): it answers
+bit for bit as it did after any later insert, delete or flush. The mirrors
+it holds (base, adjacency, tombstone words) are marked shared, and the
+first write to a shared mirror clones it and writes the clone (copy on
+write); the Searcher keeps the old tensor. Inserts with no ``searcher()``
+call between them clone nothing, and ``searcher()`` copies nothing: it is
+cached until the next mutation. ``cow_clones`` / ``cow_bytes`` count the
+clones. The metadata columns are not cloned: an insert writes the row of
+a slot that every older snapshot holds tombstoned, and a compiled filter
+takes tombstoned rows out of its allowed set.
 
 Exact-mode inserts equal a batch build bit for bit: both directions of the
 scan hand ``distance_matrix`` a full (128, d) block holding the new point
@@ -224,6 +234,10 @@ class MutableIndex:
         self.device = resolve_device(device)
         self._nbrs_dirty: set[int] = set()
         self._searcher: Searcher | None = None
+        # the mirrors a handed-out Searcher holds; written only after a clone
+        self._shared: set[str] = set()
+        self.cow_clones = 0
+        self.cow_bytes = 0
 
     def _reset_log(self) -> None:
         self.log: list[tuple[str, int]] = []
@@ -327,20 +341,33 @@ class MutableIndex:
         self._nbrs_dev = _to(self._nbrs, dev)
         self._alive_dev = _to(self._alive, dev)
         self._tomb_dev = _to(self._tomb.view(np.int32), dev)
+        self._shared.clear()
+
+    def _own(self, name: str) -> torch.Tensor:
+        """The mirror ``name``, cloned first if a Searcher holds it (copy on
+        write: the Searcher keeps the tensor it was given)."""
+        t = getattr(self, name)
+        if name in self._shared:
+            t = t.clone()
+            setattr(self, name, t)
+            self._shared.discard(name)
+            self.cow_clones += 1
+            self.cow_bytes += t.numel() * t.element_size()
+        return t
 
     def _flush_nbrs(self) -> None:
         """Write the dirty adjacency rows into the device mirror."""
         if self._nbrs_dirty:
             rows = np.fromiter(self._nbrs_dirty, np.int64, len(self._nbrs_dirty))
             rows.sort()
-            self._nbrs_dev.index_copy_(0, _to(rows, self.device), _to(self._nbrs[rows],
-                                                                      self.device))
+            self._own("_nbrs_dev").index_copy_(0, _to(rows, self.device),
+                                               _to(self._nbrs[rows], self.device))
             self._nbrs_dirty.clear()
 
     def _write_tomb_words(self, words: np.ndarray) -> None:
         """Copy the host tombstone words ``words`` into the device mirror."""
-        self._tomb_dev.index_copy_(0, _to(words.astype(np.int64), self.device),
-                                   _to(self._tomb.view(np.int32)[words], self.device))
+        self._own("_tomb_dev").index_copy_(0, _to(words.astype(np.int64), self.device),
+                                           _to(self._tomb.view(np.int32)[words], self.device))
 
     def _grow(self) -> None:
         """Double the capacity: new host arrays and mirrors (the search
@@ -512,7 +539,7 @@ class MutableIndex:
         t0 = self._clock("link", t0)
         # device mirrors: row writes keep the search shapes fixed
         row = torch.tensor([m], device=self.device)
-        self._base_dev.index_copy_(0, row, xdev[None, :])
+        self._own("_base_dev").index_copy_(0, row, xdev[None, :])
         self._alive_dev.index_fill_(0, row, True)
         self._write_tomb_words(np.array([m >> 5]))
         self._clock("writes", t0)
@@ -635,10 +662,11 @@ class MutableIndex:
     # -- search ---------------------------------------------------------------
 
     def searcher(self) -> Searcher:
-        """A Searcher over the current state: the capacity-shaped mirrors,
-        the tombstones as every query's initial visited set, hubs ranked
-        over live vertices only, and the metadata columns. Cached until the
-        next mutation."""
+        """A snapshot Searcher over the current state: the capacity-shaped
+        mirrors, the tombstones as every query's initial visited set, hubs
+        ranked over live vertices only, and the metadata columns. Later
+        mutations leave its answers unchanged (the mirrors it holds are
+        copied on their next write). Cached until the next mutation."""
         if self._searcher is None:
             self._flush_nbrs()
             hubs = hub_vertices(self._nbrs, DEFAULT_N_HUBS, alive=self._alive)
@@ -646,6 +674,7 @@ class MutableIndex:
                                       rng_seed=self.rng_seed, tombstones=self._tomb_dev,
                                       hubs=hubs.to(self.device),
                                       metadata=dict(self._meta) or None)
+            self._shared.update(("_base_dev", "_nbrs_dev", "_tomb_dev"))
         return self._searcher
 
     def search(self, queries, spec, seed: int | None = None, **kw):

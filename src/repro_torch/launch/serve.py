@@ -28,6 +28,19 @@ and no k-means. ``--base-placement host|disk`` keeps the float base in
 host memory or in mmap'd shards and reranks from there (needs ``--scorer
 pq`` or ``sq8``); ``--store-dtype bf16`` halves the tier's rows.
 
+``--serve`` answers ragged Poisson request traffic through the
+continuous-batching server (``launch.server.AnnServer``, driven by
+``launch.loadgen``) instead of pre-formed batches: ``--serve-requests``
+requests of ``--request-sizes`` rows offered at ``--serve-qps`` rows/s,
+padded to ``--serve-buckets``, ``--max-live-batches`` in flight and
+``--queue-depth`` queued before submits are shed. ``--serve-mutate N`` then
+inserts N points and tombstones N/2 through ``core.mutable.MutableIndex``,
+hot-swaps the mutated index into the live server and serves a second
+stream:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch ann --smoke \
+        --device cpu --serve [--serve-mutate 50]
+
 The world is float32 Gaussian, ``(20_000, 32)`` under ``--smoke`` and
 ``(1_000_000, 64)`` otherwise, made with numpy from ``--seed`` so the same
 world can be rebuilt on any device (and by the JAX reference). The query
@@ -58,7 +71,7 @@ from .._device import resolve_device
 from ..core import io as index_io
 from ..core.bruteforce import ground_truth
 from ..core.build import BuildSpec, GraphBuilder
-from ..core.engine import Searcher, SearchSpec
+from ..core.engine import Searcher, SearchSpec, _fold
 from ..core.topk import recall_at_k
 from ..models import transformer as tf
 
@@ -96,6 +109,7 @@ class ServeRun(NamedTuple):
     seeds: list              # random-entry seed of each batch
     results: list            # SearchResult of each batch
     ground_truth: torch.Tensor
+    served: object = None    # --serve: the ServedStreams behind summary["serve"]
 
 
 def _sync(device: torch.device) -> None:
@@ -133,6 +147,118 @@ def serve_batches(searcher: Searcher, spec: SearchSpec, stream: list[torch.Tenso
         results.append(do_search(q, s))
         _sync(searcher.device)
     return results, time.perf_counter() - t0
+
+
+class ServedStreams(NamedTuple):
+    """What ``--serve`` ran: the server, the query pool and its ground
+    truth, each stream's request specs with the Searcher that served it,
+    and (under ``--serve-mutate``) the mutated index and its tombstones."""
+
+    server: object               # launch.server.AnnServer
+    pool: np.ndarray
+    ground_truth: np.ndarray     # (256, 1) over the serving index
+    streams: list                # [(requests, Searcher that served them)]
+    mutable: object = None       # core.mutable.MutableIndex
+    dead: np.ndarray | None = None
+
+
+def serve_open_loop(searcher: Searcher, spec: SearchSpec, args, seed: int):
+    """``--serve``: ragged Poisson request traffic through the
+    continuous-batching server: bucket padding, admission cap, queue-depth
+    shedding, p50/p90/p99 over per-request enqueue->complete latency.
+    Returns (summary dict, :class:`ServedStreams`)."""
+    from . import loadgen
+    from .server import AnnServer, ServeConfig
+
+    sizes = tuple(int(x) for x in args.request_sizes.split(","))
+    config = ServeConfig(
+        buckets=tuple(int(b) for b in args.serve_buckets.split(",")),
+        max_live_batches=args.max_live_batches,
+        max_queue_depth=args.queue_depth,
+    )
+    server = AnnServer(searcher, spec, config)
+    dev = searcher.device
+    d = searcher.base.shape[1]
+    pool = np.random.default_rng(_fold(seed, 11)).standard_normal((256, d), dtype=np.float32)
+    requests = loadgen.make_requests(pool, args.serve_requests, sizes, seed=0,
+                                     base_seed=_fold(searcher.rng_seed, 777))
+    server.warmup()   # every request shape, off the timed path
+
+    mean_size = sum(r.rows.shape[0] for r in requests) / len(requests)
+    arrivals = loadgen.poisson_arrivals(args.serve_qps / mean_size, len(requests), seed=0)
+    loadgen.run_open_loop(server, requests, arrivals)
+    st = server.stats()
+
+    # recall/comps over the served traffic (ground truth off the timed
+    # path; shed requests produced no answers)
+    gt = ground_truth(torch.from_numpy(pool).to(dev), searcher.base, 1,
+                      searcher.metric).cpu().numpy()
+    recall, comps = loadgen._recall_comps(server.completed, requests, gt)
+    print(f"[serve-ann] open loop: offered {args.serve_qps:.0f} qps over "
+          f"{len(requests)} requests (sizes {sizes}), buckets "
+          f"{config.buckets}, {config.max_live_batches} live / "
+          f"{config.max_queue_depth} queued max")
+    print(f"[serve-ann] served {st['completed']} requests "
+          f"({st['shed']} shed): p50={st.get('p50_ms')} ms "
+          f"p90={st.get('p90_ms')} ms p99={st.get('p99_ms')} ms, "
+          f"queue wait {st.get('mean_queue_ms')} ms, sustained "
+          f"{st.get('sustained_qps')} qps, fill {st['mean_fill']}, "
+          f"buckets {st['bucket_counts']}")
+    print(f"[serve-ann] served recall@1={recall:.3f}, "
+          f"comps/query={comps:.0f}, largest live window {st['max_live']}")
+    out = {**st, "offered_qps": args.serve_qps, "requests": len(requests),
+           "recall@1": recall, "comps_per_query": comps}
+    served = ServedStreams(server=server, pool=pool, ground_truth=gt,
+                           streams=[(requests, searcher)])
+    if not args.serve_mutate:
+        return out, served
+
+    # --serve-mutate: mutate the index under the live server, hot-swap it
+    # in (warmed before the flip), and serve a second stream through the
+    # same server
+    from ..core.mutable import MutableIndex
+
+    n_ins = args.serve_mutate
+    n0 = searcher.base.shape[0]
+    midx = MutableIndex(searcher.base, searcher.neighbors, metric=searcher.metric,
+                        rng_seed=searcher.rng_seed, insert_ef=32, diversify="gd",
+                        device=dev)
+    t_m = time.monotonic()
+    midx.insert_batch(np.random.default_rng(_fold(seed, 21)).standard_normal(
+        (n_ins, d), dtype=np.float32))
+    dead = np.random.default_rng(0).choice(n0, size=max(n_ins // 2, 1), replace=False)
+    midx.delete(dead)
+    _sync(dev)
+    mutate_s = time.monotonic() - t_m
+    s1 = midx.searcher()
+    version = server.swap(s1, seed=_fold(seed, 23))
+    ev = server.swap_events[-1]
+    print(f"[serve-ann] hot-swap v{version}: +{n_ins} inserts "
+          f"({midx.insert_rate:.0f} pts/s) -{len(dead)} tombstones in "
+          f"{mutate_s:.2f}s, staleness={midx.staleness:.3f}; warm+flip "
+          f"{ev['warm_s']:.2f}s with {ev['live_at_flip']} live / "
+          f"{ev['queued_at_flip']} queued at the flip")
+    done0, shed0 = st["completed"], st["shed"]
+    requests2 = loadgen.make_requests(pool, args.serve_requests, sizes, seed=1,
+                                      base_seed=_fold(searcher.rng_seed, 778))
+    loadgen.run_open_loop(server, requests2,
+                          loadgen.poisson_arrivals(args.serve_qps / mean_size,
+                                                   len(requests2), seed=1))
+    st2 = server.stats()
+    dead_set = set(int(i) for i in dead)
+    dead_hits = sum(int(i) in dead_set for req in server.completed[done0:]
+                    for i in req.ids.ravel())
+    print(f"[serve-ann] post-swap stream: "
+          f"{st2['completed'] - done0} served "
+          f"({st2['shed'] - shed0} shed), p99={st2.get('p99_ms')} ms "
+          f"cumulative, tombstoned ids in answers: {dead_hits} "
+          f"(must be 0)")
+    out["mutate"] = {"inserts": n_ins, "deleted": int(dead.size), "mutate_s": mutate_s,
+                     "swap": ev, "completed": st2["completed"] - done0,
+                     "shed": st2["shed"] - shed0, "p99_ms": st2.get("p99_ms"),
+                     "dead_hits": dead_hits, "max_live": st2["max_live"]}
+    return out, served._replace(streams=served.streams + [(requests2, s1)],
+                                mutable=midx, dead=dead)
 
 
 def build_stages(args) -> tuple[str, str]:
@@ -264,6 +390,17 @@ def serve_ann(args) -> ServeRun:
     warm = torch.from_numpy(numpy_queries(d, batch, 1, args.seed + 99)[0]).to(device)
     serve_batches(searcher, spec, [warm], [batch_seed(args.seed, -1)],
                   args.stream_tile)
+
+    if args.serve:
+        out, served = serve_open_loop(searcher, spec, args, _fold(args.seed, 7))
+        summary = {"n": n, "d": d, "device": str(device), "scorer": args.scorer,
+                   "entry": args.entry, "term": args.term, "restarts": args.restarts,
+                   "base_placement": args.base_placement,
+                   "store_dtype": args.store_dtype, "serve": out}
+        return ServeRun(summary=summary, searcher=searcher, build=result, spec=spec,
+                        stream=[], seeds=[], results=[],
+                        ground_truth=torch.from_numpy(served.ground_truth),
+                        served=served)
 
     stream = [torch.from_numpy(q).to(device)
               for q in numpy_queries(d, batch, args.batches, args.seed)]
@@ -429,11 +566,38 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--store-dtype", default="f32", choices=["f32", "bf16"],
                     help="[ann] residual storage dtype for host/disk tiers "
                          "(bf16 = half the rerank bandwidth)")
+    ap.add_argument("--serve", action="store_true",
+                    help="[ann] open-loop serving: ragged Poisson request "
+                         "traffic through the continuous-batching server "
+                         "instead of --batch x --batches blocks")
+    ap.add_argument("--serve-qps", type=float, default=500.0,
+                    help="[ann] offered load for --serve, query rows/s")
+    ap.add_argument("--serve-requests", type=int, default=200,
+                    help="[ann] requests in the offered stream")
+    ap.add_argument("--serve-buckets", default="1,2,4,8,16",
+                    help="[ann] sorted batch-size buckets; requests pad to "
+                         "the smallest that fits")
+    ap.add_argument("--request-sizes", default="1,2,3,4,6,8",
+                    help="[ann] ragged request sizes drawn by the load generator")
+    ap.add_argument("--max-live-batches", type=int, default=4,
+                    help="[ann] admission cap: batches in flight at once")
+    ap.add_argument("--queue-depth", type=int, default=16,
+                    help="[ann] backlog bound; submits past it are shed")
+    ap.add_argument("--serve-mutate", type=int, default=0,
+                    help="[ann] under --serve: after the first stream, insert "
+                         "this many points and tombstone half as many through "
+                         "MutableIndex, hot-swap the mutated index into the "
+                         "live server (warmed before the flip), then serve a "
+                         "second stream")
     return ap
 
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.serve and args.arch != "ann":
+        raise SystemExit("--serve is an --arch ann mode")
+    if args.serve and args.stream_tile:
+        raise SystemExit("--serve buckets requests itself; drop --stream-tile")
     if args.arch == "ann":
         return serve_ann(args)
     return serve_lm_arch(args)

@@ -1026,3 +1026,88 @@ def test_cuda_compact_equals_a_fresh_build(mutated_on_card):
     fresh = build_index(torch.from_numpy(survivors).cuda(), spec, seed=9)
     assert torch.equal(cres.graph.neighbors, fresh.graph.neighbors)
     assert np.array_equal(midx.base, survivors) and midx.version == 1
+
+
+# -- the continuous-batching server and the snapshot Searcher ----------------------
+
+
+@pytest.fixture(scope="module")
+def served_on_card():
+    """A 3,000 x 64 normal world built on the card (NN-Descent + GD), 32
+    queries; module-scoped, so it skips in the tests that take it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from repro_torch.core.engine import Searcher
+
+    rng = np.random.default_rng(23)
+    base = rng.standard_normal((3000, 64), dtype=np.float32)
+    queries = rng.standard_normal((32, 64), dtype=np.float32)
+    return Searcher.build(torch.from_numpy(base).cuda(), seed=23), queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", ["exact", "pq", "sq8"])
+@pytest.mark.parametrize("qn,bucket", [(1, 2), (3, 4), (11, 16), (16, 16)])
+def test_cuda_padded_bucket_equals_direct_search(served_on_card, scorer, qn, bucket):
+    """The server's padded bucket against a direct search of the real rows
+    with the same seed: ids, dists and n_comps bit for bit, pad rows empty."""
+    from repro_torch.launch.server import AnnServer, ServeConfig
+
+    s, queries = served_on_card
+    spec = s.spec(ef=32, k=4, scorer=scorer)
+    srv = AnnServer(s, spec, ServeConfig(buckets=(bucket,)))
+    rows = queries[:qn]
+    direct = s.search(torch.from_numpy(rows).cuda(), spec, 123)
+    padded = srv._search_padded(rows, 123, bucket)
+    for f in ("ids", "dists", "n_comps"):
+        assert torch.equal(getattr(padded, f)[:qn], getattr(direct, f)), f
+    assert (padded.n_comps[qn:] == 0).all() and (padded.ids[qn:] == -1).all()
+
+
+@pytest.mark.cuda
+def test_cuda_ready_follows_the_event(served_on_card):
+    """``_ready`` is False while the batch's event is pending on the stream
+    and True once it has completed; ``_retire`` waits for it."""
+    from repro_torch.launch.server import AnnServer, ServeConfig, _LiveBatch
+
+    s, queries = served_on_card
+    srv = AnnServer(s, s.spec(ef=32, k=4), ServeConfig(buckets=(4,)))
+    req = srv.submit(queries[:3], 5, advance=False)
+    res = srv._search_padded(req.queries, req.seed, req.bucket)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of GPU cycles ahead of the event
+    ev = torch.cuda.Event()
+    ev.record()
+    lb = _LiveBatch(req, res, ev)
+    assert not srv._ready(lb)
+    torch.cuda.synchronize()
+    assert srv._ready(lb)
+    req.t_admit = req.t_dispatch = req.t_enqueue
+    srv._retire(lb)
+    assert req.ids.shape == (3, 4) and req.t_complete >= req.t_enqueue
+
+
+@pytest.mark.cuda
+def test_cuda_searcher_is_a_snapshot(served_on_card):
+    """A MutableIndex Searcher on the card answers bit for bit as before
+    after inserts and deletes written into the mirrors in place (capacity
+    large enough that no growth replaces them)."""
+    from repro_torch.core.mutable import MutableIndex
+
+    s, queries = served_on_card
+    midx = MutableIndex(s.base, s.neighbors, capacity=4096, insert_ef=32, diversify="gd",
+                        device="cuda")
+    snap = midx.searcher()
+    spec = snap.spec(ef=32, k=4)
+    q = torch.from_numpy(queries).cuda()
+    before = snap.search(q, spec, 5)
+    extra = np.random.default_rng(24).standard_normal((200, 64), dtype=np.float32)
+    midx.insert_batch(extra)
+    top1 = np.unique(before.ids[:, 0].cpu().numpy())
+    midx.delete(top1[top1 >= 0])
+    after = snap.search(q, spec, 5)
+    for f in ("ids", "dists", "n_comps", "n_steps"):
+        assert torch.equal(getattr(after, f), getattr(before, f)), f
+    assert midx.cow_clones == 3
+    fresh = midx.searcher().search(q, spec, 5).ids.cpu().numpy()
+    assert not np.isin(fresh, top1[top1 >= 0]).any()

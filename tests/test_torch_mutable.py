@@ -38,6 +38,7 @@ from repro.core import mutable as jmut
 from repro.core.beam_search import random_entries as jrandom_entries
 from repro.core.build import BuildSpec as JBuildSpec
 from repro.core.build import build_index as jbuild_index
+from repro.core.engine import SearchSpec as jengine_spec
 from repro_torch.core import bruteforce, convert
 from repro_torch.core import diversify as pdiv
 from repro_torch.core import io as pio
@@ -534,3 +535,107 @@ def test_serve_diversify_dpg_builds_through_dpg_prune(monkeypatch):
     assert run.build.report.spec.diversify == "dpg" and run.summary["recall@10"] > 0.5
     with pytest.raises(SystemExit):
         serve.parser().parse_args(["--arch", "ann", "--diversify", "rng"])
+
+
+# -- the Searcher from searcher() is a snapshot -----------------------------------
+
+SNAP_N, SNAP_CAPACITY, SNAP_INSERTS = 1500, 4000, 200
+
+
+@pytest.fixture(scope="module")
+def snap_points():
+    """A 1,500 x 16 normal world, 32 queries and 200 points to insert; the
+    capacity (4,000) holds every insert, so no growth replaces the mirrors."""
+    rng = np.random.default_rng(0)
+    return (rng.standard_normal((SNAP_N, D), dtype=np.float32),
+            rng.standard_normal((32, D), dtype=np.float32),
+            rng.standard_normal((SNAP_INSERTS, D), dtype=np.float32))
+
+
+def _snap_index(base):
+    result = build_index(_t(base), BuildSpec(**BUILD), seed=0)
+    return MutableIndex.from_build(_t(base), result, capacity=SNAP_CAPACITY, insert_ef=32,
+                                   diversify="gd")
+
+
+def _same_result(a, b):
+    for f in ("ids", "dists", "n_comps", "n_steps"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("scorer", ["exact", "sq8"])
+def test_searcher_is_a_snapshot(snap_points, scorer):
+    """A Searcher taken before 200 inserts and the deletion of its own top-1
+    answers answers bit for bit as before (its mirrors are cloned on the
+    next write, once each); searcher() with no mutation since copies
+    nothing, and inserts with no searcher() between them clone nothing."""
+    base, queries, extra = snap_points
+    midx = _snap_index(base)
+    s = midx.searcher()
+    assert midx.searcher() is s and midx.cow_clones == 0
+    held = [t.clone() for t in (s.base, s.neighbors, s.tombstones)]
+    spec = s.spec(ef=32, k=4, scorer=scorer)
+    before = s.search(_t(queries), spec, 5)
+    midx.insert_batch(extra)
+    top1 = np.unique(before.ids[:, 0].numpy())
+    midx.delete(top1[top1 >= 0])
+    after = s.search(_t(queries), spec, 5)
+    _same_result(after, before)
+    for t, h in zip((s.base, s.neighbors, s.tombstones), held):
+        assert torch.equal(t, h)
+    mirrors = (midx._base_dev, midx._nbrs_dev, midx._tomb_dev)
+    assert midx.cow_clones == 3
+    assert midx.cow_bytes == sum(t.numel() * t.element_size() for t in mirrors)
+    s2 = midx.searcher()
+    midx.insert_batch(extra[:5])            # clones the three mirrors once more
+    midx.insert_batch(extra[5:10])          # no searcher() since: clones nothing
+    assert midx.cow_clones == 6
+    assert s2.base is not midx._base_dev and s2.base[:SNAP_N].equal(midx._base_dev[:SNAP_N])
+
+
+def test_new_searcher_sees_the_mutations(snap_points):
+    """A searcher() taken after the mutations sees them: no deleted id
+    answers, and an inserted point finds itself."""
+    base, queries, extra = snap_points
+    midx = _snap_index(base)
+    s0 = midx.searcher()
+    spec = s0.spec(ef=32, k=4)
+    top1 = np.unique(s0.search(_t(queries), spec, 5).ids[:, 0].numpy())
+    dead = top1[top1 >= 0]
+    new_ids = midx.insert_batch(extra)
+    midx.delete(dead)
+    s1 = midx.searcher()
+    res = s1.search(_t(queries), spec, 5)
+    assert not np.isin(res.ids.numpy(), dead).any()
+    own = s1.search(_t(extra[:32]), spec, 6)
+    np.testing.assert_array_equal(own.ids[:, 0].numpy(), new_ids[:32])
+    np.testing.assert_array_equal(own.dists[:, 0].numpy(), 0.0)
+
+
+def test_reference_searcher_snapshot(snap_points):
+    """The same steps through the live reference. Its mutations replace its
+    base and adjacency arrays (``.at[].set``), so a Searcher keeps them. Its
+    tombstone words are ``jnp.asarray`` of a host array that ``_set_tomb``
+    then writes in place; on jax's CPU backend that array is sometimes
+    adopted without a copy (when its buffer is aligned), and then the old
+    Searcher sees every later insert and delete. Its answers are held where
+    the words were copied."""
+    base, queries, extra = snap_points
+    key = jax.random.PRNGKey(0)
+    jr = jbuild_index(jnp.asarray(base), JBuildSpec(**BUILD), key)
+    jm = jmut.MutableIndex.from_build(base, jr, key=key, capacity=SNAP_CAPACITY,
+                                      insert_ef=32, diversify="gd")
+    js = jm.searcher()
+    adopted = js.tombstones.unsafe_buffer_pointer() == jm._tomb.ctypes.data
+    held = [np.array(a) for a in (js.base, js.neighbors)]
+    spec = jengine_spec(ef=32, k=4)
+    before = js.search(jnp.asarray(queries), spec, jax.random.PRNGKey(5))
+    jm.insert_batch(extra)
+    top1 = np.unique(np.asarray(before.ids[:, 0]))
+    jm.delete(top1[top1 >= 0])
+    for a, h in zip((js.base, js.neighbors), held):
+        np.testing.assert_array_equal(np.asarray(a), h)
+    if not adopted:
+        after = js.search(jnp.asarray(queries), spec, jax.random.PRNGKey(5))
+        np.testing.assert_array_equal(np.asarray(after.ids), np.asarray(before.ids))
+        np.testing.assert_array_equal(np.asarray(after.n_comps), np.asarray(before.n_comps))
