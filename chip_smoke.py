@@ -245,6 +245,22 @@ Phases (each prints its seconds):
    in service at each sweep point. The launches over phase 10's driven
    runs go into the kernels line (``phase10_launches``); every kernel of
    the path must have launched.
+11. Sharded search and build (``repro_torch.distributed.sharded_ann``, the
+   engine's shard helpers) on phase 4's world and searcher (after phase 10,
+   before phase 6 frees them); 8 batches of 64, ef=64, k=10. (a)
+   ``shard_build`` with P=4 under phase 4's BuildSpec (NN-Descent k=20, 15
+   rounds, GD, pq M=8 K=256): each shard's stage seconds and graph-recall
+   proxy. (b) ``emulated_shard_search`` over the 4 shards (entries from
+   ``shard_entries``) under exact and pq: recall@10 against phase 4's
+   ground truth, comps/query, wall a batch; again with shard 0 dead: no
+   answer in [0, 250,000), recall lower. (c) ``distributed_search`` on a
+   one-rank NCCL group (``make_flat_group``; no gloo fallback) over phase
+   4's whole graph as P=1: exact and pq ids, dists and n_comps
+   bit-identical to ``Searcher.search`` on the same entries; pq on the
+   host and disk tiers with the device run's ids. (d) the all-gather and
+   merge at Q=64, k=10, CUDA events. One card gives no multi-GPU figure.
+   The launches over phase 11's runs go into the kernels line
+   (``phase11_launches``); every kernel of the path must have launched.
 
 Prints a ``{"kernels": [...]}`` line (each row also names the ``kernel``
 symbol timed and its ``yardstick``) and the card's ``nvidia-smi`` line, and
@@ -329,6 +345,12 @@ PHASE10_POST_SWAP_REQUESTS = 120
 PHASE10_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                    "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
                    "distance_matrix_small")
+# phase 11: sharded search on phase 4's world, P shards of n/P rows each
+PHASE11_SHARDS = 4
+PHASE11_SEED = 11
+PHASE11_MERGE_REPS = 200
+PHASE11_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
+                   "distance_matrix_small", "gather_adc_masked")
 # phase 7: the paper's worlds (repro_torch.data.synthetic) and the figures
 # each runs; PAPER_SCALE lists a cut of n where the run needs one (none)
 PAPER_WORLDS = (("SIFT1M", ("fig3", "fig4", "fig5", "fig6")),
@@ -3576,6 +3598,188 @@ def serving_phase(run, rows: list, dev) -> dict:
     return launches10
 
 
+# -- phase 11: sharded search ------------------------------------------------------
+
+
+def shard_builds(run, launches11: dict):
+    """(a): ``shard_build`` with P=4 under phase 4's BuildSpec; each shard's
+    stage seconds and graph-recall proxy."""
+    from repro_torch.distributed.sharded_ann import shard_build
+
+    spec = run.build.report.spec
+    sb, s = event_s(lambda: counted(launches11, lambda: shard_build(
+        run.searcher.base, PHASE11_SHARDS, spec=spec, seed=PHASE11_SEED)))
+    for i, rep in enumerate(sb.reports):
+        print(f"  shard {i} ({rep.n:,} rows): build {rep.wall_total_s:.3f} s (construct "
+              f"{rep.wall_construct_s:.3f}, diversify {rep.wall_diversify_s:.3f}, compress "
+              f"{rep.wall_compress_s:.3f}), rounds {rep.rounds}, graph-recall proxy "
+              f"{rep.graph_recall_proxy}")
+        check(0.0 < rep.graph_recall_proxy <= 1.0, f"shard {i}'s graph-recall proxy out of range")
+    print(f"  shard_build P={PHASE11_SHARDS}: {s:.2f} s (phase 4's single build "
+          f"{run.build.report.wall_total_s:.2f} s)")
+    check(sb.pq_codes is not None and sb.pq_codes.shape[:2] == sb.nbr_shards.shape[:2],
+          "the shard build left no PQ codes")
+    return sb
+
+
+def emulated_runs(run, sb, launches11: dict, dev) -> dict:
+    """(b): ``emulated_shard_search`` over the four shards under exact and
+    pq, all live and with shard 0 dead: recall@10 against phase 4's ground
+    truth, comps/query and wall per batch (the pq LUTs built inside)."""
+    from repro_torch.core.engine import emulated_shard_search, shard_entries
+    from repro_torch.core.topk import recall_at_k
+    from repro_torch.distributed.sharded_ann import pq_shard_state
+
+    P, per = sb.nbr_shards.shape[:2]
+    out = {}
+    for scorer in ("exact", "pq"):
+        spec = run.spec._replace(scorer=scorer)
+        for dead in (-1, 0):
+            live = torch.ones((P,), dtype=torch.bool, device=dev)
+            if dead >= 0:
+                live[dead] = False
+            ids, comps, walls = [], [], []
+            for b, q in enumerate(run.stream):
+                gen = torch.Generator(device=dev).manual_seed(PHASE11_SEED * 1000 + b)
+                ent = shard_entries(gen, P, q.shape[0], per, spec.num_seeds)
+
+                def one():
+                    states = None
+                    if scorer == "pq":
+                        states = [pq_shard_state(q, sb.pq_codebooks[s], sb.pq_codes[s],
+                                                 spec.metric) for s in range(P)]
+                    return emulated_shard_search(q, sb.base_shards, sb.nbr_shards, ent, live,
+                                                 spec, scorer_states=states)
+
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, i, c = counted(launches11, one)
+                walls.append(time.perf_counter() - t)
+                ids.append(i)
+                comps.append(c)
+            found = torch.cat(ids)
+            r = {"recall@10": recall_at_k(found, run.ground_truth),
+                 "recall@1": float((found[:, 0] == run.ground_truth[:, 0]).float().mean()),
+                 "comps": float(torch.cat(comps).float().mean()),
+                 "wall_ms": 1e3 * float(np.mean(walls))}
+            out[(scorer, dead)] = r
+            print(f"  emulated {scorer}, {'shard 0 dead' if dead == 0 else 'all live'}: "
+                  f"recall@10 {r['recall@10']:.4f}, recall@1 {r['recall@1']:.4f}, "
+                  f"comps/query {r['comps']:.1f}, wall {r['wall_ms']:.1f} ms a batch of "
+                  f"{run.stream[0].shape[0]}")
+            if dead >= 0:
+                hit = ((found >= dead * per) & (found < (dead + 1) * per)).sum()
+                check(int(hit) == 0, f"{int(hit)} answers from the dead shard ({scorer})")
+        check(out[(scorer, 0)]["recall@10"] < out[(scorer, -1)]["recall@10"],
+              f"recall did not fall with shard 0 dead ({scorer})")
+    return out
+
+
+def one_rank_search(run, launches11: dict, dev) -> dict:
+    """(c): ``distributed_search`` on a one-rank NCCL group over phase 4's
+    whole graph as P=1: exact and pq bit-identical to ``Searcher.search`` on
+    the same entries; pq on the host and disk tiers (the Searcher's stores)
+    with the device pq run's ids. Returns the group."""
+    import torch.distributed as dist
+    from repro_torch.core.engine import gather_rows
+    from repro_torch.distributed.sharded_ann import distributed_search
+    from repro_torch.launch.mesh import make_flat_group
+
+    fg = make_flat_group(dev)
+    backend = dist.get_backend(fg.group)
+    print(f"  flat group: backend {backend}, rank {fg.rank} of {fg.size}")
+    check(backend == "nccl" and fg.size == 1, "the one-rank group is not NCCL")
+    # NCCL sets its communicator up at the first collective: timed apart
+    one = torch.zeros((1, 1), device=dev)
+    _, first_s = event_s(lambda: gather_rows(one, fg.group))
+    print(f"  the first collective (NCCL communicator set-up): {first_s * 1e3:.1f} ms")
+    s = run.searcher
+    check(s.tombstones is None, "phase 4's searcher carries tombstones")
+    live = torch.ones((1,), dtype=torch.bool, device=dev)
+    stores = {pl: s.base_store(pl) for pl in ("host", "disk")}
+    walls: dict[str, list] = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = counted(launches11, fn)
+        walls.setdefault(label, []).append(time.perf_counter() - t)
+        return res
+
+    for scorer in ("exact", "pq"):
+        spec = run.spec._replace(scorer=scorer)
+        kw = dict(ef=spec.ef, k=spec.k, metric=spec.metric, group=fg.group,
+                  expand_width=spec.expand_width, r_tile=spec.r_tile, scorer=scorer,
+                  rerank=spec.rerank)
+        if scorer == "pq":
+            kw.update(pq_codebooks=s.pq.codebooks[None], pq_codes=s.pq.codes[None])
+        for q, seed in zip(run.stream, run.seeds):
+            ent, _ = s.seed(q, spec, seed)
+            want = timed(f"Searcher {scorer}", lambda: s.search(q, spec, entries=ent))
+            d, i, c = timed(f"distributed {scorer}", lambda: distributed_search(
+                q, s.base[None], s.neighbors[None], ent[None], live, **kw))
+            check(torch.equal(i, want.ids) and torch.equal(d, want.dists)
+                  and torch.equal(c, want.n_comps),
+                  f"one-rank distributed_search differs from Searcher.search ({scorer})")
+            if scorer != "pq":
+                continue
+            for pl, store in stores.items():
+                _, ti, _ = timed(f"distributed pq {pl}", lambda: distributed_search(
+                    q, None, s.neighbors[None], ent[None], live, base_placement=pl,
+                    host_base=store, **kw))
+                check(torch.equal(ti, i), f"the {pl} tier's ids differ from device pq's")
+    for label, w in walls.items():
+        print(f"  {label}: {1e3 * float(np.mean(w)):.1f} ms a batch (mean of {len(w)})")
+    print("  one rank: exact and pq ids, dists and n_comps bit-identical to Searcher.search "
+          "on 8 batches; host and disk pq ids identical to device pq")
+    return fg
+
+
+def merge_ms(run, fg) -> None:
+    """(d): the all-gather and merge of (Q=64, k=10) answers on the group,
+    by CUDA events."""
+    from repro_torch.core.engine import gather_merge, gather_rows, merge_shard_results
+
+    Q, k = run.stream[0].shape[0], run.spec.k
+    g = torch.Generator(device=run.searcher.device).manual_seed(PHASE11_SEED)
+    d = torch.rand((Q, k), generator=g, device=g.device)
+    ids = torch.randint(0, 1_000_000, (Q, k), generator=g, device=g.device, dtype=torch.int32)
+    both = cuda_ms(lambda: gather_merge(d, ids, k, fg.group), PHASE11_MERGE_REPS)
+    gather = cuda_ms(lambda: (gather_rows(d, fg.group), gather_rows(ids, fg.group)),
+                     PHASE11_MERGE_REPS)
+    merge = cuda_ms(lambda: merge_shard_results(d, ids, k), PHASE11_MERGE_REPS)
+    print(f"  merge at Q={Q}, k={k}, {fg.size} rank(s): all-gather + merge {both:.4f} ms, "
+          f"the two all-gathers {gather:.4f} ms, the merge alone {merge:.4f} ms "
+          f"(CUDA events, mean of {PHASE11_MERGE_REPS})")
+
+
+def sharded_phase(run, dev) -> dict:
+    """Phase 11 on phase 4's world (module docstring). Returns the launches
+    over its driven runs, by kernel."""
+    import torch.distributed as dist
+
+    launches11: dict[str, int] = {}
+    t = time.perf_counter()
+    sb = shard_builds(run, launches11)
+    print(f"  [(a)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    emulated_runs(run, sb, launches11, dev)
+    del sb
+    torch.cuda.empty_cache()
+    print(f"  [(b)] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    fg = one_rank_search(run, launches11, dev)
+    print(f"  [(c)] {time.perf_counter() - t:.1f} s")
+    try:
+        merge_ms(run, fg)
+    finally:
+        dist.destroy_process_group()
+    print(f"launches over phase 11's runs: {launches11}")
+    check(all(launches11.get(name, 0) > 0 for name in PHASE11_KERNELS),
+          f"a kernel of phase 11's path never launched: {launches11}")
+    return launches11
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3783,8 +3987,12 @@ def main(argv=None) -> int:
 
     t0 = phase("phase 10: the continuous-batching server on phase 4's world")
     launches10 = serving_phase(run, rows, dev)
-    del run
     done(t0, "phase 10")
+
+    t0 = phase("phase 11: sharded search and build on phase 4's world")
+    launches11 = sharded_phase(run, dev)
+    del run
+    done(t0, "phase 11")
 
     t0 = phase("phase 6: LM serving, TinyLlama-1.1B at full width")
     flash_row["launches"] = lm_serving()
@@ -3798,6 +4006,7 @@ def main(argv=None) -> int:
     for r in rows:
         r["phase9_launches"] = launches9.get(r["name"], 0)
         r["phase10_launches"] = launches10.get(r["name"], 0)
+        r["phase11_launches"] = launches11.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

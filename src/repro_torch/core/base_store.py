@@ -216,7 +216,10 @@ class BaseStore:
             self._spill_dir = None
 
     @classmethod
-    def wrap(cls, base, placement: str = "device", dtype: str = "f32") -> "BaseStore":
+    def wrap(cls, base, placement: str = "device", dtype: str = "f32",
+             device=None) -> "BaseStore":
+        """``base`` itself where it is a store of (``placement``, ``dtype``),
+        else a new store over it whose rows go to ``device``."""
         if isinstance(base, BaseStore):
             if base.placement != placement:
                 raise ValueError(f"BaseStore placement {base.placement!r} != "
@@ -224,7 +227,7 @@ class BaseStore:
             if base.dtype != dtype:
                 raise ValueError(f"BaseStore dtype {base.dtype!r} != requested {dtype!r}")
             return base
-        return cls(base, placement, dtype=dtype)
+        return cls(base, placement, dtype=dtype, device=device)
 
     @property
     def nbytes(self) -> int:

@@ -4,8 +4,8 @@ Takes numpy arrays as ``repro`` produces them (``np.asarray(graph.neighbors)``,
 ``.dists``, ``hubs`` through :func:`tensor`, the base, a uint32 visited or
 tombstone bitmap, the sq8 and PQ tables, an ``HnswIndex``'s layer arrays,
 a ``ForestIndex``'s planes, offsets and leaves, a ``MutableIndex``'s
-state) and returns the port's tensors, tables, indexes, ``Searcher`` and
-``MutableIndex``. uint32 bitmap words become int32 words bit for bit
+state, a ``ShardBuildResult``'s stacks) and returns the port's tensors,
+tables, indexes, ``Searcher``, ``MutableIndex`` and ``ShardBuildResult``. uint32 bitmap words become int32 words bit for bit
 (torch has no unsigned shift or scatter-add on the CPU);
 :func:`bitmap_to_uint32` goes back. A saved index needs no carrying by
 hand: ``core.io.load_index(path).to_searcher(device)`` reads an artifact
@@ -19,6 +19,7 @@ import torch
 from .._device import resolve_device
 from ..baselines.pq import PQIndex
 from ..baselines.tree import ForestIndex
+from ..distributed.sharded_ann import ShardBuildResult
 from .engine import Searcher
 from .graph_index import HnswIndex, KnnGraph
 from .mutable import MutableIndex
@@ -137,3 +138,19 @@ def mutable_from_numpy(state: dict, *, metric: str = "l2", rng_seed: int = 0,
     return MutableIndex.from_state(state, metric=metric, rng_seed=rng_seed,
                                    insert_ef=insert_ef, diversify=diversify,
                                    max_keep=max_keep, n_entries=n_entries, device=device)
+
+
+def shards_from_numpy(base_shards, nbr_shards, pq_codebooks=None, pq_codes=None,
+                      device="cuda") -> ShardBuildResult:
+    """The reference's sharded operands (a ``ShardBuildResult``'s, or
+    ``shard_graph`` / ``shard_pq`` output, as numpy: base shards (P, n/P,
+    d), neighbor shards (P, n/P, R), codebooks (P, M, K, dsub) and codes
+    (P, n/P, M) uint8) -> the port's ``ShardBuildResult`` (no reports)."""
+    return ShardBuildResult(
+        base_shards=tensor(base_shards, torch.float32, device),
+        nbr_shards=tensor(nbr_shards, torch.int32, device),
+        pq_codebooks=(None if pq_codebooks is None
+                      else tensor(pq_codebooks, torch.float32, device)),
+        pq_codes=None if pq_codes is None else tensor(pq_codes, torch.uint8, device),
+        reports=(),
+    )

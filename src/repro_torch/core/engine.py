@@ -22,6 +22,13 @@ exact scan of the allowed ids where the filter is too selective to
 traverse). ``Searcher.base`` stays on the device under every placement, as
 the reference's does.
 
+The shard helpers at the end (``globalize_ids``, ``merge_shard_results``,
+``shard_entries``, ``shard_search``, ``shard_traverse``,
+``emulated_shard_search``) run this engine's beam per shard for
+``distributed.sharded_ann``: the reference's ``shard_map`` bodies become
+per-rank calls over a ``torch.distributed`` group, their ``all_gather`` /
+``psum`` the group's ``all_gather_single`` / ``all_reduce``.
+
 Seeding draws from ``torch.Generator``s seeded from ints (the Searcher's
 ``rng_seed``, or a per-call ``seed``), not from ``jax.random`` keys, so
 random entries, projections and restart draws differ from the
@@ -37,6 +44,7 @@ from collections import OrderedDict
 from typing import NamedTuple, Protocol
 
 import torch
+import torch.distributed as dist
 
 from .base_store import BaseStore, StagedRows, check_placement, rerank_gathered
 from .beam_search import (
@@ -44,6 +52,7 @@ from .beam_search import (
     TraverseResult,
     beam_search,
     beam_traverse,
+    dedup_rows,
     projection_entries,
     random_entries,
     rerank_slice,
@@ -52,7 +61,7 @@ from .beam_search import (
 from .filters import CompiledFilter, FilterSpec, compile_filter, remap_denied_seeds
 from .graph_index import HnswIndex, KnnGraph
 from .scorers import get_scorer
-from .topk import INVALID, topk_smallest
+from .topk import INF, INVALID, topk_smallest
 
 
 class SearchSpec(NamedTuple):
@@ -841,3 +850,171 @@ class Searcher:
             tombstones=self.tombstones, deny=None if cf is None else cf.deny,
         )
         return res._replace(n_comps=res.n_comps + extra), td, tc + extra[None, :]
+
+
+# -- shard-level plumbing (the distributed layer runs THIS engine per shard) --
+
+
+def globalize_ids(ids: torch.Tensor, shard_id, per: int) -> torch.Tensor:
+    """Local row ids -> global ids for contiguous shard ``shard_id``
+    (INVALID kept)."""
+    return torch.where(ids >= 0, ids + shard_id * per, torch.full_like(ids, INVALID))
+
+
+def merge_shard_results(dists: torch.Tensor, ids: torch.Tensor,
+                        k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, P*k) gathered per-shard answers -> the k global best, ascending.
+    Ties go to the lowest column, as the reference's ``lax.top_k`` breaks
+    them (a stable sort)."""
+    md, sel = topk_smallest(dists, k)
+    return md, ids.gather(1, sel)
+
+
+def shard_entries(generator: torch.Generator, n_shards: int, Q: int, per: int,
+                  E: int) -> torch.Tensor:
+    """Random per-shard seeds, (n_shards, Q, E) int32 local ids drawn on the
+    generator's device: the ``random`` strategy drawn once per shard (each
+    shard's graph is its own id space). A repeat within a row becomes
+    INVALID, as ``random_entries`` leaves it: the beam needs dup-free rows
+    (the reference's draw keeps repeats)."""
+    draw = torch.randint(0, per, (n_shards * Q, E), generator=generator,
+                         device=generator.device, dtype=torch.int32)
+    return dedup_rows(draw).reshape(n_shards, Q, E)
+
+
+def _if_live(live, x: torch.Tensor, fill) -> torch.Tensor:
+    """``x`` where the shard is live, else ``fill`` everywhere: a dead
+    shard answers (+inf, INVALID) and costs no comparisons."""
+    live = torch.as_tensor(live, dtype=torch.bool, device=x.device)
+    return torch.where(live, x, torch.full_like(x, fill))
+
+
+# the collective behind ``all_gather_into_tensor`` (deprecated in its favour
+# where both exist)
+_all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """All-gather every rank's (Q, m) block into (Q, P*m), rank-major
+    within a row: the reference's ``all_gather`` + transpose + reshape."""
+    P = dist.get_world_size(group)
+    Q, m = x.shape
+    out = x.new_empty((P * Q, m))
+    _all_gather_single(out, x.contiguous(), group=group)
+    return out.reshape(P, Q, m).transpose(0, 1).reshape(Q, P * m)
+
+
+def gather_merge(dists: torch.Tensor, gids: torch.Tensor, k: int, group=None):
+    """Every rank's (Q, k) answers in global ids -> the k global best, the
+    same on every rank."""
+    return merge_shard_results(gather_rows(dists, group), gather_rows(gids, group), k)
+
+
+def shard_search(queries, base, neighbors, entries, live, *, spec: SearchSpec,
+                 group, per: int, scorer_state=None, restart_keys=None, deny=None):
+    """One rank's part of shard-and-merge: the SAME beam core as single-host
+    search over this rank's shard (the global rows from ``rank * per``),
+    then the merge across ``group`` (a ``torch.distributed`` group; None is
+    the default one). ``live`` False drops a failed or straggling
+    shard's contribution (degrades recall, never the query).
+    ``scorer_state`` is this shard's operand for ``spec.scorer`` (e.g. its
+    local PQ codes + the batch LUTs); the rerank inside ``beam_search`` runs
+    against the local base, so merged distances are exact whatever the
+    scorer. ``restart_keys`` (the same on every rank) and ``deny`` (THIS
+    shard's packed filter words over its local ids; entries already
+    filter-valid) reach the shard's beam unchanged.
+
+    Returns the merged (dists (Q, k), global ids (Q, k)) and the live
+    shards' summed comparisons (Q,), the same on every rank."""
+    if spec.base_placement != "device":
+        raise ValueError(
+            "shard_search reranks in-shard against a device-resident base; "
+            "for base_placement='host' use shard_traverse + the caller-side "
+            "host rerank (distributed_search(base_placement='host'))"
+        )
+    res = beam_search(
+        queries, base, neighbors, entries,
+        ef=spec.ef, k=spec.k, metric=spec.metric,
+        max_steps=spec.max_steps, expand_width=spec.expand_width,
+        r_tile=spec.r_tile, scorer=spec.scorer, scorer_state=scorer_state,
+        rerank=spec.rerank,
+        term=spec.term, stable_steps=spec.stable_steps,
+        restarts=spec.restarts, restart_gate=spec.restart_gate,
+        restart_keys=restart_keys, deny=deny,
+    )
+    gids = globalize_ids(res.ids, dist.get_rank(group), per)
+    md, mi = gather_merge(_if_live(live, res.dists, INF), _if_live(live, gids, INVALID),
+                          spec.k, group)
+    comps = _if_live(live, res.n_comps, 0)
+    dist.all_reduce(comps, group=group)
+    return md, mi, comps
+
+
+def shard_traverse(queries, neighbors, entries, live, *, spec: SearchSpec,
+                   group, per: int, r: int, scorer_state,
+                   restart_keys=None, deny=None):
+    """One rank's part of the host-tier distributed path: traverse on the
+    shard's code table only (no float base operand), globalize the
+    top-``r`` survivors and all-gather them; the exact rerank runs after,
+    against the one host-resident base no shard could fit.
+
+    Returns ((Q, P*r) global survivor ids, (Q,) summed RAW scored-id
+    counts), the same on every rank; the caller scales the counts to the
+    paper's currency once it knows the store's d."""
+    trav = beam_traverse(
+        queries, neighbors, entries,
+        ef=spec.ef, metric=spec.metric, max_steps=spec.max_steps,
+        expand_width=spec.expand_width, r_tile=spec.r_tile,
+        scorer=spec.scorer, scorer_state=scorer_state,
+        k=spec.k, term=spec.term, stable_steps=spec.stable_steps,
+        restarts=spec.restarts, restart_gate=spec.restart_gate,
+        restart_keys=restart_keys, deny=deny,
+    )
+    gids = globalize_ids(trav.cand_ids[:, :r], dist.get_rank(group), per)
+    comps = _if_live(live, trav.n_comps, 0)
+    dist.all_reduce(comps, group=group)
+    return gather_rows(_if_live(live, gids, INVALID), group), comps
+
+
+def emulated_shard_search(queries, base_shards, nbr_shards, entries, live,
+                          spec: SearchSpec, scorer_states=None,
+                          restart_keys=None, denies=None):
+    """A host-side loop with :func:`shard_search`'s semantics, for runs where
+    the logical shards outnumber the ranks: one shard after another through
+    the same beam, then the same merge. ``base_shards`` / ``nbr_shards`` /
+    ``entries`` are (P, ...) stacks (or lists), ``live`` (P,) bool;
+    ``scorer_states`` (optional) a per-shard list of scorer operands,
+    ``denies`` (optional) a per-shard list of packed filter words.
+
+    Returns (dists (Q, k), global ids (Q, k)) as the reference's does, and
+    the live shards' summed comparisons (Q,), which :func:`shard_search`
+    also returns."""
+    if spec.base_placement != "device":
+        raise ValueError(
+            "emulated_shard_search reranks in-shard against device-resident "
+            "base shards; the host tier goes through "
+            "distributed_search(base_placement='host')"
+        )
+    per = base_shards[0].shape[0]
+    live = torch.as_tensor(live, dtype=torch.bool, device=queries.device)
+    all_d, all_i = [], []
+    comps = None
+    for s in range(len(base_shards)):
+        res = beam_search(
+            queries, base_shards[s], nbr_shards[s], entries[s],
+            ef=spec.ef, k=spec.k, metric=spec.metric,
+            max_steps=spec.max_steps, expand_width=spec.expand_width,
+            r_tile=spec.r_tile, scorer=spec.scorer,
+            scorer_state=None if scorer_states is None else scorer_states[s],
+            rerank=spec.rerank,
+            term=spec.term, stable_steps=spec.stable_steps,
+            restarts=spec.restarts, restart_gate=spec.restart_gate,
+            restart_keys=restart_keys,
+            deny=None if denies is None else denies[s],
+        )
+        all_d.append(_if_live(live[s], res.dists, INF))
+        all_i.append(_if_live(live[s], globalize_ids(res.ids, s, per), INVALID))
+        c = _if_live(live[s], res.n_comps, 0)
+        comps = c if comps is None else comps + c
+    md, mi = merge_shard_results(torch.cat(all_d, 1), torch.cat(all_i, 1), spec.k)
+    return md, mi, comps

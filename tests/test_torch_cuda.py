@@ -1111,3 +1111,79 @@ def test_cuda_searcher_is_a_snapshot(served_on_card):
     assert midx.cow_clones == 3
     fresh = midx.searcher().search(q, spec, 5).ids.cpu().numpy()
     assert not np.isin(fresh, top1[top1 >= 0]).any()
+
+
+@pytest.fixture(scope="module")
+def nccl_shard_world():
+    """A one-rank NCCL flat group and one shard on the card: n=4,000, d=16
+    normal rows, the exact construct + GD + pq (M=8, K=64), 50 queries and
+    their (1, Q, 8) entries. The group goes with the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL and the CUDA kernels have no CPU mode)")
+    import torch.distributed as dist
+    from repro_torch.core.build import BuildSpec
+    from repro_torch.core.engine import shard_entries
+    from repro_torch.distributed.sharded_ann import shard_build
+    from repro_torch.launch.mesh import make_flat_group
+
+    rng = np.random.default_rng(24)
+    base = torch.from_numpy(rng.standard_normal((4000, 16), dtype=np.float32)).cuda()
+    queries = torch.from_numpy(rng.standard_normal((50, 16), dtype=np.float32)).cuda()
+    sb = shard_build(base, 1, spec=BuildSpec(construct="exact", diversify="gd", graph_k=12,
+                                             compress="pq", pq_m=8, pq_k=64, pq_iters=5,
+                                             proxy_sample=0, lid_sample=0), seed=0)
+    ent = shard_entries(torch.Generator(device="cuda").manual_seed(3), 1, 50, 4000, 8)
+    created = not dist.is_initialized()
+    fg = make_flat_group("cuda")
+    yield fg, sb, queries, ent
+    if created:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scorer", ["exact", "pq"])
+def test_cuda_one_rank_nccl_search_matches_emulated_and_searcher(nccl_shard_world, scorer):
+    """distributed_search on one NCCL rank: bit for bit the emulated loop
+    over the same shard and a Searcher over it, on the same entries."""
+    import torch.distributed as dist
+    from repro_torch.baselines.pq import PQIndex
+    from repro_torch.core.engine import Searcher, SearchSpec, emulated_shard_search
+    from repro_torch.distributed.sharded_ann import distributed_search, pq_shard_state
+
+    fg, sb, q, ent = nccl_shard_world
+    assert dist.get_backend(fg.group) == "nccl" and fg.size == 1
+    spec = SearchSpec(ef=48, k=4, scorer=scorer)
+    live = torch.ones((1,), dtype=torch.bool, device="cuda")
+    kw = dict(ef=48, k=4, group=fg.group, scorer=scorer)
+    states = None
+    if scorer == "pq":
+        kw.update(pq_codebooks=sb.pq_codebooks, pq_codes=sb.pq_codes)
+        states = [pq_shard_state(q, sb.pq_codebooks[0], sb.pq_codes[0], "l2")]
+    d, i, c = distributed_search(q, sb.base_shards, sb.nbr_shards, ent, live, **kw)
+    ed, ei, ec = emulated_shard_search(q, sb.base_shards, sb.nbr_shards, ent, live, spec,
+                                       scorer_states=states)
+    assert torch.equal(i, ei) and torch.equal(d, ed) and torch.equal(c, ec)
+    pq = PQIndex(codebooks=sb.pq_codebooks[0], codes=sb.pq_codes[0], M=8, K=64)
+    s = Searcher(sb.base_shards[0], sb.nbr_shards[0], pq=pq)
+    want = s.search(q, s.spec(ef=48, k=4, scorer=scorer, pq_k=64), entries=ent[0])
+    assert torch.equal(i, want.ids) and torch.equal(d, want.dists)
+    assert torch.equal(c, want.n_comps)
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_host_tiers_match_device_pq(nccl_shard_world):
+    from repro_torch.core.base_store import BaseStore
+    from repro_torch.distributed.sharded_ann import distributed_search
+
+    fg, sb, q, ent = nccl_shard_world
+    live = torch.ones((1,), dtype=torch.bool, device="cuda")
+    kw = dict(ef=48, k=4, group=fg.group, scorer="pq", pq_codebooks=sb.pq_codebooks,
+              pq_codes=sb.pq_codes)
+    d, i, c = distributed_search(q, sb.base_shards, sb.nbr_shards, ent, live, **kw)
+    for placement in ("host", "disk"):
+        store = BaseStore(sb.base_shards[0], placement, device="cuda")
+        hd, hi, hc = distributed_search(q, None, sb.nbr_shards, ent, live,
+                                        base_placement=placement, host_base=store, **kw)
+        assert torch.equal(hi, i) and torch.equal(hd, d), placement
+        assert (hc - c).abs().max() <= 1, placement
+        store.close()

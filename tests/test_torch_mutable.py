@@ -613,29 +613,36 @@ def test_new_searcher_sees_the_mutations(snap_points):
 
 
 def test_reference_searcher_snapshot(snap_points):
-    """The same steps through the live reference. Its mutations replace its
-    base and adjacency arrays (``.at[].set``), so a Searcher keeps them. Its
-    tombstone words are ``jnp.asarray`` of a host array that ``_set_tomb``
-    then writes in place; on jax's CPU backend that array is sometimes
-    adopted without a copy (when its buffer is aligned), and then the old
-    Searcher sees every later insert and delete. Its answers are held where
-    the words were copied."""
+    """The same steps through the live reference. Its device mirrors of the
+    base, the adjacency and the tombstone words are ``jnp.asarray`` of host
+    arrays (``src/repro/core/mutable.py``: ``_push_all_device``) that later
+    inserts and deletes write in place before they replace the mirror. On
+    jax's CPU backend ``jnp.asarray`` sometimes adopts the host buffer
+    without a copy (when it is aligned), and then the old Searcher sees
+    every later write to that array. Adoption is detected per array, by
+    its buffer's address against the host array's. Each array that was
+    copied is held unchanged; the answers are held only where none of the
+    three was adopted."""
     base, queries, extra = snap_points
     key = jax.random.PRNGKey(0)
     jr = jbuild_index(jnp.asarray(base), JBuildSpec(**BUILD), key)
     jm = jmut.MutableIndex.from_build(base, jr, key=key, capacity=SNAP_CAPACITY,
                                       insert_ef=32, diversify="gd")
     js = jm.searcher()
-    adopted = js.tombstones.unsafe_buffer_pointer() == jm._tomb.ctypes.data
-    held = [np.array(a) for a in (js.base, js.neighbors)]
+    mirrors = {"base": (js.base, jm._base), "neighbors": (js.neighbors, jm._nbrs),
+               "tombstones": (js.tombstones, jm._tomb)}
+    adopted = {name: dev.unsafe_buffer_pointer() == host.ctypes.data
+               for name, (dev, host) in mirrors.items()}
+    held = {name: np.array(dev) for name, (dev, _) in mirrors.items()}
     spec = jengine_spec(ef=32, k=4)
     before = js.search(jnp.asarray(queries), spec, jax.random.PRNGKey(5))
     jm.insert_batch(extra)
     top1 = np.unique(np.asarray(before.ids[:, 0]))
     jm.delete(top1[top1 >= 0])
-    for a, h in zip((js.base, js.neighbors), held):
-        np.testing.assert_array_equal(np.asarray(a), h)
-    if not adopted:
+    for name, (dev, _) in mirrors.items():
+        if not adopted[name]:
+            np.testing.assert_array_equal(np.asarray(dev), held[name], err_msg=name)
+    if not any(adopted.values()):
         after = js.search(jnp.asarray(queries), spec, jax.random.PRNGKey(5))
         np.testing.assert_array_equal(np.asarray(after.ids), np.asarray(before.ids))
         np.testing.assert_array_equal(np.asarray(after.n_comps), np.asarray(before.n_comps))
