@@ -77,7 +77,12 @@ Phases (each prints its seconds):
    non-causal, non-causal + window; GQA ratios 1 to 8; dh 40, 64, 80 and
    128; a ragged tail, S = 127 / 128 / 129 around the bf16 kernel's
    128-row tile, S = 1, a window of 128 (a key-tile edge); TinyLlama's
-   layer shape (B=8, S=2048, 32/4, dh=64).
+   layer shape (B=8, S=2048, 32/4, dh=64). Past 128 (the bf16 kernel's
+   64-key stages, the fp32 kernel's 16 columns a thread): dh = dhv = 256
+   and DeepSeek's dh 192 / dhv 128, fp32 and bf16, causal with and
+   without a window, S = 65 / 127 / 129 / 300 around the tiles, ragged head
+   dims (200 / 160, 64 / 256, 160 / 200); Gemma3's layer shape (B=8,
+   S=2048, 16/8, dh=256) with its local window of 1024 and without.
    fp32: rtol 2e-5, atol 2e-5 (the reference's own kernel tests); bf16:
    rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
    fp32 values that agree to ~1e-6.
@@ -118,8 +123,11 @@ Phases (each prints its seconds):
    share of one served batch under the exact and the pq scorer, and one
    full-world NN-Descent round under the profiler. flash_attention (bf16): one call runs
    ``flash_attention_wgmma_kernel`` once (by symbol, under the profiler),
-   its SASS holds HGMMA (``cuobjdump``), and one layer at the reference's
-   prefill_32k shape (B=32, S=32768) is timed beside SDPA.
+   its SASS holds HGMMA (``cuobjdump``), one layer at the reference's
+   prefill_32k shape (B=32, S=32768) is timed beside SDPA, and Gemma3-12B's
+   layer (B=8, S=2048, 16/8, dh=256; global, and local with its window of
+   1024) per recorded launch beside its plain version and SDPA (the
+   window as a boolean mask), into the row's ``shapes``.
 6. LM serving at full width: TinyLlama-1.1B (22 layers, d=2048, GQA 32/4,
    bf16, random weights from seed 0) through ``repro_torch.models``: (a)
    init on the card; (b) ``prefill`` of 8 x 2048 tokens, whose attention
@@ -132,6 +140,37 @@ Phases (each prints its seconds):
    --batch 8 --tokens 32 --max-len 2048``. One prefill call and 8 decode
    steps (batch 8, caches of 2048) also run under the profiler: device-busy
    share and the device ops that lead.
+12. MoE and hybrid LM serving at full width (after phase 6, before phase 7,
+   on an empty card): Qwen3-30B-A3B (48 layers, 128 experts top-8, GShard
+   dispatch at capacity_factor 1.25) and Gemma3-12B (48 layers, 5 local
+   (window 1024) : 1 global, d_head 256), bf16, random weights from seed 0.
+   For each: (a) init on the card, the parameter count within 1% of the
+   published size (and equal to the count from the config's fields), peak
+   GiB; (b) ``prefill`` of B x 2048 (Qwen3 B=4, Gemma3 B=8), one flash
+   launch a layer and no other kernel of the port, finite logits, tokens/s;
+   for Qwen3 the assignments dropped past capacity; (c) the same prefill
+   with the plain attention on two batches: in lock-step, the kernel beside
+   the plain attention on every layer's q, k and v, each within FLASH_TOL
+   (the share of outputs a bf16 ulp apart printed per layer kind); the
+   same argmax on all rows but one; last-position logits within
+   LM_LOGIT_RTOL of the largest, or no further from the plain path's than
+   those of the same model on PyTorch's own bf16 attention
+   (scaled_dot_product_attention). Over 48 bf16 layers of random weights a
+   perturbation of any size grows to ~5% of the largest logit: on an H100
+   at 700 W, Gemma3's kernel path sat 5.3% from the plain one (~0.1% of
+   each layer's outputs one bf16 ulp apart), the library's 6.5% (13-39%
+   apart); TinyLlama's 22 layers (phase 6) stay within LM_LOGIT_RTOL; (d)
+   fp32 weights at full width, prefill == decode within 1e-3 relative; (e)
+   ``serve --arch <arch> --batch 8 --tokens 32 --max-len 2048``. One
+   prefill and 8 decode steps also run under the profiler (busy share, the
+   leading ops; for Qwen3 the device time split into router and dispatch,
+   expert products and combine by record_function labels). Cuts: Qwen3's
+   prefill batch is 4, not 8 (its 56.9 GiB of weights leave less room than
+   TinyLlama's); (d) runs 2 layers of Qwen3 (at capacity_factor E / K =
+   16, so C = S and prefill drops nothing, as decode's C = 1 never does; at
+   1.25 the reference's own prefill and decode differ) and 6 layers of
+   Gemma3 (one 5 : 1 period) with local_window 128 on 2 x 192 tokens, so
+   that the decode rings wrap.
 
 7. The paper's experiment through ``repro_torch.paper`` (the counterpart
    of the reference's ``benchmarks/run.py``), 1,000 queries a world, at the
@@ -381,6 +420,13 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 LM_LOGIT_RTOL = 0.05
 LM_ARGMAX_ROWS = 15
 LM_DECODE_RTOL = 1e-3
+# phase 12: (arch, prefill batch, (d)'s depth, (d)'s tokens a row, (d)'s
+# local_window or None) and each arch's parameter count: Qwen3-30B-A3B's
+# published 30.5B; for Gemma3-12B the reference config's 12.8e9 (its LM head
+# is untied, Google's ties it to the embedding)
+PHASE12_ARCHS = (("qwen3-moe-30b-a3b", 4, 2, 128, None),
+                 ("gemma3-12b", 8, 6, 192, 128))
+PHASE12_PARAMS = {"qwen3-moe-30b-a3b": 30.5e9, "gemma3-12b": 12.8e9}
 WINDOW_PAD_S = 0.05   # window_pad's quiet time at each end of a profiler window
 # published H100 SXM peaks: HBM3 bandwidth, dense FP32 rate and the dense
 # bf16 tensor-core rate
@@ -453,7 +499,7 @@ def ptxas_report(log: str) -> list[str]:
             spill = line.strip()
         elif "Used" in line and "registers" in line:
             out.append(f"{fn}: {line.split(':', 1)[-1].strip()}; {spill}")
-        elif "Performance Loss" in line:
+        elif "Performance Loss" in line or "setmaxnreg" in line:
             out.append(line.strip())
     return out
 
@@ -1095,6 +1141,35 @@ def check_flash_attention(errs: dict) -> None:
         ("B=2 S=512 8/2 dh=64 bf16 causal window 128 (a key-tile edge)",
          2, 512, 8, 2, 64, 64, bf16, True, 128, None),
         ("tiny B=1 S=1 1/1 dh=64 bf16 causal", 1, 1, 1, 1, 64, 64, bf16, True, None, None),
+        # head dims past 128: 64-key stages in the bf16 kernel, NE = 16 in
+        # the fp32 one; DeepSeek's 192 / 128 and Gemma3's 256
+        ("Gemma3 layer B=8 S=2048 16/8 dh=256 bf16 causal window 1024",
+         8, 2048, 16, 8, 256, 256, bf16, True, 1024, None),
+        ("Gemma3 layer B=8 S=2048 16/8 dh=256 bf16 causal (global)",
+         8, 2048, 16, 8, 256, 256, bf16, True, None, None),
+        ("B=2 S=300 8/2 dh=256 fp32 causal", 2, 300, 8, 2, 256, 256, f32, True, None, None),
+        ("B=2 S=300 8/2 dh=256 fp32 causal window 70",
+         2, 300, 8, 2, 256, 256, f32, True, 70, None),
+        ("B=2 S=300 8/2 dh=256 bf16 causal window 70",
+         2, 300, 8, 2, 256, 256, bf16, True, 70, None),
+        ("B=2 S=129 4/2 dh=256 bf16 causal", 2, 129, 4, 2, 256, 256, bf16, True, None, None),
+        ("B=2 S=127 4/2 dh=256 bf16 non-causal window 64 (a key-stage edge)",
+         2, 127, 4, 2, 256, 256, bf16, False, 64, None),
+        ("B=1 S=65 4/4 dh=256 bf16 non-causal", 1, 65, 4, 4, 256, 256, bf16, False, None, None),
+        ("DeepSeek heads B=2 S=300 8/8 dh=192 dhv=128 bf16 causal scale 192^-0.5",
+         2, 300, 8, 8, 192, 128, bf16, True, None, 192 ** -0.5),
+        ("B=2 S=300 8/8 dh=192 dhv=128 bf16 causal window 100",
+         2, 300, 8, 8, 192, 128, bf16, True, 100, None),
+        ("B=2 S=300 8/8 dh=192 dhv=128 fp32 causal", 2, 300, 8, 8, 192, 128, f32, True,
+         None, None),
+        ("B=2 S=200 8/2 dh=192 dhv=128 fp32 non-causal window 50",
+         2, 200, 8, 2, 192, 128, f32, False, 50, None),
+        ("B=2 S=129 4/2 dh=200 dhv=160 bf16 causal (ragged head dims)",
+         2, 129, 4, 2, 200, 160, bf16, True, None, None),
+        ("B=1 S=130 4/2 dh=64 dhv=256 bf16 causal", 1, 130, 4, 2, 64, 256, bf16, True,
+         None, None),
+        ("B=1 S=130 4/2 dh=160 dhv=200 fp32 causal", 1, 130, 4, 2, 160, 200, f32, True,
+         None, None),
     ]
     for label, B, S, Hq, Hkv, dh, dhv, dt, causal, window, scale in cases:
         def rnd(*shape):
@@ -1113,11 +1188,11 @@ def check_flash_attention(errs: dict) -> None:
         check(bool(torch.isfinite(got).all()), f"flash_attention non-finite output: {label}")
         check(excess <= 0.0, f"flash_attention outside its tolerance: {label}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-    q = torch.zeros((1, 4, 1, 129), device=dev)
+    q = torch.zeros((1, 4, 1, 257), device=dev)
     with contextlib.suppress(ValueError):
         kfa.flash_attention(q, q, q)
-        check(False, "flash_attention took dh=129")
-    print("  flash_attention raises on dh=129")
+        check(False, "flash_attention took dh=257")
+    print("  flash_attention raises on dh=257")
 
 
 # -- phase 4: kernel path against plain path, in lock-step -------------------
@@ -2309,9 +2384,67 @@ def _sdpa(q, k, v):
         is_causal=True, enable_gqa=True).transpose(1, 2)
 
 
-def _attention_flops(B, S, Hq, dh):
-    """QK^T and PV over the visible (q, k) pairs of a causal layer."""
-    return 2.0 * 2.0 * B * Hq * (S * (S + 1) / 2) * dh
+def _attention_flops(B, S, Hq, dh, window=None):
+    """QK^T and PV over the visible (q, k) pairs of a causal layer (the
+    last ``window`` keys of each query where one is given)."""
+    pairs = S * (S + 1) / 2 if window is None else sum(min(q + 1, window) for q in range(S))
+    return 2.0 * 2.0 * B * Hq * pairs * dh
+
+
+def _sdpa_layer(q, k, v, window=None):
+    """:func:`_sdpa`, or :func:`_sdpa_window` where there is a window."""
+    return _sdpa(q, k, v) if window is None else _sdpa_window(q, k, v, window)
+
+
+def _sdpa_window(q, k, v, window):
+    """scaled_dot_product_attention with the causal window as a boolean mask."""
+    import torch.nn.functional as F
+
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True).transpose(1, 2)
+
+
+def time_gemma3_layer(g) -> list[dict]:
+    """flash_attention at one Gemma3-12B prefill layer (B=8, S=2048, 16/8,
+    dh=256, bf16): the global layer (causal) and a local one (window 1024),
+    each per recorded launch beside its plain version (the whole batch at
+    once) and scaled_dot_product_attention (the local one with the window
+    as a boolean mask); the 256-thread, 64-key-stage instantiation."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    symbol = "flash_attention_wgmma_kernel"
+    B, S, Hq, Hkv, dh = 8, 2048, 16, 8, 256
+    q = torch.randn((B, S, Hq, dh), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(torch.bfloat16)
+    shapes = []
+    for label, window in (("global", None), ("local, window 1024", 1024)):
+        def lib():
+            return _sdpa_layer(q, k, v, window)
+        k_ms = device_ms(lambda: ops.flash_attention(q, k, v, window=window), reps=10,
+                         match=symbol, launches=1)
+        call_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, window=window), reps=10)
+        p_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v, window=window), reps=2)
+        l_ms = cuda_ms(lib, reps=10)
+        lib_err = max_abs_err(lib().float(), ops.flash_attention(q, k, v, window=window).float())
+        flops = _attention_flops(B, S, Hq, dh, window)
+        nbytes = 2.0 * (2 * B * S * Hq * dh + 2 * B * S * Hkv * dh)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        print(f"  flash_attention Gemma3 {label} layer B={B} S={S} {Hq}/{Hkv} dh={dh} bf16 "
+              f"causal: kernel {k_ms:.4f} ms on the device ({call_ms:.4f} ms a call back to "
+              f"back; {flops / k_ms / 1e9:.1f} TFLOP/s of visible-pair flops), plain "
+              f"{p_ms:.3f} ms, scaled_dot_product_attention {l_ms:.4f} ms (kernel / SDPA "
+              f"{k_ms / l_ms:.2f}x; max abs difference {lib_err:.3g}), bound {b_ms:.4f} ms "
+              f"({b_by}: {flops:.3e} flops at the bf16 tensor-core peak; {nbytes / 1e6:.1f} MB)")
+        shapes.append(dict(shape=f"Gemma3-12B {label} layer, B={B} x S={S}, {Hq}/{Hkv}, "
+                                 f"dh={dh}, bf16", ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bound_ms=b_ms, bound_by=b_by))
+    return shapes
 
 
 def time_flash_attention(errs: dict) -> dict:
@@ -2326,7 +2459,7 @@ def time_flash_attention(errs: dict) -> dict:
     symbol = "flash_attention_wgmma_kernel"
     hgmma = hgmma_count(symbol)
     print(f"  HGMMA instructions in the SASS of {symbol}<DH, DV>: {hgmma}")
-    check(len(hgmma) == 4 and all(n > 0 for n in hgmma.values()),
+    check(len(hgmma) == 6 and all(n > 0 for n in hgmma.values()),
           f"no HGMMA in the SASS of {symbol}")
 
     dev = torch.device("cuda")
@@ -2365,6 +2498,7 @@ def time_flash_attention(errs: dict) -> dict:
           f"{sdpa_err:.3g}), bound {b_ms:.4f} ms ({b_by}: {flops:.3e} flops at the bf16 "
           f"tensor-core peak; {nbytes / 1e6:.1f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     del q, k, v
+    shapes = time_gemma3_layer(g)
 
     B, S = 32, 32768
     q = torch.randn((B, S, Hq, dh), generator=g, device=dev, dtype=torch.bfloat16)
@@ -2391,7 +2525,7 @@ def time_flash_attention(errs: dict) -> dict:
                 replaces="src/repro/kernels/flash_attention.py:125",
                 launches=None, max_abs_err=errs["flash_attention"], ms=k_ms,
                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                kernel="flash_attention_wgmma_kernel", yardstick=None)
+                kernel="flash_attention_wgmma_kernel", yardstick=None, shapes=shapes)
 
 
 # -- phase 6 -----------------------------------------------------------------
@@ -2579,6 +2713,333 @@ def lm_serving() -> int:
                                                  & (run.tokens < cfg.vocab)).all()),
           "the serve loop's tokens are out of range")
     return launches
+
+
+# -- phase 12: MoE and hybrid LM serving ----------------------------------------
+
+
+class moe_stages:
+    """While active: ``models.layers``' MoE stages run under
+    ``torch.profiler.record_function`` labels ("moe: router and dispatch",
+    "moe: expert products", "moe: combine"), which ``moe_forward`` calls
+    through the module; and ``dropped`` lists each ``moe_route`` call's
+    assignments past capacity (device tensors, read at the end), one per
+    layer in a prefill."""
+
+    LABELS = {"moe_route": "moe: router and dispatch", "moe_dispatch": "moe: router and dispatch",
+              "moe_experts": "moe: expert products", "moe_combine": "moe: combine"}
+
+    def __init__(self, count_drops: bool = False):
+        self.count_drops = count_drops
+        self.dropped = []
+        self.assignments = 0
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from repro_torch.models import layers
+
+        self.saved = {name: getattr(layers, name) for name in self.LABELS}
+
+        def wrap(name, fn):
+            def run(*args, **kw):
+                with record_function(self.LABELS[name]):
+                    out = fn(*args, **kw)
+                if name == "moe_route" and self.count_drops:
+                    self.dropped.append((~out.keep).sum())
+                    self.assignments += out.keep.numel()
+                return out
+            return run
+        for name, fn in self.saved.items():
+            setattr(layers, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        for name, fn in self.saved.items():
+            setattr(layers, name, fn)
+
+
+def moe_profile(fn, label: str, calls: int = 1, top: int = 6, tries: int = 3) -> None:
+    """:func:`device_profile` of ``calls`` runs of ``fn`` with the MoE
+    stages labelled (:class:`moe_stages`), from the same window: the busy
+    share, the device ops that lead, and the device time under each label
+    (the kernels its record_function range launched) per call and as a
+    share of the window's. Where the ranges carry no device time, the spans
+    of their GPU annotations stand in (gaps included), which is printed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = sorted(set(moe_stages.LABELS.values()))
+    cuda_type = torch.autograd.DeviceType.CUDA
+    with moe_stages():
+        fn()
+        for _ in range(tries):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                window_pad()
+                t = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t) * 1e6
+                window_pad()
+            events = prof.key_averages()
+            on_card = [e for e in events if e.device_type == cuda_type and e.key not in names]
+            dev_us = sum(e.self_device_time_total for e in on_card)
+            if dev_us > 0:
+                break
+        else:
+            print(f"  {label}: busy share and MoE stages not measured (the profiler recorded "
+                  f"no device time in {tries} windows); {wall_us / 1e3 / calls:.2f} ms wall a call")
+            return
+    print(f"  {label} under the profiler (MoE stages labelled): {wall_us / 1e3 / calls:.2f} ms "
+          f"wall a call, {dev_us / 1e3 / calls:.3f} ms on the device ({dev_us / wall_us:.1%} "
+          f"busy, {1 - dev_us / wall_us:.1%} idle), {sum(e.count for e in on_card) / calls:.0f} "
+          f"device ops a call")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.key[:70]:70s} {e.self_device_time_total / calls / 1e3:9.3f} ms "
+              f"({e.self_device_time_total / dev_us:.1%}) x{e.count / calls:.0f}")
+    by = {n: sum(e.device_time_total for e in events
+                 if e.key == n and e.device_type != cuda_type) for n in names}
+    how = "kernels under each label"
+    if not any(by.values()):
+        by = {n: sum(e.self_device_time_total for e in events
+                     if e.key == n and e.device_type == cuda_type) for n in names}
+        how = "spans of the labels' GPU annotations, gaps included"
+    print(f"  {label}, MoE stages ({how}):")
+    for n in names:
+        print(f"    {n:28s} {by[n] / 1e3 / calls:9.3f} ms ({by[n] / dev_us:.1%})")
+
+
+@contextlib.contextmanager
+def library_attention():
+    """``attention_full`` on PyTorch's own bf16 attention while the block
+    runs: scaled_dot_product_attention, causal, the window as a boolean
+    mask (the yardstick of phase 12 (c), used nowhere in the port)."""
+    from repro_torch.kernels import ops
+
+    kernel = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, causal=True, window=None, softmax_scale=None: (
+        _sdpa_layer(q, k, v, window))
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def lockstep_attention(model, tokens) -> list[tuple]:
+    """The plain prefill of ``tokens`` with the flash kernel and the
+    library's attention (scaled_dot_product_attention, as in
+    :func:`library_attention`) run beside the plain attention at every
+    layer on the same q, k and v: per layer, its window, the kernel's
+    largest difference and largest excess over FLASH_TOL, and the share of
+    the kernel's and of the library's outputs that differ from the plain
+    ones (bf16: one ulp or more)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    kernel, layers = ops.flash_attention, []
+
+    def both(q, k, v, causal=True, window=None, softmax_scale=None):
+        want = plain_flash_attention(q, k, v, causal, window, softmax_scale)
+        got = kernel(q, k, v, causal, window, softmax_scale)
+        lib = _sdpa_layer(q, k, v, window)
+        tol = FLASH_TOL[q.dtype]
+        diff = (got.float() - want.float()).abs()
+        layers.append((window, float(diff.max()),
+                       float((diff - tol["atol"] - tol["rtol"] * want.float().abs()).max()),
+                       float((diff > 0).float().mean()), float((lib != want).float().mean())))
+        return want
+    ops.flash_attention = both
+    try:
+        tf.prefill(model, tokens)
+    finally:
+        ops.flash_attention = kernel
+    return layers
+
+
+def expected_lm_params(cfg) -> int:
+    """The parameters of ``cfg`` counted from its fields alone (embed, head,
+    final norm; per layer two norms, q/k/v/o, and the SwiGLU or the MoE's
+    router, experts and shared experts)."""
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
+    attn = D * H * dh * 2 + D * Hkv * dh * 2
+    if cfg.moe is None:
+        mlp = 3 * D * cfg.d_ff
+    else:
+        m = cfg.moe
+        mlp = D * m.n_experts + 3 * m.n_experts * D * m.d_ff + 3 * D * m.shared_d_ff * m.n_shared
+    return 2 * cfg.vocab * D + D + cfg.n_layers * (2 * D + attn + mlp)
+
+
+def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
+                    d_window: int | None) -> int:
+    """Phase 12 for one arch; returns the flash kernel's launches in one
+    prefill call."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = get_arch(arch_id).model_cfg
+    B, S = batch, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t0 = t = time.perf_counter()
+    model = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = tf.param_count(model)
+    want = PHASE12_PARAMS[arch_id]
+    m = cfg.moe
+    mlp = (f"{m.n_experts} experts top-{m.top_k} d_ff={m.d_ff}, capacity_factor "
+           f"{m.capacity_factor}" if m else f"d_ff={cfg.d_ff}")
+    print(f"(a) {cfg.name}: {n_params:,} parameters ({expected_lm_params(cfg):,} from the "
+          f"config's fields; {cfg.n_layers} layers, d={cfg.d_model}, GQA {cfg.n_heads}/"
+          f"{cfg.n_kv}, d_head={cfg.d_head}, {mlp}, vocab {cfg.vocab}, the first period's "
+          f"windows {[cfg.layer_window(i) for i in range(min(cfg.n_layers, 6))]}, "
+          f"{cfg.dtype}) initialised on the card in {time.perf_counter() - t:.2f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(abs(n_params - want) <= 0.01 * want and n_params == expected_lm_params(cfg),
+          f"{cfg.name} parameter count {n_params:,} is not within 1% of {want:.3g}")
+
+    rng = np.random.default_rng(12)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S))).to(dev)
+               for _ in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    logits = tf.prefill(model, prompts[0])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    launches = counts["flash_attention"]
+    print(f"(b) prefill {B} x {S}: launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    check(launches == cfg.n_layers, f"{cfg.name} prefill launched flash_attention {launches} "
+          f"times, not once per layer ({cfg.n_layers})")
+    check(sum(counts.values()) == launches, "the prefill launched a kernel other than flash")
+    check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill logits are not finite (B, vocab)")
+    ms = cuda_ms(lambda: tf.prefill(model, prompts[0]), reps=3, warmup=1)
+    print(f"(b) prefill {B} x {S} tokens: {ms:.1f} ms a call, {B * S / ms * 1e3:,.0f} "
+          f"tokens/s, {launches} flash_attention launches a call; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if cfg.moe is not None:
+        with moe_stages(count_drops=True) as st:
+            tf.prefill(model, prompts[0])
+        per_layer = [int(d) for d in st.dropped]
+        dropped, each = sum(per_layer), st.assignments // len(per_layer)
+        print(f"(b) MoE at capacity_factor {cfg.moe.capacity_factor}: {dropped:,} of "
+              f"{st.assignments:,} assignments dropped ({dropped / st.assignments:.2%}; C = "
+              f"{max(int(cfg.moe.capacity_factor * S * cfg.moe.top_k / cfg.moe.n_experts), 1)} "
+              f"slots per expert per row); by layer, share of {each:,}: "
+              f"{[round(d / each, 3) for d in per_layer]}")
+    profile = moe_profile if cfg.moe is not None else device_profile
+    profile(lambda: tf.prefill(model, prompts[0]), f"prefill {B} x {S}")
+    print(f"  [(a), (b)] {time.perf_counter() - t0:.1f} s")
+
+    kern = torch.cat([logits, tf.prefill(model, prompts[1])])
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with plain_attention():
+        plain = torch.cat([tf.prefill(model, p) for p in prompts])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3 / len(prompts)
+    check(ops.launch_counts()["flash_attention"] == 0, "the plain prefill launched the kernel")
+    with library_attention():
+        lib = torch.cat([tf.prefill(model, p) for p in prompts])
+    err, lib_err = max_abs_err(kern, plain), max_abs_err(lib, plain)
+    top = float(plain.abs().max())
+    same = int((kern.argmax(-1) == plain.argmax(-1)).sum())
+    lib_same = int((lib.argmax(-1) == plain.argmax(-1)).sum())
+    rows = kern.shape[0]
+    print(f"(c) kernel vs plain attention, last-position logits of {rows} rows: max abs "
+          f"difference {err:.4g} (largest logit {top:.4g}; tolerance {LM_LOGIT_RTOL} x that, "
+          f"or the library's distance), argmax agrees on {same} of {rows}; the library's bf16 "
+          f"attention (scaled_dot_product_attention) on the same model: {lib_err:.4g}, argmax "
+          f"{lib_same} of {rows}; the plain prefill takes {plain_ms:.1f} ms a call (host "
+          f"clock)")
+    layers = lockstep_attention(model, prompts[0])
+    for window in sorted({w for w, *_ in layers}, key=str):
+        mine = [r for r in layers if r[0] == window]
+        print(f"(c) lock-step, the kernel beside the plain attention on each layer's q, k, v "
+              f"({len(mine)} layers, window {window}): max abs difference "
+              f"{max(r[1] for r in mine):.3g}, largest excess over the tolerance "
+              f"{max(r[2] for r in mine):.3g}, outputs that differ "
+              f"{min(r[3] for r in mine):.3%}-{max(r[3] for r in mine):.3%} (the library's "
+              f"{min(r[4] for r in mine):.3%}-{max(r[4] for r in mine):.3%})")
+    check(len(layers) == cfg.n_layers and all(r[2] <= 0.0 for r in layers),
+          f"{cfg.name}: a layer's kernel output is outside the tolerance of the plain one")
+    check(err <= max(LM_LOGIT_RTOL * top, lib_err),
+          f"{cfg.name} prefill logits: kernel and plain disagree")
+    check(same >= rows - 1, f"{cfg.name} prefill argmax: kernel and plain attention disagree")
+    del logits, kern, plain, lib
+
+    caches = tf.init_cache(cfg, B, S, dev)
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    step = iter(range(S))
+
+    def decode():
+        tf.decode_step(model, tok, torch.full((B,), next(step), dtype=torch.int32,
+                                              device=dev), caches)
+    profile(decode, f"decode step, batch {B}, caches of {S}", calls=8)
+    print(f"  [(c), decode profile] {time.perf_counter() - t0:.1f} s")
+    del model, caches, prompts
+    torch.cuda.empty_cache()
+
+    over = dict(dtype=torch.float32, n_layers=d_layers)
+    if cfg.moe is not None:   # C = S: prefill drops nothing, as decode (C = 1) never does
+        over["moe"] = dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
+    if d_window is not None:
+        over["local_window"] = d_window
+    cfg32 = dataclasses.replace(cfg, **over)
+    model = tf.init_params(cfg32, seed=0, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, d_tokens))).to(dev)
+    ops.reset_launch_counts()
+    full = (tf.forward(model, toks) @ model.lm_head).float()
+    check(ops.launch_counts()["flash_attention"] == d_layers,
+          "the fp32 forward did not go through the kernel")
+    caches = tf.init_cache(cfg32, 2, d_tokens, dev)
+    t = time.perf_counter()
+    steps = torch.stack([tf.decode_step(model, toks[:, i],
+                                        torch.full((2,), i, dtype=torch.int32, device=dev),
+                                        caches) for i in range(d_tokens)], 1)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t
+    rel = max_abs_err(full, steps) / float(full.abs().max())
+    rings = sorted({c["k"].shape[1] for c in caches})
+    print(f"(d) fp32 prefill == decode at full width, {d_layers} layers, 2 x {d_tokens} "
+          f"(cache slots {rings}{', capacity_factor ' + str(cfg32.moe.capacity_factor) if cfg32.moe else ''}): "
+          f"max abs difference / largest logit {rel:.3g} (tolerance {LM_DECODE_RTOL}); "
+          f"{d_tokens} decode steps in {dec_s:.2f} s")
+    check(rel <= LM_DECODE_RTOL, f"{cfg.name} fp32 decode logits differ from forward's")
+    del model, caches, full, steps
+    torch.cuda.empty_cache()
+    print(f"  [(d)] {time.perf_counter() - t0:.1f} s")
+
+    run = serve.main(["--arch", arch_id, "--batch", "8", "--tokens", "32",
+                      "--max-len", "2048", "--device", "cuda"])
+    print(f"(e) serve --arch {arch_id}: {run.tok_per_s:,.1f} tok/s, {run.ms_per_token:.2f} "
+          f"ms/token (8 sequences, 32 greedy steps, caches of 2048); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(run.tokens.shape == (8, 32) and bool(((run.tokens >= 0)
+                                                 & (run.tokens < cfg.vocab)).all()),
+          f"{cfg.name}: the serve loop's tokens are out of range")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_hybrid_serving() -> int:
+    """Phase 12; returns the flash kernel's launches over one prefill call of
+    each arch."""
+    total = 0
+    for arch_id, batch, d_layers, d_tokens, d_window in PHASE12_ARCHS:
+        t = time.perf_counter()
+        print(f"--- {arch_id}")
+        total += lm_arch_serving(arch_id, batch, d_layers, d_tokens, d_window)
+        print(f"  [{arch_id}] {time.perf_counter() - t:.1f} s")
+    return total
 
 
 def busy_share(fn, label: str):
@@ -3999,6 +4460,12 @@ def main(argv=None) -> int:
     rows.append(flash_row)
     done(t0, "phase 6")
 
+    t0 = phase("phase 12: MoE and hybrid LM serving at full width (Qwen3-30B-A3B, "
+               "Gemma3-12B)")
+    torch.cuda.empty_cache()
+    launches12 = moe_hybrid_serving()
+    done(t0, "phase 12")
+
     t0 = phase("phase 7: the paper's experiment (SIFT1M, GIST1M, RAND10M4D stand-ins)")
     paper_phase(dev, errs, rows)
     done(t0, "phase 7")
@@ -4007,6 +4474,7 @@ def main(argv=None) -> int:
         r["phase9_launches"] = launches9.get(r["name"], 0)
         r["phase10_launches"] = launches10.get(r["name"], 0)
         r["phase11_launches"] = launches11.get(r["name"], 0)
+        r["phase12_launches"] = launches12 if r["name"] == "flash_attention" else 0
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from . import h2o_danube_1_8b, tinyllama_1_1b
+from . import gemma3_12b, h2o_danube_1_8b, qwen3_moe_30b_a3b, tinyllama_1_1b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,7 +18,7 @@ class ArchDef:
 
 
 _ARCHS = {m.ARCH_ID: ArchDef(m.ARCH_ID, "lm", m.CONFIG, m.SMOKE)
-          for m in (tinyllama_1_1b, h2o_danube_1_8b)}
+          for m in (tinyllama_1_1b, h2o_danube_1_8b, qwen3_moe_30b_a3b, gemma3_12b)}
 
 
 def get_arch(arch_id: str) -> ArchDef:

@@ -9,23 +9,30 @@
 // <= q_pos (causal) and q_pos - k_pos < window (window >= 1); masked pairs
 // get p = 0 and the online softmax carries (m, l, acc) in fp32 from m =
 // -1e30, l = 0, as the TPU kernel does, so a row that sees no key comes out
-// 0 (l floored at 1e-30). Inputs fp32 or bf16; dh, dhv <= 128.
+// 0 (l floored at 1e-30). Inputs fp32 or bf16; dh, dhv <= 256 (the TPU kernel
+// takes the whole head dimension as one block).
 //
 // What bounds it: operations. At TinyLlama's prefill layer (B = 8, S = 2048,
 // Hq = 32, Hkv = 4, dh = 64, causal) the two products are 1.37e11 flops over
 // ~151 MB of q, k, v and o: 0.139 ms at the bf16 tensor-core peak, 0.045 ms
 // of bytes. Two kernels live here, one per dtype.
 //
-// bf16: flash_attention_wgmma_kernel, on the tensor cores. One block of 384
-// threads per (b * Hq + h, 128-row query tile); blockIdx.x walks the heads
-// and blockIdx.y the query tiles last-first, so the first wave holds the
-// causal diagonal's longest tiles and neighbouring blocks share a KV head
-// in L2. Warpgroup 0 is the producer: one of its threads issues TMA loads
-// (cp.async.bulk.tensor, 128-byte swizzle, completion on mbarriers) of the
-// Q tile and of a ring of K / V stages of 128 keys (3 stages when dh, dhv
-// <= 64, else 2). Warpgroups 1 and 2 each own 64 query rows and, per
-// stage:
-//   S = Q . K^T   wgmma m64n128k16, both operands K-major in shared memory,
+// bf16: flash_attention_wgmma_kernel, on the tensor cores. One block per
+// (b * Hq + h, query tile); blockIdx.x walks the heads and blockIdx.y the
+// query tiles last-first, so the first wave holds the causal diagonal's
+// longest tiles and neighbouring blocks share a KV head in L2. Warpgroup 0
+// is the producer: one of its threads issues TMA loads (cp.async.bulk.tensor,
+// 128-byte swizzle, completion on mbarriers) of the Q tile and of a ring of K
+// / V stages of BN keys (3 stages when dh, dhv <= 64, else 2). The consumer
+// warpgroups each own 64 query rows: two (384 threads, 128-row tiles) while
+// dhv <= 128, one (256 threads, 64-row tiles) past it, where the O
+// accumulator alone is 128 fp32 registers a thread: ptxas holds a 384-thread
+// block to the launch's 168 registers, and two consumers at dhv = 256
+// spilled and serialised the wgmma. BN is 128 while dh and dhv are at most
+// 128; past that (Gemma3's 256, DeepSeek's 192 / 128) it is 64, so that Q and
+// two stages fit the 227 KiB a block may have (160 KiB at 256 / 256, 128 KiB
+// at 192 / 128). Per stage, each consumer:
+//   S = Q . K^T   wgmma m64nBNk16, both operands K-major in shared memory,
 //                 fp32 accumulators; then times scale * log2(e), so the
 //                 softmax runs on ex2;
 //   softmax       a row of the accumulator lives in one quad of lanes: row
@@ -40,21 +47,24 @@
 //                 through the product (1.5x the tensor flops of one): P
 //                 rounded to bf16 alone leaves outputs outside one bf16 ulp
 //                 of the fp32 reference (tests/test_torch_kernels.py shows
-//                 both), hi + lo keeps p to ~2^-16. V is B, MN-major, in its
-//                 natural (keys, dhv) layout; no transpose.
+//                 both), hi + lo keeps p to ~2^-17. A third part (p to
+//                 ~2^-26) was tried at dhv = 256: it left as many outputs
+//                 one bf16 ulp from the plain version's on the card and was
+//                 slower, so two it is. V is B, MN-major, in its natural
+//                 (keys, dhv) layout; no transpose.
 // The consumers release a stage (one mbarrier arrival per warp) once both
 // products have read it. The kernel is bound by the softmax's instructions
 // (ex2 and the split of P), not by the tensor cores: the products of one
-// warpgroup overlap the other's softmax. Registers are the limit on doing
-// more: ptxas allocates every thread of a 384-thread block within the
-// 168-register launch cap (setmaxnreg, kept for its wgmma scheduling, does
-// not raise the consumers' allocation), and a software pipeline that holds
-// the next tile's scores beside P's hi and lo fragments spills.
+// warpgroup overlap the other's softmax (with one consumer, at dhv > 128,
+// nothing overlaps them). Registers are the limit on doing more: a software
+// pipeline that holds the next tile's scores beside P's hi and lo fragments
+// spills. Phase 1 of chip_smoke.py prints each instantiation's spills.
 // The TMA tensor maps describe q, k and v as (d, H, S, B) with the caller's
 // strides, so the kernel reads the (b, s, h) layout in place; TMA's
-// out-of-bounds zero fill pads d up to 64 / 128 and fills the ragged S
-// tail. Maps are encoded on the host through the runtime's driver entry
-// point (no -lcuda) and passed as __grid_constant__ parameters. TMA needs a
+// out-of-bounds zero fill pads d up to the instantiation's DH / DV (64, 128,
+// 192 or 256) and fills the ragged S tail. Maps are encoded on the host
+// through the runtime's driver entry point (no -lcuda) and passed as
+// __grid_constant__ parameters. TMA needs a
 // 16-byte-aligned base and strides that are multiples of 16 bytes; the
 // Python wrapper copies an operand that breaks this. A barrier wait that
 // never completes traps after ~10 s rather than hang the card. Hand-written
@@ -68,12 +78,15 @@
 // 64-key tiles the mask can reach (the rest are skipped, like
 // pl.when(tile_visible)), staging each K and V tile in shared memory as
 // fp32. Thread (tr, tc) = (t / 16, t % 16) owns query rows tr + 16 i (i <
-// 4), score columns tc + 16 j (j < 4) and output columns tc + 16 e: the 16
+// 4), score columns tc + 16 j (j < 4) and output columns tc + 16 e (e < NE,
+// NE = 4, 8 or 16 for dhv <= 64, 128, 256): the 16
 // threads of a row are one half-warp, so row max and row sum are shuffles. P
 // goes through shared memory into the P.V product. Q and K rows are padded
 // to dh + 1 floats, so a half-warp reads 16 rows on 16 banks. The layout is
 // read through element strides of (b, s, h) with the last dimension
-// contiguous; o is written contiguous.
+// contiguous; o is written contiguous. At dh = dhv = 256 its shared memory is
+// 213,760 bytes (Q and K at 257 floats a row, V, P), under the 232,448 a
+// block may opt in to.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is reached at run time
 #include <cuda_bf16.h>
@@ -90,7 +103,7 @@ constexpr int kRows = 4;        // rows per thread: tr + 16 i
 constexpr int kCols = 4;        // score columns per thread: tc + 16 j
 constexpr int kLdP = kBK + 1;
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxHeadDim = 128;
+constexpr int kMaxHeadDim = 256;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
@@ -114,7 +127,7 @@ struct Layout {
   int64_t b, s, h;   // element strides; the head dimension has stride 1
 };
 
-// NE: output columns per thread, ceil(dhv / 16) rounded up to 4 or 8.
+// NE: output columns per thread, ceil(dhv / 16) rounded up to 4, 8 or 16.
 template <typename T, int NE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -291,20 +304,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 namespace {
 namespace wg {
 
-constexpr int kBM = 128;          // query rows per block: two warpgroups of 64
-constexpr int kBN = 128;          // keys per K / V stage
-constexpr int kThreads = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kConsumerWarps = 8;
 constexpr int kSwizzleBytes = 128;   // one TMA box row: 64 bf16
 constexpr float kNeg = -1e30f;
 
-// Shared-memory layout of a block, in bytes from a 1024-aligned base (the
-// 128-byte swizzle repeats every 1024 bytes). A tile of R rows and D columns
-// is D / 64 column blocks of R x 128 bytes, each one TMA box.
+// A block's shape and its shared-memory layout, in bytes from a 1024-aligned
+// base (the 128-byte swizzle repeats every 1024 bytes). A tile of R rows and
+// D columns is D / 64 column blocks of R x 128 bytes, each one TMA box.
+// kConsumers warpgroups of 64 query rows each follow the producer's: two, or
+// one where DV is past 128 (a 256-thread block, 255 registers a thread). kBN
+// keys a K / V stage: 128, or 64 where DH or DV is past 128.
 template <int DH, int DV>
 struct Smem {
+  static constexpr int kConsumers = DV > 128 ? 1 : 2;
+  static constexpr int kBM = 64 * kConsumers;          // query rows per block
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kBN = (DH > 128 || DV > 128) ? 64 : 128;
   static constexpr int kStages = (DH + DV <= 128) ? 3 : 2;
   static constexpr int kQBytes = kBM * DH * 2;
   static constexpr int kKBytes = kBN * DH * 2;
@@ -314,6 +331,7 @@ struct Smem {
   static constexpr int kV = kK + kStages * kKBytes;
   static constexpr int kBar = kV + kStages * kVBytes;   // full[], empty[], q
   static constexpr int kAlloc = kBar + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kAlloc <= 227 * 1024, "a block's shared memory is past 227 KiB");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -464,6 +482,37 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
   }
 }
 
+// d (64 x 64, fp32) = a (64 x 16) . b (16 x 64) when ``first``, else d += a .
+// b; a and b bf16 in shared memory, both K-major (the 64-key score tile).
+template <bool first>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (first) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : OUT8(0),
+          OUT8(8),
+          OUT8(16),
+          OUT8(24)
+        : "l"(da), "l"(db), "r"(0));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : ACC8(0),
+          ACC8(8),
+          ACC8(16),
+          ACC8(24)
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
 // d (64 x 64, fp32) += a (64 x 16, bf16 fragments in registers) . b (16 x 64,
 // bf16 in shared memory, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -504,32 +553,83 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 256, fp32) += a (64 x 16, bf16 fragments in registers) . b (16 x 256,
+// bf16 in shared memory, MN-major): O at dhv = 256, 128 registers a thread.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC8(0),
+        ACC8(8),
+        ACC8(16),
+        ACC8(24),
+        ACC8(32),
+        ACC8(40),
+        ACC8(48),
+        ACC8(56),
+        ACC8(64),
+        ACC8(72),
+        ACC8(80),
+        ACC8(88),
+        ACC8(96),
+        ACC8(104),
+        ACC8(112),
+        ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef ACC8
 #undef OUT8
 
 template <int DV>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
+  static_assert(DV == 64 || DV == 128 || DV == 256, "DV is 64, 128 or 256");
   if constexpr (DV == 64) wgmma_rs_n64(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  else if constexpr (DV == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
+}
+
+// S (64 x BN) = Q . K^T, one k16 step kk of DH / 16.
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t dq, uint64_t dk,
+                                         bool first) {
+  static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
+  if constexpr (BN == 64) {
+    if (first) wgmma_ss_n64<true>(s, dq, dk);
+    else wgmma_ss_n64<false>(s, dq, dk);
+  } else {
+    if (first) wgmma_ss_n128<true>(s, dq, dk);
+    else wgmma_ss_n128<false>(s, dq, dk);
+  }
 }
 
 // The online softmax over one tile of scores s: this thread holds rows r =
 // 0, 1 (row_q0, row_q0 + 8) at columns col0 + 8 (i / 4) + (i % 2) of the
-// tile, i = 0 .. 63, row r = (i / 2) % 2. Scores go to the log2 domain
+// tile, i = 0 .. N - 1 (N = BN / 2), row r = (i / 2) % 2. Scores go to the log2 domain
 // (times scale * log2(e)); with kMask, a score outside the row's visible
 // columns [lo, hi] becomes -inf, so ex2 gives it p = 0 and it never sets
 // the row max (m starts at -1e30, the TPU kernel's NEG_INF, so a row that
 // has seen no key keeps it and its corr is 1). s becomes p in place; m and
 // l advance; corr is the factor for the accumulator. The masked body is a
 // template of its own so the unmasked tiles run none of its instructions.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
+template <bool kMask, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2],
                                              float (&corr)[2], float scale_log2,
                                              const int* lo, const int* hi) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     float x = s[i] * scale_log2;
     if constexpr (kMask) {
@@ -549,7 +649,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = ex2(s[i] - m[r]);
     sum[r] += s[i];
@@ -558,9 +658,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
 }
 
-// DH, DV: dh and dhv rounded up to 64 or 128 (TMA zero-fills the rest).
+// DH, DV: dh and dhv rounded up to an instantiation (TMA zero-fills the
+// rest): <64 | 128, 64 | 128>, <192, 128>, <256, 256>.
 template <int DH, int DV>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Smem<DH, DV>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
@@ -568,6 +669,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              float scale_log2, int causal, int window) {
   using L = Smem<DH, DV>;
   constexpr int kStages = L::kStages;
+  constexpr int kBN = L::kBN, kBM = L::kBM;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
@@ -593,7 +695,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), kConsumerWarps);
+      mbar_init(empty(s), L::kConsumerWarps);
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -601,8 +703,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer warpgroup: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    // producer warpgroup: one thread keeps the ring full (a 256-thread block
+    // has registers enough without moving them)
+    if constexpr (L::kConsumers == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
@@ -623,7 +727,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    if constexpr (L::kConsumers == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
     const int t = threadIdx.x - 128;
     const int cw = t >> 7;                 // consumer warpgroup: query rows 64 cw ..
     const int warp = (t >> 5) & 3;         // its warp: 16 of them
@@ -652,7 +757,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const bool live = qa < S && (!causal || k0 <= qb) &&
                         (window <= 0 || qa - (k0 + kBN - 1) < window);
       if (live) {
-        float s[64];
+        float s[kBN / 2];
         const uint32_t k_rows = sK + st * L::kKBytes;
         wgmma_fence();
 #pragma unroll
@@ -661,8 +766,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const uint32_t koff = (kk >> 2) * kBN * kSwizzleBytes + (kk & 3) * 32;
           const uint64_t dq = smem_desc(q_rows + off, 16, 1024);
           const uint64_t dk = smem_desc(k_rows + koff, 16, 1024);
-          if (kk == 0) wgmma_ss_n128<true>(s, dq, dk);
-          else wgmma_ss_n128<false>(s, dq, dk);
+          wgmma_qk<kBN>(s, dq, dk, kk == 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -683,14 +787,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         } else {
           softmax_tile<false>(s, m, l, corr, scale_log2, nullptr, nullptr);
         }
+        constexpr int kSteps = kBN / 16;   // k16 steps of P . V
 #pragma unroll
         for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 
         // P as A fragments, hi and lo: k16 step kk is n8 blocks 2 kk and
         // 2 kk + 1 of S, i.e. registers 8 kk .. 8 kk + 7 in A's order
-        uint32_t p_hi[8][4], p_lo[8][4];
+        uint32_t p_hi[kSteps][4], p_lo[kSteps][4];
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
+        for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const float a = s[8 * kk + 2 * j], c = s[8 * kk + 2 * j + 1];
@@ -709,7 +814,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         pin(p_lo);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < kSteps; ++kk) {
           const uint64_t dv = smem_desc(v_rows + kk * 16 * kSwizzleBytes,
                                         kBN * kSwizzleBytes, 1024);
           wgmma_pv<DV>(acc, p_hi[kk], dv);
@@ -792,16 +897,24 @@ bool encode(CUtensorMap* map, const void* ptr, int d, int H, int S, int B, int64
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Encodes the maps (K and V boxes of the instantiation's kBN rows) and
+// launches; a layout TMA refuses returns cudaErrorInvalidValue.
 template <int DH, int DV>
-int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o,
-           int B, int S, int Hq, int Hkv, int dhv, float scale, int causal, int window,
-           cudaStream_t stream) {
-  constexpr int smem = Smem<DH, DV>::kAlloc;
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
+           int Hkv, int dh, int dhv, const int64_t (&ls)[9], float scale, int causal,
+           int window, cudaStream_t stream) {
+  using L = Smem<DH, DV>;
+  constexpr int smem = L::kAlloc, bn = L::kBN, bm = L::kBM;
+  CUtensorMap mq, mk, mv;
+  if (!encode(&mq, q, dh, Hq, S, B, ls[2], ls[1], ls[0], bm) ||
+      !encode(&mk, k, dh, Hkv, S, B, ls[5], ls[4], ls[3], bn) ||
+      !encode(&mv, v, dhv, Hkv, S, B, ls[8], ls[7], ls[6], bn))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<DH, DV>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(B * Hq), static_cast<unsigned>((S + kBM - 1) / kBM));
-  flash_attention_wgmma_kernel<DH, DV><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(B * Hq), static_cast<unsigned>((S + bm - 1) / bm));
+  flash_attention_wgmma_kernel<DH, DV><<<grid, L::kThreads, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, dhv,
       scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -828,19 +941,22 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const Layout lq{qsb, qss, qsh}, lk{ksb, kss, ksh}, lv{vsb, vss, vsh};
+    if (dhv > 128)
+      return launch<float, 16>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, lq, lk, lv, scale, causal, window, s);
     return dhv > 64
                ? launch<float, 8>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, lq, lk, lv, scale, causal, window, s)
                : launch<float, 4>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, lq, lk, lv, scale, causal, window, s);
   }
-  CUtensorMap mq, mk, mv;
-  if (!wg::encode(&mq, q, dh, Hq, S, B, qsh, qss, qsb, wg::kBM) ||
-      !wg::encode(&mk, k, dh, Hkv, S, B, ksh, kss, ksb, wg::kBN) ||
-      !wg::encode(&mv, v, dhv, Hkv, S, B, vsh, vss, vsb, wg::kBN))
-    return static_cast<int>(cudaErrorInvalidValue);
+  // the smallest instantiation that holds dh and dhv
+  const int64_t ls[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  if (dh > 192 || dhv > 128)
+    return wg::launch<256, 256>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
+  if (dh > 128)
+    return wg::launch<192, 128>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
   const bool wide_k = dh > 64, wide_v = dhv > 64;
   if (wide_k)
-    return wide_v ? wg::launch<128, 128>(mq, mk, mv, o, B, S, Hq, Hkv, dhv, scale, causal, window, s)
-                  : wg::launch<128, 64>(mq, mk, mv, o, B, S, Hq, Hkv, dhv, scale, causal, window, s);
-  return wide_v ? wg::launch<64, 128>(mq, mk, mv, o, B, S, Hq, Hkv, dhv, scale, causal, window, s)
-                : wg::launch<64, 64>(mq, mk, mv, o, B, S, Hq, Hkv, dhv, scale, causal, window, s);
+    return wide_v ? wg::launch<128, 128>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s)
+                  : wg::launch<128, 64>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
+  return wide_v ? wg::launch<64, 128>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s)
+                : wg::launch<64, 64>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
 }

@@ -6,9 +6,12 @@ Replaces the Pallas kernel ``flash_attention``
 H100 (operations: two products per tile) and how its two kernels meet
 them: bf16 runs ``flash_attention_wgmma_kernel`` on the tensor cores (TMA
 loads into a K/V ring, ``wgmma`` products, P split into bf16 hi + lo for
-the P.V product); fp32 runs ``flash_attention_kernel``, fp32 FMA on the
-CUDA cores. Unlike the TPU wrapper, q, k and v are read in their (B, S, H,
-dh) layout through strides, with no transpose on the host. This wrapper
+the P.V product; 64-key stages where dh or dhv is past 128, and 64-row
+blocks of one consumer warpgroup where dhv is); fp32 runs
+``flash_attention_kernel``, fp32 FMA on the CUDA cores. Head dims run to
+256 (Gemma3's 256, DeepSeek's 192 / 128), as the TPU kernel takes the whole
+head dimension as one block. Unlike the TPU wrapper, q, k and v are read in
+their (B, S, H, dh) layout through strides, with no transpose on the host. This wrapper
 takes CUDA tensors only; ``kernels.ops`` sends CPU tensors to
 ``kernels.ref.flash_attention_ref``.
 """
@@ -20,10 +23,10 @@ import torch
 
 from . import _build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Y_MAX = 65535
-_WGMMA_ROWS = 128   # query rows per block of the bf16 kernel
+_WGMMA_ROWS = 128   # query rows per block of the bf16 kernel (64 where dhv > 128)
 
 LAUNCHES = {"flash_attention": 0}
 
@@ -79,7 +82,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, S, Hq, dh), k (B, S, Hkv, dh), v (B, S, Hkv, dhv) -> (B, S, Hq,
     dhv) in q's dtype; query head h reads KV head h // (Hq // Hkv). The
     scale is ``dh ** -0.5`` unless given; ``window`` keeps keys with
-    ``q_pos - k_pos < window``. fp32 or bf16, dh and dhv <= 128, each
+    ``q_pos - k_pos < window``. fp32 or bf16, dh and dhv <= 256, each
     tensor's last dimension contiguous. bf16 operands that TMA cannot read
     in place (a base not 16-byte aligned, a stride not a multiple of 8
     elements, strides out of (h, s, b) order) are copied first, see
@@ -107,7 +110,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     # grid y: heads for the fp32 kernel, query tiles for the bf16 one
-    grid_y = B * Hq if q.dtype == torch.float32 else -(-S // _WGMMA_ROWS)
+    rows = _WGMMA_ROWS if dhv <= 128 else _WGMMA_ROWS // 2
+    grid_y = B * Hq if q.dtype == torch.float32 else -(-S // rows)
     if grid_y > _GRID_Y_MAX or B * Hq >= 2**31 or S >= 2**31:
         raise ValueError(f"shape exceeds the launch grid: B*Hq={B * Hq}, S={S}")
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5

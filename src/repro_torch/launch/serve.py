@@ -1,5 +1,6 @@
 """Query serving on the PyTorch port: graph ANN (``--arch ann``) and
-greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b``).
+greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b |
+qwen3-moe-30b-a3b | gemma3-12b``).
 
 Builds the paper's index through ``core.build`` (``--build-construct``:
 NN-Descent + GD by default, HNSW with no diversify stage for ``--entry
@@ -55,6 +56,11 @@ prints tok/s and ms/token:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --smoke --tokens 32 --batch 2 --device cpu
+
+Qwen3-MoE runs its experts through the reference's GShard dispatch (each
+batch row a group; at decode every row is a group of one token, C = 1);
+Gemma3's 5 local : 1 global layers keep ring caches of 1024 slots on the
+local layers and ``--max-len`` on the global ones.
 """
 from __future__ import annotations
 

@@ -3,10 +3,12 @@
 ``lm_params_from_numpy`` takes the tree of ``repro.models.transformer.
 init_params`` with its leaves as numpy arrays (``np.asarray`` of each), so
 the tests can run both packages on the same weights. The reference stacks
-the layers' weights on axis 0 (``params["layers"]``); they are unstacked
-into the per-layer modules. dtypes are kept: bf16 arrives as numpy's
-``bfloat16`` extension type (2-byte items) and goes across bit for bit
-through an int16 view.
+the layers' weights on axis 0 (``params["layers"]``, an MoE layer's experts
+as (L, E, D, F)); they are unstacked into the per-layer modules. dtypes are
+kept and checked per parameter: bf16 arrives as numpy's ``bfloat16``
+extension type (2-byte items) and goes across bit for bit through an int16
+view, and an MoE router arrives in fp32 inside a bf16 model, as the port's
+router parameter is.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cuda") -> Transformer:
     """The reference's parameter tree (numpy leaves) -> ``Transformer``.
     Raises on a missing or extra leaf, a shape that does not match ``cfg``
-    or a dtype other than ``cfg.dtype``."""
+    or a dtype other than the port's parameter's (``cfg.dtype``; fp32 for a
+    router)."""
     model = Transformer(cfg, device)
     want = dict(model.named_parameters())
     got = {}

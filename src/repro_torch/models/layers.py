@@ -1,4 +1,5 @@
-"""Transformer building blocks of the dense GQA LMs, mirroring
+"""Transformer building blocks of the GQA LMs (dense, sliding-window, the
+hybrid local:global pattern and GShard MoE), mirroring
 ``repro/models/layers.py`` with its dtype rules.
 
 Weights keep the reference's (in, out) layout, so ``x @ w`` needs no
@@ -8,10 +9,21 @@ kernel on the card, its dense plain version on the CPU. The reference runs
 a chunked online-softmax scan there; the two compute the same function
 (``tests/test_kernels.py`` holds them interchangeable). Single-token decode
 attention stays plain PyTorch, as it is an einsum outside any Pallas kernel
-in the reference. MLA, MoE and the hybrid local:global flag are not ported
-yet (ROADMAP queue A item 14).
+in the reference.
+
+``moe_forward`` is the reference's GShard dispatch with static capacity
+(one group per batch row), computed by index: each kept (token, k)
+assignment is copied into its expert's slot and each token gathers its K
+expert outputs, where the reference multiplies by dense (B, S, E, C) one-hot
+tensors (1.34 GB each in fp32 at Qwen3's 8 x 2048). The kept set and the
+gates are the same; the three expert products are ``torch.bmm``, as the
+reference's are einsums outside any Pallas kernel. MLA is not ported yet
+(ROADMAP queue A item 14).
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +62,11 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    softmax_scale: float | None = None,
                    global_override=None) -> torch.Tensor:
     """q (B, S, Hq, dh), k (B, S, Hkv, dh), v (B, S, Hkv, dhv) -> (B, S, Hq,
-    dhv) in q's dtype, through the flash-attention kernel."""
-    if global_override is not None:
-        raise NotImplementedError(f"the hybrid local:global mask is {NOT_PORTED}")
+    dhv) in q's dtype, through the flash-attention kernel. A true
+    ``global_override`` (a bool or a 0-d tensor; the hybrid pattern's global
+    layer) turns the window off, as the reference ORs it into the mask."""
+    if global_override is not None and bool(global_override):
+        window = None
     return ops.flash_attention(q, k, v, causal=causal, window=window,
                                softmax_scale=softmax_scale)
 
@@ -112,3 +126,124 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: i
         new_cache = (kc, vc)
     out = o.reshape(B, S, n_heads * d_head) @ p["wo"]
     return out, new_cache
+
+
+# -- MoE (GShard dispatch with static capacity) ----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The reference's fields and defaults; the ``*_spec`` fields (GSPMD
+    shardings) are kept and unused."""
+    n_experts: int = 64
+    top_k: int = 8
+    d_ff: int = 2048
+    n_shared: int = 0          # shared experts (DeepSeek)
+    shared_d_ff: int = 2048
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
+    expert_in_spec: Any = None
+    dispatch_dtype: Any = None     # combine's gates and expert outputs in this dtype
+    dispatch_spec: Any = None
+
+
+class MoERoute(NamedTuple):
+    """Where ``moe_route`` sends each (token, k) assignment of x (B, S, D)."""
+
+    probs: torch.Tensor      # (B, S, E) fp32 router softmax
+    gates: torch.Tensor      # (B, S, K) fp32, renormalised; 0 where dropped
+    experts: torch.Tensor    # (B, S, K) int64, best first (ties: lowest index)
+    slots: torch.Tensor      # (B, S, K) int64 rank in its expert's queue
+    keep: torch.Tensor       # (B, S, K) bool: slots < capacity
+    capacity: int            # C slots per expert per batch row
+    load: torch.Tensor       # (E,) fp32 share of all assignments (kept or not)
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig) -> MoERoute:
+    """The router in fp32, softmax, top-K (a stable descending sort: equal
+    probabilities lowest index first, as ``lax.top_k``), gates renormalised
+    with a 1e-9 floor; C = max(int(capacity_factor * S * K / E), 1). An
+    assignment's slot is its rank among its expert's assignments of the same
+    batch row in token-major, then k order (the reference's cumsum over the
+    flattened S * K axis): a stable sort of the row's S * K expert ids puts
+    each expert's assignments together in that order, and the rank is the
+    position in the sorted row less the expert's first position. Slots past
+    C are dropped and their gates zeroed."""
+    B, S, _ = x.shape
+    E = cfg.n_experts
+    K = min(cfg.top_k, E)
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, experts = vals[..., :K], idx[..., :K]
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    C = max(int(cfg.capacity_factor * S * K / E), 1)
+    flat = experts.reshape(B, S * K)
+    counts = torch.zeros((B, E), dtype=torch.long, device=x.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    ids, order = torch.sort(flat, dim=1, stable=True)
+    first = (counts.cumsum(1) - counts).gather(1, ids)
+    rank = torch.arange(S * K, device=x.device) - first
+    slots = torch.empty_like(flat).scatter_(1, order, rank).reshape(B, S, K)
+    keep = slots < C
+    load = counts.sum(0).float() / (B * S * K)
+    return MoERoute(probs, gates * keep, experts, slots, keep, C, load)
+
+
+def moe_dispatch(x: torch.Tensor, route: MoERoute) -> torch.Tensor:
+    """x (B, S, D) -> the slot buffer (E, B, C, D) in x's dtype: slot (e, b,
+    c) holds the token routed there, or zeros. The buffer is built as row
+    indices (E, B, C + 1) into x's rows with a zero row after each batch
+    row's S tokens (dropped assignments all written to slot C), then one
+    ``index_select`` of whole rows."""
+    B, S, D = x.shape
+    E, C = route.probs.shape[-1], route.capacity
+    b = torch.arange(B, device=x.device)[:, None, None]
+    tok = (b * (S + 1) + S).expand(B, E, C + 1).transpose(0, 1).contiguous()
+    s = torch.arange(S, device=x.device)[None, :, None] + b * (S + 1)
+    tok[route.experts, b, torch.where(route.keep, route.slots, C)] = s.expand_as(route.experts)
+    padded = torch.cat([x, x.new_zeros((B, 1, D))], dim=1).reshape(B * (S + 1), D)
+    return padded.index_select(0, tok[:, :, :C].reshape(-1)).reshape(E, B, C, D)
+
+
+def moe_experts(p: dict, xin: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU on their slots: xin (E, B, C, D) -> (E, B, C, D),
+    three batched products over E in xin's dtype."""
+    E, B, C, D = xin.shape
+    h = xin.reshape(E, B * C, D)
+    a = F.silu(torch.bmm(h, p["w_gate"])) * torch.bmm(h, p["w_up"])
+    return torch.bmm(a, p["w_down"]).reshape(E, B, C, D)
+
+
+def moe_combine(eout: torch.Tensor, route: MoERoute, dtype: torch.dtype,
+                dispatch_dtype=None) -> torch.Tensor:
+    """Each token's K expert outputs (E, B, C, D) times its gates, summed in
+    fp32 -> (B, S, D) in ``dtype``. Where ``dispatch_dtype`` is set, the
+    gates are rounded to it first and the sum to its promotion with the
+    outputs' dtype, as the reference's einsum of the two. A dropped
+    assignment reads slot 0 with gate 0."""
+    E, B, C, D = eout.shape
+    b = torch.arange(B, device=eout.device)[:, None, None]
+    rows = (route.experts * B + b) * C + torch.where(route.keep, route.slots, 0)
+    got = eout.reshape(E * B * C, D).index_select(0, rows.reshape(-1))
+    gates = route.gates if dispatch_dtype is None else route.gates.to(dispatch_dtype)
+    Bs, S, K = gates.shape
+    out = torch.bmm(gates.float().reshape(Bs * S, 1, K),
+                    got.float().reshape(Bs * S, K, D)).reshape(Bs, S, D)
+    if dispatch_dtype is not None:
+        out = out.to(torch.promote_types(dispatch_dtype, eout.dtype))
+    return out.to(dtype)
+
+
+def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig):
+    """x (B, S, D) -> (out (B, S, D) in x's dtype, aux fp32 scalar): route,
+    dispatch, the experts, combine, plus the shared experts where
+    ``n_shared``; aux is the Switch load-balance loss ``router_aux_weight *
+    E * sum(load * mean prob)``."""
+    route = moe_route(p["router"], x, cfg)
+    eout = moe_experts(p, moe_dispatch(x, route))
+    out = moe_combine(eout, route, x.dtype, cfg.dispatch_dtype)
+    if cfg.n_shared:
+        sp = p["shared"]
+        out = out + swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+    aux = cfg.router_aux_weight * cfg.n_experts * (route.load * route.probs.mean((0, 1))).sum()
+    return out, aux

@@ -1,13 +1,18 @@
-"""Dense GQA LM (TinyLlama, H2O-Danube), mirroring ``repro/models/transformer.py``.
+"""GQA LMs (TinyLlama, H2O-Danube, Qwen3-MoE, Gemma3), mirroring
+``repro/models/transformer.py``.
 
 ``LMConfig`` carries the reference's fields and defaults, so configs copy
 over with only the dtype changed; fields that only training or the
 reference's sharding reads (``remat``, ``scan_unroll``, the ``*_spec``
 fields, ...) are kept and unused. The model is ``nn.Module``s
-(``Transformer`` > ``Block`` > ``GQAttention`` + ``SwiGLU``) whose parameter
-names follow the reference's tree (``layers.{i}.attn.wq``), with a Python
-loop over layers: each layer's window is ``cfg.layer_window(i)``, as the
-reference's decode path reads it.
+(``Transformer`` > ``Block`` > ``GQAttention`` + ``SwiGLU`` or ``MoE``) whose
+parameter names follow the reference's tree (``layers.{i}.attn.wq``,
+``layers.{i}.mlp.router``), with a Python loop over layers: each layer's
+window is ``cfg.layer_window(i)``, as the reference's decode path reads it.
+So the hybrid local:global pattern (Gemma3: ``local_global=6``) needs no
+traced flag: a global layer has no window, which is what the reference's
+scan gets by ORing its per-layer flag into the mask. An MoE layer's router
+is fp32 whatever ``cfg.dtype`` is (the reference's ``init_moe`` casts it).
 
 Entry points (forward, prefill and decode under ``torch.inference_mode``):
 
@@ -22,8 +27,8 @@ Entry points (forward, prefill and decode under ``torch.inference_mode``):
   ``min(window, max_len)`` slots, its mask built from the absolute position
   stored in each slot.
 
-MLA, MoE, the dense-FFN prefix, the hybrid local:global pattern and MTP are
-not ported yet (ROADMAP queue A item 14): building such a config raises.
+MLA, the dense-FFN prefix and MTP (DeepSeek-V3) are not ported yet (ROADMAP
+queue A item 14): building such a config raises.
 """
 from __future__ import annotations
 
@@ -49,7 +54,7 @@ class LMConfig:
     vocab: int = 1024
     attention: str = "gqa"              # 'gqa' | 'mla' (not ported)
     mla: Any = None
-    moe: Any = None
+    moe: Any = None                     # layers.MoEConfig
     n_dense_prefix: int = 0
     window: int | None = None           # sliding-window width (danube)
     local_global: int | None = None     # period P: layer % P == P-1 is global
@@ -88,16 +93,14 @@ def check_supported(cfg: LMConfig) -> None:
     taken over yet."""
     missing = [what for what, present in (
         ("MLA attention", cfg.attention != "gqa" or cfg.mla is not None),
-        ("MoE", cfg.moe is not None),
         ("the dense-FFN prefix", cfg.n_dense_prefix != 0),
-        ("the hybrid local:global pattern", cfg.local_global is not None),
         ("the MTP head", cfg.mtp)) if present]
     if missing:
         raise NotImplementedError(f"{', '.join(missing)} of {cfg.name!r}: {L.NOT_PORTED}")
 
 
-def _weight(shape, cfg, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device),
+def _weight(shape, cfg, device, dtype=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.dtype, device=device),
                         requires_grad=False)
 
 
@@ -157,14 +160,44 @@ class GQAttention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    def __init__(self, cfg: LMConfig, device):
+    def __init__(self, cfg: LMConfig, d_ff: int, device):
         super().__init__()
-        self.w_gate = _weight((cfg.d_model, cfg.d_ff), cfg, device)
-        self.w_up = _weight((cfg.d_model, cfg.d_ff), cfg, device)
-        self.w_down = _weight((cfg.d_ff, cfg.d_model), cfg, device)
+        self.w_gate = _weight((cfg.d_model, d_ff), cfg, device)
+        self.w_up = _weight((cfg.d_model, d_ff), cfg, device)
+        self.w_down = _weight((d_ff, cfg.d_model), cfg, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return L.swiglu(x, self.w_gate, self.w_up, self.w_down)
+
+
+class MoE(nn.Module):
+    """``cfg.moe``'s experts: router (D, E) fp32, w_gate / w_up (E, D, F),
+    w_down (E, F, D), and ``shared`` (a SwiGLU of n_shared * shared_d_ff)
+    where n_shared."""
+
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        m = self.moe = cfg.moe
+        D, E, F = cfg.d_model, m.n_experts, m.d_ff
+        self.router = _weight((D, E), cfg, device, torch.float32)
+        self.w_gate = _weight((E, D, F), cfg, device)
+        self.w_up = _weight((E, D, F), cfg, device)
+        self.w_down = _weight((E, F, D), cfg, device)
+        self.shared = SwiGLU(cfg, m.shared_d_ff * m.n_shared, device) if m.n_shared else None
+
+    def params(self) -> dict:
+        p = {"router": self.router, "w_gate": self.w_gate, "w_up": self.w_up,
+             "w_down": self.w_down}
+        if self.shared is not None:
+            p["shared"] = {"w_gate": self.shared.w_gate, "w_up": self.shared.w_up,
+                           "w_down": self.shared.w_down}
+        return p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, D) -> (B, S, D); each batch row is a group of its own
+        (at decode, S = 1: C = 1 and nothing drops)."""
+        out, _ = L.moe_forward(self.params(), x, self.moe)
+        return out
 
 
 class Block(nn.Module):
@@ -173,7 +206,7 @@ class Block(nn.Module):
         self.attn_norm = _ones(cfg.d_model, cfg, device)
         self.attn = GQAttention(cfg, cfg.layer_window(index), device)
         self.mlp_norm = _ones(cfg.d_model, cfg, device)
-        self.mlp = SwiGLU(cfg, device)
+        self.mlp = MoE(cfg, device) if cfg.moe is not None else SwiGLU(cfg, cfg.d_ff, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(L.rms_norm(x, self.attn_norm), positions)
@@ -181,7 +214,8 @@ class Block(nn.Module):
 
     def decode(self, x: torch.Tensor, pos: torch.Tensor, cache: dict) -> torch.Tensor:
         x = x + self.attn.decode(L.rms_norm(x, self.attn_norm), pos, cache)
-        return x + self.mlp(L.rms_norm(x, self.mlp_norm))
+        h = L.rms_norm(x, self.mlp_norm)
+        return x + (self.mlp(h[:, None])[:, 0] if isinstance(self.mlp, MoE) else self.mlp(h))
 
 
 class Transformer(nn.Module):
@@ -228,8 +262,8 @@ def param_count(model: Transformer) -> int:
 def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Transformer:
     """A ``Transformer`` with random weights drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: every matrix standard normal
-    times ``d_model ** -0.5`` (drawn in fp32, then cast to ``cfg.dtype``),
-    every norm scale one."""
+    times ``d_model ** -0.5`` (drawn in fp32, then cast to the parameter's
+    dtype: ``cfg.dtype``, fp32 for a router), every norm scale one."""
     model = Transformer(cfg, device)
     g = torch.Generator(device=model.device).manual_seed(seed)
     s = cfg.d_model ** -0.5

@@ -799,12 +799,16 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
                                                (2, 127, 4, 2, 64, 64),
                                                (2, 128, 4, 2, 64, 64),
                                                (2, 129, 4, 2, 64, 64),
-                                               (1, 1, 1, 1, 64, 64)])
+                                               (1, 1, 1, 1, 64, 64),
+                                               (2, 200, 8, 2, 256, 256),
+                                               (1, 129, 4, 4, 192, 128),
+                                               (1, 65, 4, 2, 200, 160)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, causal, window, B, S, Hq, Hkv,
                                             dh, dhv):
     """Windows (128: on the bf16 kernel's key-tile edge), GQA ratios 1 to 8,
     dh 40 / 64 / 80 / 128 (40 is no multiple of 16), dhv != dh, ragged tails
-    and S = 127 / 128 / 129 around the bf16 kernel's 128-row tile, S = 1."""
+    and S = 127 / 128 / 129 around the bf16 kernel's 128-row tile, S = 1;
+    past 128 (64-key stages): Gemma3's 256, DeepSeek's 192 / 128, 200 / 160."""
     g = torch.Generator(device=cuda).manual_seed(S + Hq + dh)
     q = torch.randn((B, S, Hq, dh), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, S, Hkv, dh), generator=g, device=cuda).to(dtype)
@@ -886,7 +890,7 @@ def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda):
     q = torch.randn((1, 8, 2, 16), device=cuda)
     ops.reset_launch_counts()
     with pytest.raises(ValueError, match="head dims"):
-        cuda_fa.flash_attention(*(torch.randn((1, 8, 2, 129), device=cuda),) * 3)
+        cuda_fa.flash_attention(*(torch.randn((1, 8, 2, 257), device=cuda),) * 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         cuda_fa.flash_attention(q.cpu(), q.cpu(), q.cpu())
     with pytest.raises(ValueError, match="share a dtype"):

@@ -1188,7 +1188,8 @@ def _wgmma_flash_arithmetic(q, k, v, causal, window, split_p=True, block=128):
     summed in fp32, times scale * log2(e) after the product, -1e30 on masked
     scores, the online softmax over 128-key tiles on exp2 with (m, l, acc) in
     fp32, and P . V as two bf16 products, P's hi = bf16(p) and lo = bf16(p -
-    hi), summed in fp32 (``split_p=False``: hi alone). Key tiles the kernel
+    hi), summed in fp32 (``split_p=False``: hi alone). ``block`` is the
+    kernel's key stage: 128, or 64 where dh or dhv is past 128. Key tiles the kernel
     skips are visited here: for a row that cannot see them they change
     nothing (corr = 1, p = 0). A test helper, not a module of the port."""
     B, S, Hq, dh = q.shape
@@ -1226,19 +1227,22 @@ def _wgmma_flash_arithmetic(q, k, v, causal, window, split_p=True, block=128):
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (False, 70)])
-@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("dh", [64, 80, 192, 256])
 def test_wgmma_flash_arithmetic_matches_reference(causal, window, dh):
     """The bf16 kernel's split-P arithmetic against the port's plain version,
     the JAX oracle and the JAX Pallas kernel (interpret mode), at FLASH_TOL;
-    P rounded to bf16 alone leaves outputs outside it."""
+    P rounded to bf16 alone leaves outputs outside it. dh 192 (with dhv
+    128, DeepSeek's pair) and 256 run the kernel's 64-key stages."""
     rng = np.random.default_rng(dh + (window or 0))
     B, S, Hq, Hkv = 2, 256, 4, 2
+    dhv = 128 if dh == 192 else dh
+    block = 64 if max(dh, dhv) > 128 else 128
     q = rng.standard_normal((B, S, Hq, dh), dtype=np.float32)
     k = rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)
-    v = rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)
+    v = rng.standard_normal((B, S, Hkv, dhv), dtype=np.float32)
     tq, tk, tv = (_t(a).bfloat16() for a in (q, k, v))
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
-    got = _wgmma_flash_arithmetic(tq, tk, tv, causal, window).float().numpy()
+    got = _wgmma_flash_arithmetic(tq, tk, tv, causal, window, block=block).float().numpy()
     wants = {
         "ref.flash_attention_ref": ref.flash_attention_ref(tq, tk, tv, causal, window),
         "jax ref.flash_attention_ref": jref.flash_attention_ref(jq, jk, jv, causal=causal,
@@ -1250,7 +1254,7 @@ def test_wgmma_flash_arithmetic_matches_reference(causal, window, dh):
         want = want.float().numpy() if isinstance(want, torch.Tensor) else \
             np.asarray(jnp.asarray(want, jnp.float32))
         np.testing.assert_allclose(got, want, **FLASH_BF16_TOL, err_msg=name)
-    hi_only = _wgmma_flash_arithmetic(tq, tk, tv, causal, window, split_p=False)
+    hi_only = _wgmma_flash_arithmetic(tq, tk, tv, causal, window, split_p=False, block=block)
     want = wants["ref.flash_attention_ref"].float()
     outside = (hi_only.float() - want).abs() > (FLASH_BF16_TOL["atol"]
                                                 + FLASH_BF16_TOL["rtol"] * want.abs())

@@ -21,7 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import gemma3_12b as j_gemma
 from repro.configs import h2o_danube_1_8b as j_danube
+from repro.configs import qwen3_moe_30b_a3b as j_qwen
 from repro.configs import tinyllama_1_1b as j_tiny
 from repro.kernels import flash_attention as j_flash
 from repro.kernels import ref as j_ref
@@ -37,7 +39,10 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
-SMOKES = {"tinyllama-1.1b": j_tiny.SMOKE, "h2o-danube-1.8b": j_danube.SMOKE}
+SMOKES = {"tinyllama-1.1b": j_tiny.SMOKE, "h2o-danube-1.8b": j_danube.SMOKE,
+          "qwen3-moe-30b-a3b": j_qwen.SMOKE, "gemma3-12b": j_gemma.SMOKE}
+JMODS = {"tinyllama-1.1b": j_tiny, "h2o-danube-1.8b": j_danube,
+         "qwen3-moe-30b-a3b": j_qwen, "gemma3-12b": j_gemma}
 
 
 def _t(a, dtype=torch.float32):
@@ -50,9 +55,12 @@ def _np(x):
 
 
 def _port_cfg(jcfg, **over):
-    """The port's config for a reference config (same fields, torch dtype)."""
+    """The port's config for a reference config (same fields, torch dtype;
+    an MoE block as the port's MoEConfig)."""
     fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     fields["dtype"] = torch.bfloat16 if jcfg.dtype == jnp.bfloat16 else torch.float32
+    if jcfg.moe is not None:
+        fields["moe"] = L.MoEConfig(**dataclasses.asdict(jcfg.moe))
     return T.LMConfig(**{**fields, **over})
 
 
@@ -97,6 +105,49 @@ def test_attention_plain_matches_reference(causal, window, S, Hq, Hkv):
     for name, want in wants.items():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40), (False, None)])
+@pytest.mark.parametrize("dh,dhv", [(192, 128), (256, 256)])
+def test_attention_plain_wide_heads_match_reference(causal, window, dh, dhv):
+    """Head dims past 128 (DeepSeek's 192 / 128, Gemma3's 256): the plain
+    version against the reference's chunked attention_full, its Pallas
+    kernel (interpret mode, the whole dh as one block) and its oracle."""
+    rng = np.random.default_rng(dh + dhv)
+    B, S, Hq, Hkv = 1, 128, 4, 2
+    q = rng.standard_normal((B, S, Hq, dh), dtype=np.float32)
+    k = rng.standard_normal((B, S, Hkv, dh), dtype=np.float32)
+    v = rng.standard_normal((B, S, Hkv, dhv), dtype=np.float32)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window)
+    assert got.shape == (B, S, Hq, dhv)
+    wants = {
+        "layers.attention_full": JL.attention_full(jq, jk, jv, causal=causal,
+                                                   window=window, kv_chunk=64),
+        "pallas (interpret)": j_flash(jq, jk, jv, causal=causal, window=window,
+                                      block_q=64, block_k=64, interpret=True),
+        "ref.flash_attention_ref": j_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                                             window=window),
+    }
+    for name, want in wants.items():
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_global_override_matches_reference(flag):
+    """The hybrid pattern's flag: True turns the window off, as the
+    reference ORs it into the mask; False keeps it."""
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((2, 64, 4, 16), dtype=np.float32) for _ in range(3))
+    got = L.attention_full(_t(q), _t(k), _t(v), window=8, global_override=flag)
+    want = JL.attention_full(*map(jnp.asarray, (q, k, v)), window=8, kv_chunk=32,
+                             global_override=jnp.bool_(flag))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+    same = L.attention_full(_t(q), _t(k), _t(v), window=None if flag else 8)
+    assert torch.equal(got, same)
+    assert torch.equal(L.attention_full(_t(q), _t(k), _t(v), window=8,
+                                        global_override=torch.tensor(flag)), got)
 
 
 def test_attention_plain_bf16_scale_and_head_dims():
@@ -184,11 +235,11 @@ def test_gqa_forward_full_and_cached_match_reference(window):
 
 
 def test_port_configs_copy_the_reference():
-    for arch_id, jmod in (("tinyllama-1.1b", j_tiny), ("h2o-danube-1.8b", j_danube)):
+    for arch_id, jmod in JMODS.items():
         arch = configs.get_arch(arch_id)
         for mine, theirs in ((arch.model_cfg, jmod.CONFIG), (arch.smoke_cfg, jmod.SMOKE)):
             assert mine == _port_cfg(theirs), arch_id
-    assert configs.list_archs() == ["tinyllama-1.1b", "h2o-danube-1.8b"]
+    assert configs.list_archs() == list(JMODS)
 
 
 @pytest.mark.parametrize("arch_id", list(SMOKES))
@@ -235,15 +286,19 @@ def _jax_decode(jp, jcfg, first, steps, B, max_len):
 
 @pytest.mark.parametrize("arch_id", list(SMOKES))
 def test_greedy_decode_matches_reference(arch_id):
-    """20 greedy steps, past Danube smoke's window of 8 (its ring buffer
-    wraps twice): identical tokens and logits within 1e-5."""
+    """20 greedy steps, past Danube's window and Gemma3's local window of 8
+    (the rings wrap twice; Gemma3's global layers keep max_len slots);
+    Qwen3's MoE runs each row as a group of one token (C = 1): identical
+    tokens and logits within 1e-5."""
     jcfg = SMOKES[arch_id]
     jp, model = _models(jcfg)
     B, steps, max_len = 3, 20, 32
     want_toks, want_logits = _jax_decode(jp, jcfg, np.zeros(B, np.int32), steps, B, max_len)
     caches = T.init_cache(model.cfg, B, max_len, "cpu")
-    if jcfg.window:
-        assert caches[0]["k"].shape[1] == jcfg.window
+    for i, (c, jc) in enumerate(zip(caches, JT.init_cache(jcfg, B, max_len))):
+        w = jcfg.layer_window(i)
+        assert c["k"].shape == jc["k"].shape == (B, max_len if w is None else w, jcfg.n_kv,
+                                                 jcfg.d_head)
     tok = torch.zeros(B, dtype=torch.long)
     for t in range(steps):
         lg = T.decode_step(model, tok, torch.full((B,), t, dtype=torch.int32), caches)
@@ -255,8 +310,15 @@ def test_greedy_decode_matches_reference(arch_id):
 @pytest.mark.parametrize("arch_id", list(SMOKES))
 def test_prefill_equals_decode(arch_id):
     """The port alone, as tests/test_models_lm.py checks the reference:
-    forward's logits at every position == a token-by-token decode."""
+    forward's logits at every position == a token-by-token decode; 12
+    tokens wrap Gemma3's local rings of 8. Qwen3 at capacity_factor E / K,
+    so that C = S and prefill drops nothing, as decode (C = 1 a row) never
+    does; at 1.25 the two differ, in the reference too."""
     cfg = configs.get_arch(arch_id).smoke_cfg
+    if cfg.moe is not None:
+        m = cfg.moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
     model = T.init_params(cfg, seed=3, device="cpu")
     B, S = 2, 12
     toks = torch.from_numpy(_tokens(cfg.vocab, B, S, seed=2)).long()
@@ -322,11 +384,86 @@ def test_lm_params_from_numpy_rejects_bad_trees():
 
 
 def test_unported_lm_variants_raise():
+    """MLA, the dense-FFN prefix and MTP (DeepSeek-V3) still raise; MoE and
+    the hybrid local:global pattern build."""
     base = configs.get_arch("tinyllama-1.1b").smoke_cfg
-    for over in (dict(moe=object()), dict(attention="mla"), dict(local_global=6),
-                 dict(n_dense_prefix=1), dict(mtp=True)):
+    for over in (dict(attention="mla"), dict(n_dense_prefix=1), dict(mtp=True)):
         with pytest.raises(NotImplementedError, match="item 14"):
             T.Transformer(dataclasses.replace(base, **over), device="cpu")
-    q = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        L.attention_full(q, q, q, window=2, global_override=True)
+    for arch_id in ("qwen3-moe-30b-a3b", "gemma3-12b"):
+        T.Transformer(configs.get_arch(arch_id).smoke_cfg, device="cpu")
+
+
+# -- Qwen3-MoE and Gemma3 ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch_id,d_head", [("gemma3-12b", 256), ("qwen3-moe-30b-a3b", 128)])
+def test_wide_head_smoke_matches_reference(arch_id, d_head):
+    """The smoke configs at the published head dims (Gemma3's 256 with its
+    5 : 1 pattern as 2 : 1, Qwen3's 128): hidden states and prefill logits
+    against the reference's scan, fp32."""
+    jcfg = dataclasses.replace(SMOKES[arch_id], d_head=d_head)
+    jp, model = _models(jcfg, seed=4)
+    toks = _tokens(jcfg.vocab, 2, 24, seed=6)
+    h_want, _ = JT.forward(jp, jnp.asarray(toks), jcfg)
+    np.testing.assert_allclose(T.forward(model, torch.from_numpy(toks)).numpy(),
+                               np.asarray(h_want), **FP32_TOL)
+    np.testing.assert_allclose(T.prefill(model, torch.from_numpy(toks)).numpy(),
+                               np.asarray(JT.prefill(jp, jnp.asarray(toks), jcfg)), **FP32_TOL)
+
+
+def test_gemma3_smoke_prefill_bf16_matches_reference():
+    """Gemma3 smoke in bf16 (local and global layers): logits within 0.1 of
+    the reference's (6 layers of the two frameworks' bf16 rounding; TinyLlama's
+    2 stay within 0.05; these differ by up to 0.0625 on 5 of 2,048) and the
+    same argmax on most rows."""
+    jcfg = dataclasses.replace(j_gemma.SMOKE, dtype=jnp.bfloat16)
+    jp, model = _models(jcfg)
+    toks = _tokens(jcfg.vocab, 8, 32)
+    want = np.asarray(JT.prefill(jp, jnp.asarray(toks), jcfg))
+    got = T.prefill(model, torch.from_numpy(toks)).numpy()
+    np.testing.assert_allclose(got, want, atol=0.1, rtol=0)
+    assert (got.argmax(-1) == want.argmax(-1)).sum() >= 7
+
+
+def test_moe_and_hybrid_trees_convert():
+    """The reference's Qwen3 tree in bf16 carries across with its fp32
+    router ((L, D, E)) and its stacked (L, E, D, F) experts unstacked per
+    layer; a router in bf16, or an expert weight in fp32, is refused. The
+    Gemma3 tree carries across too."""
+    jcfg = dataclasses.replace(j_qwen.SMOKE, dtype=jnp.bfloat16)
+    tree = jax.tree.map(np.asarray, JT.init_params(jax.random.PRNGKey(0), jcfg))
+    assert tree["layers"]["mlp"]["router"].dtype == np.float32
+    assert tree["layers"]["mlp"]["w_gate"].shape == (2, 8, 64, 32)
+    cfg = _port_cfg(jcfg)
+    model = convert.lm_params_from_numpy(tree, cfg, "cpu")
+    mlp = model.layers[1].mlp
+    assert isinstance(mlp, T.MoE)
+    assert mlp.router.dtype == torch.float32 and mlp.w_gate.dtype == torch.bfloat16
+    np.testing.assert_array_equal(mlp.router.numpy(), tree["layers"]["mlp"]["router"][1])
+    np.testing.assert_array_equal(mlp.w_down.float().numpy(),
+                                  tree["layers"]["mlp"]["w_down"][1].astype(np.float32))
+    layers = tree["layers"]
+    for bad, name in (({**layers["mlp"], "router": layers["mlp"]["router"].astype(
+                            layers["mlp"]["w_up"].dtype)}, "router"),
+                      ({**layers["mlp"], "w_up": layers["mlp"]["w_up"].astype(np.float32)},
+                       "w_up")):
+        with pytest.raises(ValueError, match=name):
+            convert.lm_params_from_numpy({**tree, "layers": {**layers, "mlp": bad}}, cfg, "cpu")
+    jp, model = _models(j_gemma.SMOKE)
+    assert [b.attn.window for b in model.layers] == [8, 8, None, 8, 8, None]
+    np.testing.assert_array_equal(model.layers[5].attn.wq.numpy(),
+                                  np.asarray(jp["layers"]["attn"]["wq"][5]))
+
+
+@pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "gemma3-12b"])
+def test_serve_cli_moe_and_hybrid_archs(arch_id, capsys):
+    """``serve --arch <arch> --smoke --device cpu``: the seeded model's
+    greedy stream, the same as serve_lm on the model init_params draws."""
+    run = serve.main(["--arch", arch_id, "--smoke", "--device", "cpu", "--tokens", "12",
+                      "--batch", "2", "--max-len", "16"])
+    assert run.tokens.shape == (2, 12)
+    assert "tok/s" in capsys.readouterr().out
+    model = T.init_params(configs.get_arch(arch_id).smoke_cfg, 0, "cpu")
+    again = serve.serve_lm(model, batch=2, tokens=12, max_len=16)
+    assert torch.equal(run.tokens, again.tokens)
