@@ -127,7 +127,10 @@ Phases (each prints its seconds):
    prefill_32k shape (B=32, S=32768) is timed beside SDPA, and Gemma3-12B's
    layer (B=8, S=2048, 16/8, dh=256; global, and local with its window of
    1024) per recorded launch beside its plain version and SDPA (the
-   window as a boolean mask), into the row's ``shapes``.
+   window as a boolean mask), and DeepSeek-V3's MLA prefill layer (B=8,
+   S=2048, 128/128, dh=192, dhv=128, the ``<192, 128>`` instantiation) held
+   to its plain version within FLASH_TOL and timed beside it and SDPA (the
+   kernels SDPA picks printed), into the row's ``shapes``.
 6. LM serving at full width: TinyLlama-1.1B (22 layers, d=2048, GQA 32/4,
    bf16, random weights from seed 0) through ``repro_torch.models``: (a)
    init on the card; (b) ``prefill`` of 8 x 2048 tokens, whose attention
@@ -140,7 +143,7 @@ Phases (each prints its seconds):
    --batch 8 --tokens 32 --max-len 2048``. One prefill call and 8 decode
    steps (batch 8, caches of 2048) also run under the profiler: device-busy
    share and the device ops that lead.
-12. MoE and hybrid LM serving at full width (after phase 6, before phase 7,
+12. MoE, hybrid and MLA LM serving at full width (after phase 6, before phase 7,
    on an empty card): Qwen3-30B-A3B (48 layers, 128 experts top-8, GShard
    dispatch at capacity_factor 1.25) and Gemma3-12B (48 layers, 5 local
    (window 1024) : 1 global, d_head 256), bf16, random weights from seed 0.
@@ -163,14 +166,29 @@ Phases (each prints its seconds):
    fp32 weights at full width, prefill == decode within 1e-3 relative; (e)
    ``serve --arch <arch> --batch 8 --tokens 32 --max-len 2048``. One
    prefill and 8 decode steps also run under the profiler (busy share, the
-   leading ops; for Qwen3 the device time split into router and dispatch,
-   expert products and combine by record_function labels). Cuts: Qwen3's
+   leading ops, and the device time split by record_function labels into
+   flash, the SwiGLUs and the MoE's router and dispatch, expert products and
+   combine). Cuts: Qwen3's
    prefill batch is 4, not 8 (its 56.9 GiB of weights leave less room than
    TinyLlama's); (d) runs 2 layers of Qwen3 (at capacity_factor E / K =
    16, so C = S and prefill drops nothing, as decode's C = 1 never does; at
    1.25 the reference's own prefill and decode differ) and 6 layers of
    Gemma3 (one 5 : 1 period) with local_window 128 on 2 x 192 tokens, so
-   that the decode rings wrap.
+   that the decode rings wrap. Third, DeepSeek-V3-671B at its published widths
+   (d=7168; MLA: 128 heads, q_lora_rank 1536, kv_lora_rank 512, dn / dr / dv
+   = 128 / 64 / 128; 256 experts top-8 of d_ff 2048 and one shared expert;
+   dense d_ff 18432; vocab 129,280; bf16, seed 0) with its depth cut to the
+   3 dense-FFN layers and 1 MoE layer, plus the MTP head's weights
+   (15,797,352,448 parameters; the full config's 671,712,655,360, ~1.25 TiB,
+   do not fit one card; both counts checked exactly): (b) prefill 8 x 2048,
+   each MLA layer's attention one flash launch at dh = 192, dhv = 128 (4
+   launches), the device time split into MLA projections, flash, the
+   SwiGLUs (dense and shared expert), router and dispatch, expert products
+   and combine; (c) as above; (d) one dense and one MoE layer in fp32
+   (14,630,385,664 parameters, 54.5 GiB; capacity_factor E / K = 32) on 2 x
+   192 tokens: the absorbed decode against the decompressed prefill; (e)
+   ``serve.serve_lm`` on the cut model (batch 8, 32 tokens, caches of 2048)
+   and ``serve --arch deepseek-v3-671b --smoke`` through ``serve.main``.
 
 7. The paper's experiment through ``repro_torch.paper`` (the counterpart
    of the reference's ``benchmarks/run.py``), 1,000 queries a world, at the
@@ -420,13 +438,19 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 LM_LOGIT_RTOL = 0.05
 LM_ARGMAX_ROWS = 15
 LM_DECODE_RTOL = 1e-3
-# phase 12: (arch, prefill batch, (d)'s depth, (d)'s tokens a row, (d)'s
-# local_window or None) and each arch's parameter count: Qwen3-30B-A3B's
-# published 30.5B; for Gemma3-12B the reference config's 12.8e9 (its LM head
-# is untied, Google's ties it to the embedding)
-PHASE12_ARCHS = (("qwen3-moe-30b-a3b", 4, 2, 128, None),
-                 ("gemma3-12b", 8, 6, 192, 128))
-PHASE12_PARAMS = {"qwen3-moe-30b-a3b": 30.5e9, "gemma3-12b": 12.8e9}
+# phase 12: (arch, prefill batch, depth or None for the config's, (d)'s
+# depth, (d)'s tokens a row, (d)'s local_window or None) and each arch's
+# parameter count: Qwen3-30B-A3B's published 30.5B, DeepSeek-V3's 671B; for
+# Gemma3-12B the reference config's 12.8e9 (its LM head is untied, Google's
+# ties it to the embedding). DeepSeek-V3 is cut to its 3 dense-FFN layers and
+# one MoE layer (the full config's 1.25 TiB does not fit one card), (d) to one
+# dense and one MoE layer; PHASE12_COUNTS holds the parameter counts of the
+# reference's init_params shapes at the full config, that depth and (d)'s.
+PHASE12_ARCHS = (("qwen3-moe-30b-a3b", 4, None, 2, 128, None),
+                 ("gemma3-12b", 8, None, 6, 192, 128),
+                 ("deepseek-v3-671b", 8, 4, 2, 192, None))
+PHASE12_PARAMS = {"qwen3-moe-30b-a3b": 30.5e9, "gemma3-12b": 12.8e9, "deepseek-v3-671b": 671e9}
+PHASE12_COUNTS = {"deepseek-v3-671b": (671_712_655_360, 15_797_352_448, 14_630_385_664)}
 WINDOW_PAD_S = 0.05   # window_pad's quiet time at each end of a profiler window
 # published H100 SXM peaks: HBM3 bandwidth, dense FP32 rate and the dense
 # bf16 tensor-core rate
@@ -2376,27 +2400,28 @@ def hgmma_count(symbol: str) -> dict[str, int]:
     return counts
 
 
-def _sdpa(q, k, v):
+def _sdpa(q, k, v, scale=None):
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True).transpose(1, 2)
+        is_causal=True, enable_gqa=True, scale=scale).transpose(1, 2)
 
 
-def _attention_flops(B, S, Hq, dh, window=None):
-    """QK^T and PV over the visible (q, k) pairs of a causal layer (the
-    last ``window`` keys of each query where one is given)."""
+def _attention_flops(B, S, Hq, dh, window=None, dhv=None):
+    """QK^T (dh) and PV (dhv, dh where not given) over the visible (q, k)
+    pairs of a causal layer (the last ``window`` keys of each query where
+    one is given)."""
     pairs = S * (S + 1) / 2 if window is None else sum(min(q + 1, window) for q in range(S))
-    return 2.0 * 2.0 * B * Hq * pairs * dh
+    return 2.0 * B * Hq * pairs * (dh + (dh if dhv is None else dhv))
 
 
-def _sdpa_layer(q, k, v, window=None):
+def _sdpa_layer(q, k, v, window=None, scale=None):
     """:func:`_sdpa`, or :func:`_sdpa_window` where there is a window."""
-    return _sdpa(q, k, v) if window is None else _sdpa_window(q, k, v, window)
+    return _sdpa(q, k, v, scale) if window is None else _sdpa_window(q, k, v, window, scale)
 
 
-def _sdpa_window(q, k, v, window):
+def _sdpa_window(q, k, v, window, scale=None):
     """scaled_dot_product_attention with the causal window as a boolean mask."""
     import torch.nn.functional as F
 
@@ -2405,7 +2430,7 @@ def _sdpa_window(q, k, v, window):
     mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-        enable_gqa=True).transpose(1, 2)
+        enable_gqa=True, scale=scale).transpose(1, 2)
 
 
 def time_gemma3_layer(g) -> list[dict]:
@@ -2445,6 +2470,64 @@ def time_gemma3_layer(g) -> list[dict]:
                                  f"dh={dh}, bf16", ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                            bound_ms=b_ms, bound_by=b_by))
     return shapes
+
+
+def time_mla_layer(g, errs: dict) -> dict:
+    """flash_attention at one DeepSeek-V3 MLA prefill layer (B=8, S=2048,
+    128/128 heads, dh=192, dhv=128, bf16, causal, scale 192 ** -0.5; the K
+    operand materialised as the model's is): the `<192, 128>` instantiation
+    per recorded launch, held to its plain version within FLASH_TOL, the
+    plain version's time (one batch row at a time: the whole batch's fp32
+    scores would be 17 GB) and scaled_dot_product_attention's, with the
+    kernels SDPA runs (its backend) printed."""
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    symbol = "flash_attention_wgmma_kernel"
+    B, S, H, dh, dhv = 8, 2048, 128, 192, 128
+    scale = dh ** -0.5
+    q = torch.randn((B, S, H, dh), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, H, dh), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, H, dhv), generator=g, device=dev).to(torch.bfloat16)
+
+    def kern():
+        return ops.flash_attention(q, k, v, softmax_scale=scale)
+
+    def plain():
+        return plain_flash_attention(q, k, v, True, None, scale)
+
+    def lib():
+        return _sdpa(q, k, v, scale)
+    got, want = kern(), plain()
+    tol = FLASH_TOL[torch.bfloat16]
+    err = max_abs_err(got.float(), want.float())
+    excess = float(((got.float() - want.float()).abs() - tol["atol"]
+                    - tol["rtol"] * want.float().abs()).max())
+    apart = float((got != want).float().mean())
+    check(excess <= 0.0, "flash_attention outside its tolerance at DeepSeek's MLA layer")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    lib_err = max_abs_err(lib().float(), want.float())
+    del got, want
+    k_ms = device_ms(kern, reps=10, match=symbol, launches=1)
+    call_ms = cuda_ms(kern, reps=10)
+    p_ms = device_ms(plain, reps=2)
+    l_ms = cuda_ms(lib, reps=10)
+    sdpa_kernels = sorted(set(kernels_of_one_call(lib)))
+    flops = _attention_flops(B, S, H, dh, dhv=dhv)
+    nbytes = 2.0 * (2 * B * S * H * dh + 2 * B * S * H * dhv)   # q, k; v, o
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    print(f"  flash_attention DeepSeek-V3 MLA layer B={B} S={S} {H}/{H} dh={dh} dhv={dhv} "
+          f"bf16 causal: kernel {k_ms:.4f} ms on the device ({call_ms:.4f} ms a call back to "
+          f"back; {flops / k_ms / 1e9:.1f} TFLOP/s of visible-pair flops), max abs difference "
+          f"to the plain version {err:.3g} (largest excess over FLASH_TOL {excess:.3g}; "
+          f"{apart:.3%} of outputs apart), plain {p_ms:.3f} ms (one batch row at a time), "
+          f"scaled_dot_product_attention {l_ms:.4f} ms (kernel / SDPA {k_ms / l_ms:.2f}x; "
+          f"{lib_err:.3g} from the plain version; SDPA runs {sdpa_kernels}), bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops:.4e} flops at the bf16 tensor-core peak; "
+          f"{nbytes / 1e6:.1f} MB)")
+    return dict(shape=f"DeepSeek-V3 MLA prefill layer, B={B} x S={S}, {H}/{H}, dh={dh}, "
+                      f"dhv={dhv}, bf16, causal", ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                bound_ms=b_ms, bound_by=b_by, library_kernels=sdpa_kernels)
 
 
 def time_flash_attention(errs: dict) -> dict:
@@ -2499,6 +2582,7 @@ def time_flash_attention(errs: dict) -> dict:
           f"tensor-core peak; {nbytes / 1e6:.1f} MB, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     del q, k, v
     shapes = time_gemma3_layer(g)
+    shapes.append(time_mla_layer(g, errs))
 
     B, S = 32, 32768
     q = torch.randn((B, S, Hq, dh), generator=g, device=dev, dtype=torch.bfloat16)
@@ -2718,15 +2802,20 @@ def lm_serving() -> int:
 # -- phase 12: MoE and hybrid LM serving ----------------------------------------
 
 
-class moe_stages:
-    """While active: ``models.layers``' MoE stages run under
-    ``torch.profiler.record_function`` labels ("moe: router and dispatch",
-    "moe: expert products", "moe: combine"), which ``moe_forward`` calls
-    through the module; and ``dropped`` lists each ``moe_route`` call's
-    assignments past capacity (device tensors, read at the end), one per
-    layer in a prefill."""
+class lm_stages:
+    """While active: ``models.layers``' stages run under
+    ``torch.profiler.record_function`` labels, which the model calls through
+    the module: MLA ("attention: MLA projections", ``mla_forward``: its
+    PyTorch ops; the flash kernel, a ctypes launch, belongs to no range and
+    :func:`stage_profile` reads it by its symbol), the SwiGLUs ("mlp:
+    SwiGLU", the dense layers' and the shared experts') and the MoE stages
+    ("moe: router and dispatch", "moe: expert products", "moe: combine");
+    and ``dropped`` lists each ``moe_route`` call's assignments past
+    capacity (device tensors, read at the end), one per MoE layer in a
+    prefill."""
 
-    LABELS = {"moe_route": "moe: router and dispatch", "moe_dispatch": "moe: router and dispatch",
+    LABELS = {"mla_forward": "attention: MLA projections", "swiglu": "mlp: SwiGLU",
+              "moe_route": "moe: router and dispatch", "moe_dispatch": "moe: router and dispatch",
               "moe_experts": "moe: expert products", "moe_combine": "moe: combine"}
 
     def __init__(self, count_drops: bool = False):
@@ -2761,18 +2850,19 @@ class moe_stages:
             setattr(layers, name, fn)
 
 
-def moe_profile(fn, label: str, calls: int = 1, top: int = 6, tries: int = 3) -> None:
-    """:func:`device_profile` of ``calls`` runs of ``fn`` with the MoE
-    stages labelled (:class:`moe_stages`), from the same window: the busy
+def stage_profile(fn, label: str, calls: int = 1, top: int = 6, tries: int = 3) -> None:
+    """:func:`device_profile` of ``calls`` runs of ``fn`` with the model's
+    stages labelled (:class:`lm_stages`), from the same window: the busy
     share, the device ops that lead, and the device time under each label
-    (the kernels its record_function range launched) per call and as a
-    share of the window's. Where the ranges carry no device time, the spans
-    of their GPU annotations stand in (gaps included), which is printed."""
+    (the kernels its record_function range launched) and of the flash
+    kernel (by its symbol) per call and as a share of the window's. Where
+    the ranges carry no device time, the spans of their GPU annotations
+    stand in (gaps included), which is printed."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = sorted(set(moe_stages.LABELS.values()))
+    names = sorted(set(lm_stages.LABELS.values()))
     cuda_type = torch.autograd.DeviceType.CUDA
-    with moe_stages():
+    with lm_stages():
         fn()
         for _ in range(tries):
             torch.cuda.synchronize()
@@ -2790,10 +2880,10 @@ def moe_profile(fn, label: str, calls: int = 1, top: int = 6, tries: int = 3) ->
             if dev_us > 0:
                 break
         else:
-            print(f"  {label}: busy share and MoE stages not measured (the profiler recorded "
+            print(f"  {label}: busy share and stages not measured (the profiler recorded "
                   f"no device time in {tries} windows); {wall_us / 1e3 / calls:.2f} ms wall a call")
             return
-    print(f"  {label} under the profiler (MoE stages labelled): {wall_us / 1e3 / calls:.2f} ms "
+    print(f"  {label} under the profiler (stages labelled): {wall_us / 1e3 / calls:.2f} ms "
           f"wall a call, {dev_us / 1e3 / calls:.3f} ms on the device ({dev_us / wall_us:.1%} "
           f"busy, {1 - dev_us / wall_us:.1%} idle), {sum(e.count for e in on_card) / calls:.0f} "
           f"device ops a call")
@@ -2807,9 +2897,12 @@ def moe_profile(fn, label: str, calls: int = 1, top: int = 6, tries: int = 3) ->
         by = {n: sum(e.self_device_time_total for e in events
                      if e.key == n and e.device_type == cuda_type) for n in names}
         how = "spans of the labels' GPU annotations, gaps included"
-    print(f"  {label}, MoE stages ({how}):")
-    for n in names:
-        print(f"    {n:28s} {by[n] / 1e3 / calls:9.3f} ms ({by[n] / dev_us:.1%})")
+    by["attention: flash (its kernel)"] = sum(e.self_device_time_total for e in on_card
+                                              if "flash_attention" in e.key)
+    print(f"  {label}, stages ({how}):")
+    for n, us in sorted(by.items()):
+        if us:
+            print(f"    {n:30s} {us / 1e3 / calls:9.3f} ms ({us / dev_us:.1%})")
 
 
 @contextlib.contextmanager
@@ -2821,7 +2914,7 @@ def library_attention():
 
     kernel = ops.flash_attention
     ops.flash_attention = lambda q, k, v, causal=True, window=None, softmax_scale=None: (
-        _sdpa_layer(q, k, v, window))
+        _sdpa_layer(q, k, v, window, softmax_scale))
     try:
         yield
     finally:
@@ -2844,7 +2937,7 @@ def lockstep_attention(model, tokens) -> list[tuple]:
     def both(q, k, v, causal=True, window=None, softmax_scale=None):
         want = plain_flash_attention(q, k, v, causal, window, softmax_scale)
         got = kernel(q, k, v, causal, window, softmax_scale)
-        lib = _sdpa_layer(q, k, v, window)
+        lib = _sdpa_layer(q, k, v, window, softmax_scale)
         tol = FLASH_TOL[q.dtype]
         diff = (got.float() - want.float()).abs()
         layers.append((window, float(diff.max()),
@@ -2860,48 +2953,79 @@ def lockstep_attention(model, tokens) -> list[tuple]:
 
 
 def expected_lm_params(cfg) -> int:
-    """The parameters of ``cfg`` counted from its fields alone (embed, head,
-    final norm; per layer two norms, q/k/v/o, and the SwiGLU or the MoE's
-    router, experts and shared experts)."""
+    """The parameters of ``cfg`` counted from its fields alone: embed, head,
+    final norm; per layer two norms, the attention (GQA: q/k/v/o; MLA: w_dq,
+    q_norm, w_uq, w_dkv, kv_norm, w_kr, w_uk, w_uv, wo) and the MLP (a
+    SwiGLU of d_ff in the dense prefix and where there is no MoE, else the
+    router, experts and shared experts); the MTP head's proj (2D, D), dense
+    block and norm where ``cfg.mtp``."""
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_head
-    attn = D * H * dh * 2 + D * Hkv * dh * 2
-    if cfg.moe is None:
-        mlp = 3 * D * cfg.d_ff
+    if cfg.attention == "mla":
+        a = cfg.mla
+        ql, r, A = a.q_lora_rank, a.kv_lora_rank, a.n_heads
+        attn = (D * ql + ql + ql * A * (a.qk_nope_dim + a.qk_rope_dim) + D * r + r
+                + D * a.qk_rope_dim + r * A * (a.qk_nope_dim + a.v_head_dim)
+                + A * a.v_head_dim * D)
     else:
+        attn = D * H * dh * 2 + D * Hkv * dh * 2
+    dense = 2 * D + attn + 3 * D * cfg.d_ff
+    layer = dense
+    if cfg.moe is not None:
         m = cfg.moe
-        mlp = D * m.n_experts + 3 * m.n_experts * D * m.d_ff + 3 * D * m.shared_d_ff * m.n_shared
-    return 2 * cfg.vocab * D + D + cfg.n_layers * (2 * D + attn + mlp)
+        layer = (2 * D + attn + D * m.n_experts + 3 * m.n_experts * D * m.d_ff
+                 + 3 * D * m.shared_d_ff * m.n_shared)
+    mtp = 2 * D * D + dense + D if cfg.mtp else 0
+    return (2 * cfg.vocab * D + D + cfg.n_dense_prefix * dense + cfg.n_scan_layers * layer
+            + mtp)
 
 
-def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
-                    d_window: int | None) -> int:
-    """Phase 12 for one arch; returns the flash kernel's launches in one
-    prefill call."""
+def lm_arch_serving(arch_id: str, batch: int, depth: int | None, d_layers: int,
+                    d_tokens: int, d_window: int | None) -> int:
+    """Phase 12 for one arch, at ``depth`` layers (None: the config's);
+    returns the flash kernel's launches in one prefill call."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
     dev = torch.device("cuda")
-    cfg = get_arch(arch_id).model_cfg
+    full = get_arch(arch_id).model_cfg
+    cfg = full if depth is None else dataclasses.replace(full, n_layers=depth)
+    counts_want = PHASE12_COUNTS.get(arch_id)
     B, S = batch, 2048
     torch.cuda.reset_peak_memory_stats()
     t0 = t = time.perf_counter()
     model = tf.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = tf.param_count(model)
-    want = PHASE12_PARAMS[arch_id]
+    want, full_count = PHASE12_PARAMS[arch_id], expected_lm_params(full)
     m = cfg.moe
-    mlp = (f"{m.n_experts} experts top-{m.top_k} d_ff={m.d_ff}, capacity_factor "
-           f"{m.capacity_factor}" if m else f"d_ff={cfg.d_ff}")
+    mlp = (f"{m.n_experts} experts top-{m.top_k} d_ff={m.d_ff}, {m.n_shared} shared, "
+           f"capacity_factor {m.capacity_factor}" if m else f"d_ff={cfg.d_ff}")
+    if cfg.attention == "mla":
+        a = cfg.mla
+        attn = (f"MLA {a.n_heads} heads, q_lora_rank {a.q_lora_rank}, kv_lora_rank "
+                f"{a.kv_lora_rank}, dn/dr/dv {a.qk_nope_dim}/{a.qk_rope_dim}/{a.v_head_dim}")
+    else:
+        attn = f"GQA {cfg.n_heads}/{cfg.n_kv}, d_head={cfg.d_head}"
+    prefix = (f" (the first {cfg.n_dense_prefix} dense, d_ff={cfg.d_ff})"
+              if cfg.n_dense_prefix else "")
     print(f"(a) {cfg.name}: {n_params:,} parameters ({expected_lm_params(cfg):,} from the "
-          f"config's fields; {cfg.n_layers} layers, d={cfg.d_model}, GQA {cfg.n_heads}/"
-          f"{cfg.n_kv}, d_head={cfg.d_head}, {mlp}, vocab {cfg.vocab}, the first period's "
-          f"windows {[cfg.layer_window(i) for i in range(min(cfg.n_layers, 6))]}, "
-          f"{cfg.dtype}) initialised on the card in {time.perf_counter() - t:.2f} s; peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(abs(n_params - want) <= 0.01 * want and n_params == expected_lm_params(cfg),
-          f"{cfg.name} parameter count {n_params:,} is not within 1% of {want:.3g}")
+          f"config's fields; {cfg.n_layers} of {full.n_layers} layers{prefix}, "
+          f"d={cfg.d_model}, {attn}, {mlp}, vocab {cfg.vocab}, the first period's "
+          f"windows {[cfg.layer_window(i) for i in range(min(cfg.n_layers, 6))]}"
+          f"{', MTP weights carried' if cfg.mtp else ''}, {cfg.dtype}) initialised on the "
+          f"card in {time.perf_counter() - t:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the full config "
+          f"{full_count:,} from its fields (published {want:.4g})")
+    check(abs(full_count - want) <= 0.01 * want,
+          f"{full.name} parameter count {full_count:,} is not within 1% of {want:.4g}")
+    check(n_params == expected_lm_params(cfg),
+          f"{cfg.name} parameter count {n_params:,} is not the count from its fields")
+    if counts_want is not None:
+        check((full_count, n_params) == counts_want[:2],
+              f"{cfg.name} parameter counts {(full_count, n_params)} are not the reference's "
+              f"{counts_want[:2]}")
 
     rng = np.random.default_rng(12)
     prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S))).to(dev)
@@ -2924,7 +3048,7 @@ def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
           f"tokens/s, {launches} flash_attention launches a call; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if cfg.moe is not None:
-        with moe_stages(count_drops=True) as st:
+        with lm_stages(count_drops=True) as st:
             tf.prefill(model, prompts[0])
         per_layer = [int(d) for d in st.dropped]
         dropped, each = sum(per_layer), st.assignments // len(per_layer)
@@ -2933,8 +3057,7 @@ def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
               f"{max(int(cfg.moe.capacity_factor * S * cfg.moe.top_k / cfg.moe.n_experts), 1)} "
               f"slots per expert per row); by layer, share of {each:,}: "
               f"{[round(d / each, 3) for d in per_layer]}")
-    profile = moe_profile if cfg.moe is not None else device_profile
-    profile(lambda: tf.prefill(model, prompts[0]), f"prefill {B} x {S}")
+    stage_profile(lambda: tf.prefill(model, prompts[0]), f"prefill {B} x {S}")
     print(f"  [(a), (b)] {time.perf_counter() - t0:.1f} s")
 
     kern = torch.cat([logits, tf.prefill(model, prompts[1])])
@@ -2982,12 +3105,23 @@ def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
     def decode():
         tf.decode_step(model, tok, torch.full((B,), next(step), dtype=torch.int32,
                                               device=dev), caches)
-    profile(decode, f"decode step, batch {B}, caches of {S}", calls=8)
+    stage_profile(decode, f"decode step, batch {B}, caches of {S}", calls=8)
     print(f"  [(c), decode profile] {time.perf_counter() - t0:.1f} s")
-    del model, caches, prompts
+    del caches, prompts
+    if depth is not None:   # the full config does not fit the card: serve the cut model
+        run = serve.serve_lm(model, batch=8, tokens=32, max_len=2048)
+        print(f"(e) serve_lm on the {depth}-layer model: {run.tok_per_s:,.1f} tok/s, "
+              f"{run.ms_per_token:.2f} ms/token (8 sequences, 32 greedy steps, caches of "
+              f"2048); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(run.tokens.shape == (8, 32) and bool(((run.tokens >= 0)
+                                                     & (run.tokens < cfg.vocab)).all()),
+              f"{cfg.name}: the serve loop's tokens are out of range")
+    del model
     torch.cuda.empty_cache()
 
     over = dict(dtype=torch.float32, n_layers=d_layers)
+    if cfg.n_dense_prefix:    # one dense layer, then the MoE layers
+        over["n_dense_prefix"] = 1
     if cfg.moe is not None:   # C = S: prefill drops nothing, as decode (C = 1) never does
         over["moe"] = dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)
@@ -2995,9 +3129,12 @@ def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
         over["local_window"] = d_window
     cfg32 = dataclasses.replace(cfg, **over)
     model = tf.init_params(cfg32, seed=0, device=dev)
+    n32 = tf.param_count(model)
+    check(n32 == expected_lm_params(cfg32) and (counts_want is None or n32 == counts_want[2]),
+          f"{cfg32.name} fp32 parameter count {n32:,} is not the expected one")
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, d_tokens))).to(dev)
     ops.reset_launch_counts()
-    full = (tf.forward(model, toks) @ model.lm_head).float()
+    full_logits = (tf.forward(model, toks) @ model.lm_head).float()
     check(ops.launch_counts()["flash_attention"] == d_layers,
           "the fp32 forward did not go through the kernel")
     caches = tf.init_cache(cfg32, 2, d_tokens, dev)
@@ -3007,24 +3144,27 @@ def lm_arch_serving(arch_id: str, batch: int, d_layers: int, d_tokens: int,
                                         caches) for i in range(d_tokens)], 1)
     torch.cuda.synchronize()
     dec_s = time.perf_counter() - t
-    rel = max_abs_err(full, steps) / float(full.abs().max())
-    rings = sorted({c["k"].shape[1] for c in caches})
-    print(f"(d) fp32 prefill == decode at full width, {d_layers} layers, 2 x {d_tokens} "
+    rel = max_abs_err(full_logits, steps) / float(full_logits.abs().max())
+    rings = sorted({next(iter(c.values())).shape[1] for c in caches})
+    print(f"(d) fp32 prefill == decode at full width, {d_layers} layers "
+          f"({cfg32.n_dense_prefix} dense), {n32:,} parameters, 2 x {d_tokens} "
           f"(cache slots {rings}{', capacity_factor ' + str(cfg32.moe.capacity_factor) if cfg32.moe else ''}): "
           f"max abs difference / largest logit {rel:.3g} (tolerance {LM_DECODE_RTOL}); "
-          f"{d_tokens} decode steps in {dec_s:.2f} s")
+          f"{d_tokens} decode steps in {dec_s:.2f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(rel <= LM_DECODE_RTOL, f"{cfg.name} fp32 decode logits differ from forward's")
-    del model, caches, full, steps
+    del model, caches, full_logits, steps
     torch.cuda.empty_cache()
     print(f"  [(d)] {time.perf_counter() - t0:.1f} s")
 
-    run = serve.main(["--arch", arch_id, "--batch", "8", "--tokens", "32",
-                      "--max-len", "2048", "--device", "cuda"])
-    print(f"(e) serve --arch {arch_id}: {run.tok_per_s:,.1f} tok/s, {run.ms_per_token:.2f} "
+    argv = ["--arch", arch_id, "--batch", "8", "--tokens", "32", "--max-len", "2048",
+            "--device", "cuda"] + (["--smoke"] if depth is not None else [])
+    run = serve.main(argv)
+    vocab = get_arch(arch_id).smoke_cfg.vocab if depth is not None else cfg.vocab
+    print(f"(e) serve {' '.join(argv)}: {run.tok_per_s:,.1f} tok/s, {run.ms_per_token:.2f} "
           f"ms/token (8 sequences, 32 greedy steps, caches of 2048); peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check(run.tokens.shape == (8, 32) and bool(((run.tokens >= 0)
-                                                 & (run.tokens < cfg.vocab)).all()),
+    check(run.tokens.shape == (8, 32) and bool(((run.tokens >= 0) & (run.tokens < vocab)).all()),
           f"{cfg.name}: the serve loop's tokens are out of range")
     torch.cuda.empty_cache()
     return launches
@@ -3034,10 +3174,10 @@ def moe_hybrid_serving() -> int:
     """Phase 12; returns the flash kernel's launches over one prefill call of
     each arch."""
     total = 0
-    for arch_id, batch, d_layers, d_tokens, d_window in PHASE12_ARCHS:
+    for arch_id, batch, depth, d_layers, d_tokens, d_window in PHASE12_ARCHS:
         t = time.perf_counter()
         print(f"--- {arch_id}")
-        total += lm_arch_serving(arch_id, batch, d_layers, d_tokens, d_window)
+        total += lm_arch_serving(arch_id, batch, depth, d_layers, d_tokens, d_window)
         print(f"  [{arch_id}] {time.perf_counter() - t:.1f} s")
     return total
 
@@ -4460,8 +4600,8 @@ def main(argv=None) -> int:
     rows.append(flash_row)
     done(t0, "phase 6")
 
-    t0 = phase("phase 12: MoE and hybrid LM serving at full width (Qwen3-30B-A3B, "
-               "Gemma3-12B)")
+    t0 = phase("phase 12: MoE, hybrid and MLA LM serving at full width (Qwen3-30B-A3B, "
+               "Gemma3-12B, DeepSeek-V3 at 4 layers)")
     torch.cuda.empty_cache()
     launches12 = moe_hybrid_serving()
     done(t0, "phase 12")

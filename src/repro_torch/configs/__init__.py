@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from . import gemma3_12b, h2o_danube_1_8b, qwen3_moe_30b_a3b, tinyllama_1_1b
+from . import (deepseek_v3_671b, gemma3_12b, h2o_danube_1_8b, qwen3_moe_30b_a3b,
+               tinyllama_1_1b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,7 +19,8 @@ class ArchDef:
 
 
 _ARCHS = {m.ARCH_ID: ArchDef(m.ARCH_ID, "lm", m.CONFIG, m.SMOKE)
-          for m in (tinyllama_1_1b, h2o_danube_1_8b, qwen3_moe_30b_a3b, gemma3_12b)}
+          for m in (tinyllama_1_1b, h2o_danube_1_8b, qwen3_moe_30b_a3b, gemma3_12b,
+                    deepseek_v3_671b)}
 
 
 def get_arch(arch_id: str) -> ArchDef:

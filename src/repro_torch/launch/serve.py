@@ -1,6 +1,6 @@
 """Query serving on the PyTorch port: graph ANN (``--arch ann``) and
 greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b |
-qwen3-moe-30b-a3b | gemma3-12b``).
+qwen3-moe-30b-a3b | gemma3-12b | deepseek-v3-671b``).
 
 Builds the paper's index through ``core.build`` (``--build-construct``:
 NN-Descent + GD by default, HNSW with no diversify stage for ``--entry
@@ -60,7 +60,14 @@ prints tok/s and ms/token:
 Qwen3-MoE runs its experts through the reference's GShard dispatch (each
 batch row a group; at decode every row is a group of one token, C = 1);
 Gemma3's 5 local : 1 global layers keep ring caches of 1024 slots on the
-local layers and ``--max-len`` on the global ones.
+local layers and ``--max-len`` on the global ones. DeepSeek-V3's MLA layers
+(3 dense-FFN layers, then 58 MoE layers) cache the 512-wide latent and the
+64-wide RoPE key and decode through the absorbed product; its full config
+holds 671,712,655,360 parameters (~1.25 TiB in bf16), more than one card
+holds, so on one card it runs with ``--smoke``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+        --smoke --device cpu
 """
 from __future__ import annotations
 
@@ -499,8 +506,8 @@ def _arch(name: str) -> str:
         return name
     raise argparse.ArgumentTypeError(
         f"{name!r} is not served by the port (graph ANN and "
-        f"{', '.join(configs.list_archs())}); the other archs are ROADMAP "
-        "queue A item 14")
+        f"{', '.join(configs.list_archs())}); the other archs (recsys, GNN) are "
+        "ROADMAP queue A item 14")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -509,7 +516,9 @@ def parser() -> argparse.ArgumentParser:
                     help=f"ann or an LM: {', '.join(configs.list_archs())}")
     ap.add_argument("--smoke", action="store_true",
                     help="[ann] n=20_000, d=32 world instead of n=1_000_000, "
-                         "d=64; [lm] the arch's reduced config")
+                         "d=64; [lm] the arch's reduced config (deepseek-v3-671b "
+                         "needs it on one card: its full config is 671.7e9 "
+                         "parameters, ~1.25 TiB in bf16)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,

@@ -3,8 +3,11 @@
 ``lm_params_from_numpy`` takes the tree of ``repro.models.transformer.
 init_params`` with its leaves as numpy arrays (``np.asarray`` of each), so
 the tests can run both packages on the same weights. The reference stacks
-the layers' weights on axis 0 (``params["layers"]``, an MoE layer's experts
-as (L, E, D, F)); they are unstacked into the per-layer modules. dtypes are
+the weights of the ``n_scan_layers`` layers after the dense prefix on axis 0
+(``params["layers"]``, an MoE layer's experts as (L, E, D, F)); they are
+unstacked into the per-layer modules. The dense prefix is a list of layer
+trees (``params["prefix"]``, flattened as ``prefix.{i}.…``) and the MTP head
+a tree of its own (``mtp.proj``, ``mtp.layer.…``, ``mtp.norm``). dtypes are
 kept and checked per parameter: bf16 arrives as numpy's ``bfloat16``
 extension type (2-byte items) and goes across bit for bit through an int16
 view, and an MoE router arrives in fp32 inside a bf16 model, as the port's
@@ -19,9 +22,11 @@ from .transformer import LMConfig, Transformer
 
 
 def _flatten(tree, prefix: str = "") -> dict:
-    if isinstance(tree, dict):
+    """Dotted names of a tree's leaves; a list's items are named by index."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for key, sub in tree.items():
+        for key, sub in items:
             out.update(_flatten(sub, f"{prefix}{key}."))
         return out
     return {prefix[:-1]: tree}
@@ -44,13 +49,14 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cuda") -> Transforme
     model = Transformer(cfg, device)
     want = dict(model.named_parameters())
     got = {}
+    n = cfg.n_scan_layers
     for name, a in _flatten(tree).items():
         if name.startswith("layers."):
             head, rest = name.split(".", 1)
-            if a.shape[:1] != (cfg.n_layers,):
+            if a.shape[:1] != (n,):
                 raise ValueError(f"{name}: stacked shape {a.shape} does not have "
-                                 f"{cfg.n_layers} layers on axis 0")
-            got.update({f"{head}.{i}.{rest}": a[i] for i in range(cfg.n_layers)})
+                                 f"{n} layers on axis 0 (n_layers less n_dense_prefix)")
+            got.update({f"{head}.{i}.{rest}": a[i] for i in range(n)})
         else:
             got[name] = a
     missing, extra = sorted(want.keys() - got.keys()), sorted(got.keys() - want.keys())

@@ -1,5 +1,5 @@
-"""Transformer building blocks of the GQA LMs (dense, sliding-window, the
-hybrid local:global pattern and GShard MoE), mirroring
+"""Transformer building blocks of the LMs (dense GQA, sliding-window, the
+hybrid local:global pattern, GShard MoE and DeepSeek's MLA), mirroring
 ``repro/models/layers.py`` with its dtype rules.
 
 Weights keep the reference's (in, out) layout, so ``x @ w`` needs no
@@ -11,14 +11,19 @@ a chunked online-softmax scan there; the two compute the same function
 attention stays plain PyTorch, as it is an einsum outside any Pallas kernel
 in the reference.
 
+``mla_forward`` is multi-head latent attention (DeepSeek-V2/V3). Prefill
+decompresses K and V from the latent and runs full attention at dh = dn +
+dr, dhv = dv (192 / 128 for DeepSeek-V3) through the flash kernel; decode
+absorbs ``w_uk`` into the query and ``w_uv`` into the output and scores the
+cached latent directly, plain PyTorch as in the reference.
+
 ``moe_forward`` is the reference's GShard dispatch with static capacity
 (one group per batch row), computed by index: each kept (token, k)
 assignment is copied into its expert's slot and each token gathers its K
 expert outputs, where the reference multiplies by dense (B, S, E, C) one-hot
 tensors (1.34 GB each in fp32 at Qwen3's 8 x 2048). The kept set and the
 gates are the same; the three expert products are ``torch.bmm``, as the
-reference's are einsums outside any Pallas kernel. MLA is not ported yet
-(ROADMAP queue A item 14).
+reference's are einsums outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -29,8 +34,6 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-
-NOT_PORTED = "not ported yet (ROADMAP queue A item 14)"
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -126,6 +129,72 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: i
         new_cache = (kc, vc)
     out = o.reshape(B, S, n_heads * d_head) @ p["wo"]
     return out, new_cache
+
+
+# -- MLA (DeepSeek-V2/V3) ------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """The reference's fields and defaults (DeepSeek-V3's widths)."""
+    n_heads: int = 128
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: MLAConfig, *,
+                rope_theta: float, cache=None, cache_len=None):
+    """x (B, S, D) -> (out (B, S, D), (kv_c, k_rope)). The query goes
+    through its low-rank path (``w_dq``, ``q_norm``, ``w_uq``) into a
+    no-RoPE part (dn) and a RoPE part (dr); the keys and values come from
+    the latent ``kv_c = rms_norm(x @ w_dkv)`` (r) and one shared RoPE key
+    head ``x @ w_kr`` (dr). Scores are scaled by (dn + dr) ** -0.5.
+
+    Without ``cache`` (prefill): K and V are decompressed (``w_uk``,
+    ``w_uv``), the RoPE key broadcast to every head, and full causal
+    attention runs at dh = dn + dr, dhv = dv; returns this sequence's
+    latent and RoPE key. With ``cache`` = (kv_c (B, Smax, r), k_rope (B,
+    Smax, dr)) and ``cache_len`` (B,) (decode, S = 1): the token's latent
+    and RoPE key are written into the caches in place at ``cache_len``, and
+    the query scores the cached latent with ``w_uk`` absorbed (``q_abs``, in
+    x's dtype), in fp32, over the first ``cache_len + 1`` slots; the fp32
+    latent output is cast to x's dtype before ``w_uv``, as the reference
+    casts it."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+    q_lat = rms_norm(x @ p["w_dq"], p["q_norm"])
+    q = (q_lat @ p["w_uq"]).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, rope_theta)
+    kv_c = rms_norm(x @ p["w_dkv"], p["kv_norm"])                        # (B, S, r)
+    k_rope = rope((x @ p["w_kr"])[:, :, None, :], positions, rope_theta)[:, :, 0]
+    if cache is None:
+        k_nope = (kv_c @ p["w_uk"]).reshape(B, S, H, dn)
+        v = (kv_c @ p["w_uv"]).reshape(B, S, H, dv)
+        # TMA cannot read a stride-0 head axis: the shared key is materialised
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
+        o = attention_full(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
+                           softmax_scale=scale)
+        out = o.reshape(B, S, H * dv) @ p["wo"]
+        return out, (kv_c, k_rope)
+    if S != 1:
+        raise ValueError(f"the absorbed decode takes one token a row, got S={S}")
+    kvc, krc = cache
+    rows = torch.arange(B, device=x.device)
+    kvc.index_put_((rows, cache_len), kv_c[:, 0])
+    krc.index_put_((rows, cache_len), k_rope[:, 0])
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, p["w_uk"].reshape(-1, H, dn))
+    s_nope = torch.einsum("bshr,bkr->bhsk", q_abs.float(), kvc.float())
+    s_rope = torch.einsum("bshd,bkd->bhsk", q_rope.float(), krc.float())
+    s = (s_nope + s_rope)[:, :, 0, :] * scale                           # (B, H, Smax)
+    mask = torch.arange(kvc.shape[1], device=x.device)[None, :] < (cache_len + 1)[:, None]
+    attn = torch.softmax(s.masked_fill(~mask[:, None], float("-inf")), dim=-1)
+    o_lat = torch.einsum("bhk,bkr->bhr", attn, kvc.float())             # (B, H, r)
+    o = torch.einsum("bhr,rhd->bhd", o_lat.to(x.dtype), p["w_uv"].reshape(-1, H, dv))
+    return o.reshape(B, 1, H * dv) @ p["wo"], (kvc, krc)
 
 
 # -- MoE (GShard dispatch with static capacity) ----------------------------------

@@ -1,18 +1,27 @@
-"""GQA LMs (TinyLlama, H2O-Danube, Qwen3-MoE, Gemma3), mirroring
-``repro/models/transformer.py``.
+"""The LMs (TinyLlama, H2O-Danube, Qwen3-MoE, Gemma3, DeepSeek-V3),
+mirroring ``repro/models/transformer.py``.
 
 ``LMConfig`` carries the reference's fields and defaults, so configs copy
 over with only the dtype changed; fields that only training or the
 reference's sharding reads (``remat``, ``scan_unroll``, the ``*_spec``
 fields, ...) are kept and unused. The model is ``nn.Module``s
-(``Transformer`` > ``Block`` > ``GQAttention`` + ``SwiGLU`` or ``MoE``) whose
-parameter names follow the reference's tree (``layers.{i}.attn.wq``,
-``layers.{i}.mlp.router``), with a Python loop over layers: each layer's
-window is ``cfg.layer_window(i)``, as the reference's decode path reads it.
-So the hybrid local:global pattern (Gemma3: ``local_global=6``) needs no
-traced flag: a global layer has no window, which is what the reference's
-scan gets by ORing its per-layer flag into the mask. An MoE layer's router
-is fp32 whatever ``cfg.dtype`` is (the reference's ``init_moe`` casts it).
+(``Transformer`` > ``Block`` > ``GQAttention`` or ``MLAttention``, +
+``SwiGLU`` or ``MoE``) whose parameter names follow the reference's tree
+(``layers.{i}.attn.wq``, ``layers.{i}.mlp.router``), with a Python loop over
+layers. The reference's first ``n_dense_prefix`` layers are a list of their
+own (``prefix.{i}``, a dense SwiGLU of ``d_ff`` even where ``cfg.moe`` is
+set) ahead of the ``n_scan_layers`` it stacks (``layers.{j}``); a layer's
+window and cache are those of its absolute index (``n_dense_prefix + j``
+for ``layers.{j}``), as the reference's decode path reads them. So the
+hybrid local:global pattern (Gemma3: ``local_global=6``) needs no traced
+flag: a global layer has no window, which is what the reference's scan gets
+by ORing its per-layer flag into the mask. An MoE layer's router is fp32
+whatever ``cfg.dtype`` is (the reference's ``init_moe`` casts it). MLA
+layers (``attention="mla"``) take no window and keep full-length latent
+caches. DeepSeek's multi-token-prediction head (``cfg.mtp``: ``mtp.proj``
+(2D, D), ``mtp.layer``, a dense block, and ``mtp.norm``) is built, drawn and
+carried, so the parameter count and tree are the reference's; only the
+reference's training loss reads it, so prefill and decode do not run it.
 
 Entry points (forward, prefill and decode under ``torch.inference_mode``):
 
@@ -26,9 +35,6 @@ Entry points (forward, prefill and decode under ``torch.inference_mode``):
   caches that are updated in place; a windowed layer's cache is a ring of
   ``min(window, max_len)`` slots, its mask built from the absolute position
   stored in each slot.
-
-MLA, the dense-FFN prefix and MTP (DeepSeek-V3) are not ported yet (ROADMAP
-queue A item 14): building such a config raises.
 """
 from __future__ import annotations
 
@@ -52,8 +58,8 @@ class LMConfig:
     d_head: int = 64
     d_ff: int = 512
     vocab: int = 1024
-    attention: str = "gqa"              # 'gqa' | 'mla' (not ported)
-    mla: Any = None
+    attention: str = "gqa"              # 'gqa' | 'mla'
+    mla: Any = None                     # layers.MLAConfig
     moe: Any = None                     # layers.MoEConfig
     n_dense_prefix: int = 0
     window: int | None = None           # sliding-window width (danube)
@@ -86,17 +92,6 @@ class LMConfig:
         if self.local_global is not None:
             return None if self.layer_is_global(i) else self.local_window
         return self.window
-
-
-def check_supported(cfg: LMConfig) -> None:
-    """Raise for the parts of the reference's LM family the port has not
-    taken over yet."""
-    missing = [what for what, present in (
-        ("MLA attention", cfg.attention != "gqa" or cfg.mla is not None),
-        ("the dense-FFN prefix", cfg.n_dense_prefix != 0),
-        ("the MTP head", cfg.mtp)) if present]
-    if missing:
-        raise NotImplementedError(f"{', '.join(missing)} of {cfg.name!r}: {L.NOT_PORTED}")
 
 
 def _weight(shape, cfg, device, dtype=None) -> nn.Parameter:
@@ -159,6 +154,45 @@ class GQAttention(nn.Module):
         return o.reshape(B, H * dh).to(h.dtype) @ self.wo
 
 
+class MLAttention(nn.Module):
+    """``cfg.mla``'s weights in the reference's layouts: w_dq (D, q_lora),
+    q_norm, w_uq (q_lora, H * (dn + dr)), w_dkv (D, r), kv_norm, w_kr (D,
+    dr), w_uk (r, H * dn), w_uv (r, H * dv), wo (H * dv, D)."""
+
+    NAMES = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_kr", "w_uk", "w_uv", "wo")
+
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        m, D = cfg.mla, cfg.d_model
+        H, r = m.n_heads, m.kv_lora_rank
+        self.cfg = cfg
+        self.w_dq = _weight((D, m.q_lora_rank), cfg, device)
+        self.q_norm = _ones(m.q_lora_rank, cfg, device)
+        self.w_uq = _weight((m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim)), cfg, device)
+        self.w_dkv = _weight((D, r), cfg, device)
+        self.kv_norm = _ones(r, cfg, device)
+        self.w_kr = _weight((D, m.qk_rope_dim), cfg, device)
+        self.w_uk = _weight((r, H * m.qk_nope_dim), cfg, device)
+        self.w_uv = _weight((r, H * m.v_head_dim), cfg, device)
+        self.wo = _weight((H * m.v_head_dim, D), cfg, device)
+
+    def params(self) -> dict:
+        return {n: getattr(self, n) for n in self.NAMES}
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        return L.mla_forward(self.params(), x, positions, c.mla, rope_theta=c.rope_theta)[0]
+
+    def decode(self, h: torch.Tensor, pos: torch.Tensor, cache: dict) -> torch.Tensor:
+        """h (B, D) at absolute positions pos (B,): the latent and RoPE key
+        go into slot ``pos`` of the full-length caches, in place."""
+        c = self.cfg
+        out, _ = L.mla_forward(self.params(), h[:, None], pos[:, None], c.mla,
+                               rope_theta=c.rope_theta,
+                               cache=(cache["kv_c"], cache["k_rope"]), cache_len=pos)
+        return out[:, 0]
+
+
 class SwiGLU(nn.Module):
     def __init__(self, cfg: LMConfig, d_ff: int, device):
         super().__init__()
@@ -201,12 +235,19 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: LMConfig, index: int, device):
+    """Attention (MLA where ``cfg.attention == "mla"``, else GQA with
+    ``window``) and the MLP: ``cfg.moe``'s experts, or a SwiGLU of
+    ``cfg.d_ff`` where there is none or ``dense_mlp`` (the dense prefix, the
+    MTP block)."""
+
+    def __init__(self, cfg: LMConfig, window: int | None, device, dense_mlp: bool = False):
         super().__init__()
         self.attn_norm = _ones(cfg.d_model, cfg, device)
-        self.attn = GQAttention(cfg, cfg.layer_window(index), device)
+        self.attn = (MLAttention(cfg, device) if cfg.attention == "mla"
+                     else GQAttention(cfg, window, device))
         self.mlp_norm = _ones(cfg.d_model, cfg, device)
-        self.mlp = MoE(cfg, device) if cfg.moe is not None else SwiGLU(cfg, cfg.d_ff, device)
+        self.mlp = (MoE(cfg, device) if cfg.moe is not None and not dense_mlp
+                    else SwiGLU(cfg, cfg.d_ff, device))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(L.rms_norm(x, self.attn_norm), positions)
@@ -218,40 +259,64 @@ class Block(nn.Module):
         return x + (self.mlp(h[:, None])[:, 0] if isinstance(self.mlp, MoE) else self.mlp(h))
 
 
+class MTP(nn.Module):
+    """The multi-token-prediction head's weights: proj (2D, D), a dense
+    global block and a norm. Only the reference's training loss reads them;
+    prefill and decode do not run them."""
+
+    def __init__(self, cfg: LMConfig, device):
+        super().__init__()
+        self.proj = _weight((2 * cfg.d_model, cfg.d_model), cfg, device)
+        self.layer = Block(cfg, None, device, dense_mlp=True)
+        self.norm = _ones(cfg.d_model, cfg, device)
+
+
 class Transformer(nn.Module):
-    """Embedding, ``n_layers`` blocks, final norm, LM head; weights left
-    uninitialised (``init_params`` or ``convert.lm_params_from_numpy`` fill
-    them)."""
+    """Embedding, the ``n_dense_prefix`` dense blocks (``prefix``) and the
+    ``n_scan_layers`` after them (``layers``), final norm, LM head, and the
+    MTP head's weights where ``cfg.mtp``; weights left uninitialised
+    (``init_params`` or ``convert.lm_params_from_numpy`` fill them)."""
 
     def __init__(self, cfg: LMConfig, device="cuda"):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = _weight((cfg.vocab, cfg.d_model), cfg, device)
         self.final_norm = _ones(cfg.d_model, cfg, device)
         self.lm_head = _weight((cfg.d_model, cfg.vocab), cfg, device)
-        self.layers = nn.ModuleList(Block(cfg, i, device) for i in range(cfg.n_layers))
+        self.prefix = nn.ModuleList(Block(cfg, cfg.layer_window(i), device, dense_mlp=True)
+                                    for i in range(cfg.n_dense_prefix))
+        self.layers = nn.ModuleList(Block(cfg, cfg.layer_window(cfg.n_dense_prefix + j), device)
+                                    for j in range(cfg.n_scan_layers))
+        self.mtp = MTP(cfg, device) if cfg.mtp else None
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def blocks(self) -> list:
+        """Every block in order: the dense prefix, then the stacked layers."""
+        return [*self.prefix, *self.layers]
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> final-normed hidden states (B, S, D)."""
         B, S = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        for block in self.layers:
+        for block in self.blocks():
             x = block(x, positions)
         return L.rms_norm(x, self.final_norm)
 
     def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list) -> torch.Tensor:
-        """token (B,), pos (B,) -> logits (B, V) fp32; caches updated in place."""
+        """token (B,), pos (B,) -> logits (B, V) fp32; caches (one a block,
+        in ``blocks()`` order) updated in place."""
         x = self.embed[token]
-        for block, cache in zip(self.layers, caches):
+        for block, cache in zip(self.blocks(), caches, strict=True):
             x = block.decode(x, pos, cache)
         return (L.rms_norm(x, self.final_norm) @ self.lm_head).float()
+
+
+DRAW_CHUNK = 2**30
 
 
 def param_count(model: Transformer) -> int:
@@ -263,13 +328,19 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Transformer:
     """A ``Transformer`` with random weights drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: every matrix standard normal
     times ``d_model ** -0.5`` (drawn in fp32, then cast to the parameter's
-    dtype: ``cfg.dtype``, fp32 for a router), every norm scale one."""
+    dtype: ``cfg.dtype``, fp32 for a router), every norm scale one. A
+    parameter of more than ``DRAW_CHUNK`` elements (DeepSeek-V3's experts,
+    3.8e9 each) is drawn in slices along its first axis, so the fp32 draw
+    never needs a second copy of it."""
     model = Transformer(cfg, device)
     g = torch.Generator(device=model.device).manual_seed(seed)
     s = cfg.d_model ** -0.5
     for name, p in model.named_parameters():
-        if not name.endswith("norm"):
-            p.copy_(torch.randn(p.shape, generator=g, device=p.device) * s)
+        if name.endswith("norm"):
+            continue
+        rows = max(1, DRAW_CHUNK // max(1, p[0].numel())) if p.numel() > DRAW_CHUNK else len(p)
+        for part in p.split(rows):
+            part.copy_(torch.randn(part.shape, generator=g, device=p.device).mul_(s))
     return model
 
 
@@ -288,13 +359,23 @@ def prefill(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> list[dict]:
-    """Per-layer caches {k, v: (B, size, Hkv, dh), pos: (B, size) int32 of
-    -1}; a windowed layer's size is ``min(window, max_len)``."""
+    """Per-layer caches, by absolute layer index: MLA {kv_c: (B, max_len,
+    r), k_rope: (B, max_len, dr)}; GQA {k, v: (B, size, Hkv, dh), pos: (B,
+    size) int32 of -1}, a windowed layer's size ``min(window, max_len)``."""
     device = resolve_device(device)
     caches = []
     for i in range(cfg.n_layers):
         w = cfg.layer_window(i)
         size = max_len if w is None else min(w, max_len)
+        if cfg.attention == "mla":
+            m = cfg.mla
+            caches.append({
+                "kv_c": torch.zeros((batch, size, m.kv_lora_rank), dtype=cfg.dtype,
+                                    device=device),
+                "k_rope": torch.zeros((batch, size, m.qk_rope_dim), dtype=cfg.dtype,
+                                      device=device),
+            })
+            continue
         kv = (batch, size, cfg.n_kv, cfg.d_head)
         caches.append({
             "k": torch.zeros(kv, dtype=cfg.dtype, device=device),

@@ -907,11 +907,13 @@ def test_cuda_flash_attention_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch_id", ["tinyllama-1.1b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch_id", ["tinyllama-1.1b", "h2o-danube-1.8b", "deepseek-v3-671b"])
 def test_cuda_lm_matches_cpu(cuda, arch_id):
     """The smoke LM on the card (flash kernel in prefill) against the same
     weights on the CPU (plain attention): fp32 prefill logits within 1e-4
-    and the same greedy decode stream past Danube smoke's window."""
+    and the same greedy decode stream past Danube smoke's window. DeepSeek's
+    smoke runs its dense prefix and MLA layers (flash at dh = 24, dhv = 16
+    in prefill, the absorbed decode) and carries its MTP weights unrun."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf

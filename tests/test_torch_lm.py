@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import deepseek_v3_671b as j_deepseek
 from repro.configs import gemma3_12b as j_gemma
 from repro.configs import h2o_danube_1_8b as j_danube
 from repro.configs import qwen3_moe_30b_a3b as j_qwen
@@ -40,9 +41,11 @@ from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 SMOKES = {"tinyllama-1.1b": j_tiny.SMOKE, "h2o-danube-1.8b": j_danube.SMOKE,
-          "qwen3-moe-30b-a3b": j_qwen.SMOKE, "gemma3-12b": j_gemma.SMOKE}
+          "qwen3-moe-30b-a3b": j_qwen.SMOKE, "gemma3-12b": j_gemma.SMOKE,
+          "deepseek-v3-671b": j_deepseek.SMOKE}
 JMODS = {"tinyllama-1.1b": j_tiny, "h2o-danube-1.8b": j_danube,
-         "qwen3-moe-30b-a3b": j_qwen, "gemma3-12b": j_gemma}
+         "qwen3-moe-30b-a3b": j_qwen, "gemma3-12b": j_gemma,
+         "deepseek-v3-671b": j_deepseek}
 
 
 def _t(a, dtype=torch.float32):
@@ -56,11 +59,13 @@ def _np(x):
 
 def _port_cfg(jcfg, **over):
     """The port's config for a reference config (same fields, torch dtype;
-    an MoE block as the port's MoEConfig)."""
+    an MoE block as the port's MoEConfig, an MLA block as its MLAConfig)."""
     fields = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     fields["dtype"] = torch.bfloat16 if jcfg.dtype == jnp.bfloat16 else torch.float32
     if jcfg.moe is not None:
         fields["moe"] = L.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    if jcfg.mla is not None:
+        fields["mla"] = L.MLAConfig(**dataclasses.asdict(jcfg.mla))
     return T.LMConfig(**{**fields, **over})
 
 
@@ -288,17 +293,26 @@ def _jax_decode(jp, jcfg, first, steps, B, max_len):
 def test_greedy_decode_matches_reference(arch_id):
     """20 greedy steps, past Danube's window and Gemma3's local window of 8
     (the rings wrap twice; Gemma3's global layers keep max_len slots);
-    Qwen3's MoE runs each row as a group of one token (C = 1): identical
-    tokens and logits within 1e-5."""
+    Qwen3's and DeepSeek's MoE run each row as a group of one token (C =
+    1); DeepSeek's MLA layers (the dense prefix first) score the cached
+    latent: identical tokens and logits within 1e-5. Each layer's cache has
+    the reference's entries, shapes and dtypes."""
     jcfg = SMOKES[arch_id]
     jp, model = _models(jcfg)
     B, steps, max_len = 3, 20, 32
     want_toks, want_logits = _jax_decode(jp, jcfg, np.zeros(B, np.int32), steps, B, max_len)
     caches = T.init_cache(model.cfg, B, max_len, "cpu")
-    for i, (c, jc) in enumerate(zip(caches, JT.init_cache(jcfg, B, max_len))):
+    jcaches = JT.init_cache(jcfg, B, max_len)
+    assert len(caches) == len(jcaches) == jcfg.n_layers
+    for i, (c, jc) in enumerate(zip(caches, jcaches)):
+        assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                for k, t in c.items()} == {k: (a.shape, str(a.dtype)) for k, a in jc.items()}
         w = jcfg.layer_window(i)
-        assert c["k"].shape == jc["k"].shape == (B, max_len if w is None else w, jcfg.n_kv,
-                                                 jcfg.d_head)
+        size = max_len if w is None else w
+        if jcfg.attention == "mla":
+            assert c["kv_c"].shape == (B, size, jcfg.mla.kv_lora_rank)
+        else:
+            assert c["k"].shape == (B, size, jcfg.n_kv, jcfg.d_head)
     tok = torch.zeros(B, dtype=torch.long)
     for t in range(steps):
         lg = T.decode_step(model, tok, torch.full((B,), t, dtype=torch.int32), caches)
@@ -383,14 +397,38 @@ def test_lm_params_from_numpy_rejects_bad_trees():
                                      cfg, "cpu")
 
 
-def test_unported_lm_variants_raise():
-    """MLA, the dense-FFN prefix and MTP (DeepSeek-V3) still raise; MoE and
-    the hybrid local:global pattern build."""
-    base = configs.get_arch("tinyllama-1.1b").smoke_cfg
-    for over in (dict(attention="mla"), dict(n_dense_prefix=1), dict(mtp=True)):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            T.Transformer(dataclasses.replace(base, **over), device="cpu")
-    for arch_id in ("qwen3-moe-30b-a3b", "gemma3-12b"):
+def test_mla_prefix_and_mtp_variants_build():
+    """The three parts of DeepSeek-V3's config, each on its own on the Qwen3
+    smoke base (MoE): MLA attention in every block; a dense-FFN prefix whose
+    blocks are SwiGLUs of d_ff ahead of MoE blocks; the MTP head, a dense
+    block beside its proj (2D, D) and norm, which prefill and decode do not
+    run. Each builds, prefills and decodes, and so does every arch of the
+    registry."""
+    base = configs.get_arch("qwen3-moe-30b-a3b").smoke_cfg
+    mla = configs.get_arch("deepseek-v3-671b").smoke_cfg.mla
+    D = base.d_model
+    toks = torch.from_numpy(_tokens(base.vocab, 2, 6)).long()
+    for over in (dict(attention="mla", mla=mla), dict(n_dense_prefix=1), dict(mtp=True)):
+        cfg = dataclasses.replace(base, **over)
+        model = T.init_params(cfg, seed=0, device="cpu")
+        blocks = model.blocks()
+        assert len(blocks) == cfg.n_layers and len(model.layers) == cfg.n_scan_layers
+        assert all(isinstance(b.attn, T.MLAttention if cfg.attention == "mla"
+                              else T.GQAttention) for b in blocks)
+        assert all(isinstance(b.mlp, T.SwiGLU) and b.mlp.w_gate.shape == (D, cfg.d_ff)
+                   for b in model.prefix)
+        assert all(isinstance(b.mlp, T.MoE) for b in model.layers)
+        assert (model.mtp is not None) == cfg.mtp
+        if cfg.mtp:
+            assert model.mtp.proj.shape == (2 * D, D) and model.mtp.norm.shape == (D,)
+            assert isinstance(model.mtp.layer.mlp, T.SwiGLU)
+            assert isinstance(model.mtp.layer.attn, T.GQAttention)
+            assert model.mtp.layer.attn.window is None
+        logits = T.prefill(model, toks)
+        caches = T.init_cache(cfg, 2, 6, "cpu")
+        step = T.decode_step(model, toks[:, 0], torch.zeros(2, dtype=torch.int32), caches)
+        assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
+    for arch_id in configs.list_archs():
         T.Transformer(configs.get_arch(arch_id).smoke_cfg, device="cpu")
 
 
@@ -456,7 +494,7 @@ def test_moe_and_hybrid_trees_convert():
                                   np.asarray(jp["layers"]["attn"]["wq"][5]))
 
 
-@pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "gemma3-12b"])
+@pytest.mark.parametrize("arch_id", ["qwen3-moe-30b-a3b", "gemma3-12b", "deepseek-v3-671b"])
 def test_serve_cli_moe_and_hybrid_archs(arch_id, capsys):
     """``serve --arch <arch> --smoke --device cpu``: the seeded model's
     greedy stream, the same as serve_lm on the model init_params draws."""

@@ -146,5 +146,5 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 def test_serve_cli_rejects_other_archs(capsys):
     with pytest.raises(SystemExit):
-        serve.parser().parse_args(["--arch", "deepseek-v3-671b"])
+        serve.parser().parse_args(["--arch", "dlrm-mlperf"])
     assert "ROADMAP queue A item 14" in capsys.readouterr().err
