@@ -86,6 +86,17 @@ Phases (each prints its seconds):
    fp32: rtol 2e-5, atol 2e-5 (the reference's own kernel tests); bf16:
    rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
    fp32 values that agree to ~1e-6.
+   flash_attention_bwd (the attention backward: its dq and dk / dv kernels)
+   against its plain version, bf16 and fp32, within BWD_TOL: the five LMs'
+   layer shapes at one batch row (TinyLlama 32/4 dh 64, Qwen3 32/4 dh 128,
+   Gemma3 16/8 dh 256 global and local with its window of 1024, DeepSeek's
+   MLA 128/128 dh 192 / dhv 128; S = 2048), ragged S (1, 17, 1000), G = 1
+   and 8, windows with and without causal, a given scale, ragged head dims,
+   strided operands; the autograd Function on CUDA tensors launches the
+   forward and backward kernels once each. Then each layer at its training
+   batch (TinyLlama 8, the others 2) per recorded launch beside its bound
+   (the five products over the visible pairs at the bf16 tensor-core peak),
+   its plain version and scaled_dot_product_attention's backward.
 4b. The hierarchy path at full width: ``serve --entry hierarchy`` on the
    n=1M world (HNSW over the shared NN-Descent graph; its layers, build
    stages, peak memory and seed-phase comps; every kernel of the path
@@ -190,6 +201,29 @@ Phases (each prints its seconds):
    ``serve.serve_lm`` on the cut model (batch 8, 32 tokens, caches of 2048)
    and ``serve --arch deepseek-v3-671b --smoke`` through ``serve.main``.
 
+13. LM training (after phase 12, before phase 7): (a) TinyLlama-1.1B at
+   its published widths (22 layers, d=2048, 32/4, d_ff 5632, vocab 32000;
+   bf16, remat as published, random weights from seed 0) with AdamW at the
+   reference's defaults on 8 x 2048 tokens of ``lm_batch_for_step(0, step,
+   ...)`` for 20 steps, the launch counts set to 0 just before: ms a step,
+   tokens/s, peak GiB, the loss at the first and last step (finite, and it
+   must fall), flash forward and backward launches a step (2 x 22 and 22:
+   remat runs each block's forward twice), a checkpoint at step 10, and one
+   step under the profiler split into forward, recompute, backward (the
+   flash backward in it) and optimizer, with its device-busy share; (b) a
+   new model and optimizer restored from the step-10 checkpoint and run to
+   step 20: every parameter and optimizer tensor bit-identical to (a)'s;
+   (c) TinyLlama cut to 2 layers, one step of 2 x 2048 on the kernel route
+   and, through ``ops_replaced``, on the plain route (the plain forward and
+   backward), bf16 and fp32: per-parameter gradients within LM_GRAD_TOL of
+   their max-abs; (d) DeepSeek-V3 at its published widths cut to 1 dense
+   and 1 MoE layer plus the MTP head (bf16, remat, Adafactor), 4 steps of 2
+   x 2048 (cut to 1 x 2048 if the peak passes 76 GiB): the nll, aux and MTP
+   parts finite, peak, ms a step, 3 backward launches a step (two MLA layers
+   and the MTP block at dh 192 / dhv 128); (e) the five smoke configs in
+   fp32, 3 steps on the card and on the CPU from the same weights and
+   batches: losses within 1e-5 relative.
+
 7. The paper's experiment through ``repro_torch.paper`` (the counterpart
    of the reference's ``benchmarks/run.py``), 1,000 queries a world, at the
    datasets' full sizes: the SIFT1M stand-in (n=1M, d=128: tab1's LID,
@@ -269,7 +303,8 @@ Phases (each prints its seconds):
    "incremental"``: exact mode (insert_ef=0, graph_k=20) on the smoke
    world bit-identical to ``construct="exact"``; beam mode (insert_ef=64,
    GD inline) through ``serve.build_searcher`` on the smoke world's first
-   2,000 points (cut: an insert's Q=1 beam is host-bound), recall@10 of
+   500 points (cut: an insert's Q=1 beam is host-bound; cut from 2,000
+   to make room for phase 13), recall@10 of
    512 queries against NN-Descent + GD over the same points. The launches
    over phase 9's driven runs go into the kernels line
    (``phase9_launches``), the new shapes into the rows' ``shapes``.
@@ -282,11 +317,12 @@ Phases (each prints its seconds):
    rows/s offered, buckets 1-16, 4 live, 16 queued): completed + shed =
    200, every completed request bit-identical to its direct search (rerun
    off the timed path), served recall@1 equal to the direct twins'. (b)
-   ``loadgen.serving_sweep`` over 120 requests: closed-batch capacity, the
+   ``loadgen.serving_sweep`` over 80 requests (cut from 120 to make room
+   for phase 13): closed-batch capacity, the
    paced single-request wall, then the open loop at 0.5x and 3x capacity
    (the reference's 0.05x point is cut: ~5 minutes of arrivals alone):
    p50/p90/p99, queue and service ms, sustained qps, shed, fill, buckets,
-   the largest live window; parity 1.0, completed + shed = 120,
+   the largest live window; parity 1.0, completed + shed = 80,
    timestamps in order, shed > 0 at 3x. (c) closed loops of 32 requests
    under pq (device, host) and sq8, and exact with phase 8's tenant=3
    filter on every third request: each bit-identical to its direct search.
@@ -383,7 +419,7 @@ PHASE9_INSERT_EF = 32
 PHASE9_DELETE_SHARE = 0.2
 PHASE9_SELF_QUERIES = 64
 PHASE9_CHECK_ROWS = 65_536
-PHASE9_BEAM_POINTS = 2000
+PHASE9_BEAM_POINTS = 500   # cut from 2,000 to make room for phase 13
 PHASE9_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "disk"), ("sq8", "disk"))
 PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                   "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
@@ -392,7 +428,7 @@ PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_ma
 # leaves out the reference's 0.05x load point: at ~0.1 s a request its 120
 # Poisson arrivals alone would take ~5 minutes.
 PHASE10_LOAD_FACTORS = (0.5, 3.0)
-PHASE10_SWEEP_REQUESTS = 120
+PHASE10_SWEEP_REQUESTS = 80   # cut from 120 to make room for phase 13
 PHASE10_POOL = 256
 PHASE10_PARITY_REQUESTS = 32
 PHASE10_INSERTS = 500
@@ -432,6 +468,26 @@ MATRIX_RTOL, MATRIX_ATOL = 1e-4, 1e-4
 NEAR_TIE_ROWS_MAX = 0.01
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=1e-2, atol=1e-5)}
+# the attention backward against its plain version: |got - want| <= rtol
+# |want| + atol m per gradient, m the largest max-abs of the call's dq, dk
+# and dv. Both compute the same fp32 sums on the same inputs in another order
+# (the kernel tiles over 64 or 32 keys, the plain version is dense); a dq or
+# dk element sums ~S terms of dS = P (dP - D), which cancel (at S = 1 exactly:
+# dq is 0 up to the rounding of dP - D), so the difference scales with the
+# call's gradients, not with the element: atol is relative to m. bf16: both
+# round the fp32 result to bf16, one ulp (<= 2^-8 relative) apart where the
+# fp32 values straddle a rounding boundary.
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+# phase 2 / 13: each LM's attention layer at its training batch (label, B,
+# S, Hq, Hkv, dh, dhv, window, scale): TinyLlama at phase 13's batch of 8,
+# the others at 2 (DeepSeek's phase 13 (d) batch)
+BWD_MODEL_SHAPES = (("TinyLlama-1.1B layer", 8, 2048, 32, 4, 64, 64, None, None),
+                    ("Qwen3-30B-A3B layer", 2, 2048, 32, 4, 128, 128, None, None),
+                    ("Gemma3-12B global layer", 2, 2048, 16, 8, 256, 256, None, None),
+                    ("Gemma3-12B local layer", 2, 2048, 16, 8, 256, 256, 1024, None),
+                    ("DeepSeek-V3 MLA layer", 2, 2048, 128, 128, 192, 128, None,
+                     192 ** -0.5))
 # phase 6 (c): bf16 rounds at other places in the kernel's and the plain
 # attention's fp32 sums (a one-ulp flip in ~1e-4 of the outputs), which 22
 # bf16 layers carry to the logits
@@ -451,6 +507,20 @@ PHASE12_ARCHS = (("qwen3-moe-30b-a3b", 4, None, 2, 128, None),
                  ("deepseek-v3-671b", 8, 4, 2, 192, None))
 PHASE12_PARAMS = {"qwen3-moe-30b-a3b": 30.5e9, "gemma3-12b": 12.8e9, "deepseek-v3-671b": 671e9}
 PHASE12_COUNTS = {"deepseek-v3-671b": (671_712_655_360, 15_797_352_448, 14_630_385_664)}
+# phase 13: TinyLlama's training run and checkpoint step, its batch (the
+# reference's train_4k batch of 8 at S = 2048), the lock-step's batch, and
+# DeepSeek-V3's cut run (batch cut to 1 if the peak passes PHASE13_PEAK_GIB)
+PHASE13_STEPS = 20
+PHASE13_CKPT_STEP = 10
+PHASE13_BATCH, PHASE13_SEQ = 8, 2048
+PHASE13_LOCKSTEP_BATCH = 2
+PHASE13_DEEPSEEK_BATCH, PHASE13_DEEPSEEK_STEPS = 2, 4
+PHASE13_PEAK_GIB = 76.0
+# (c): each parameter's gradient on the kernel route within this share of its
+# max-abs from the plain route's. fp32: the two sum in another order; bf16:
+# 2 layers of bf16 activations carry the attention's one-ulp differences
+# (as LM_LOGIT_RTOL holds the logits)
+LM_GRAD_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-3}
 WINDOW_PAD_S = 0.05   # window_pad's quiet time at each end of a profiler window
 # published H100 SXM peaks: HBM3 bandwidth, dense FP32 rate and the dense
 # bf16 tensor-core rate
@@ -1217,6 +1287,200 @@ def check_flash_attention(errs: dict) -> None:
         kfa.flash_attention(q, q, q)
         check(False, "flash_attention took dh=257")
     print("  flash_attention raises on dh=257")
+
+
+def plain_flash_attention_bwd(q, k, v, out, dout, causal=True, window=None,
+                              softmax_scale=None):
+    """The backward kernel's plain version one batch row at a time, so its
+    dense fp32 (S, S) tensors of every head fit at the model shapes."""
+    from repro_torch.kernels import ref
+
+    rows = [ref.flash_attention_bwd_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
+                                        dout[b:b + 1], causal, window, softmax_scale)
+            for b in range(q.shape[0])]
+    return tuple(torch.cat(parts) for parts in zip(*rows))
+
+
+def bwd_excess(got, want, dt, scale: float) -> tuple[float, float]:
+    """(largest abs difference, largest excess over BWD_TOL) of one gradient:
+    |got - want| <= rtol |want| + atol scale, scale the largest max-abs of
+    the call's three plain gradients (:func:`bwd_scale`)."""
+    tol = BWD_TOL[dt]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return float(diff.max()), float((diff - tol["rtol"] * w.abs() - tol["atol"] * scale).max())
+
+
+def bwd_scale(grads) -> float:
+    return max(float(x.float().abs().max()) for x in grads if x.numel())
+
+
+def _bwd_bytes(B, S, Hq, Hkv, dh, dhv, itemsize):
+    """q, k, v, o and do read once, dq, dk and dv written once."""
+    return float(itemsize) * B * S * (2 * Hq * dh + 2 * Hkv * dh + 2 * Hkv * dhv + 2 * Hq * dhv)
+
+
+def _sdpa_bwd_ms(q, k, v, dout, window, scale) -> tuple[float | None, str]:
+    """CUDA-event ms of scaled_dot_product_attention's backward (the
+    library's yardstick; the port never calls it) at the layer's shape, the
+    window as a boolean mask; None with the reason where it refuses."""
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    try:
+        out = _sdpa_layer(qs, ks, vs, window, scale)
+        ms = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True),
+                     reps=3, warmup=1)
+    except RuntimeError as e:
+        return None, f"refused: {str(e).splitlines()[0][:120]}"
+    kernels = sorted({n for n in kernels_of_one_call(
+        lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True))})
+    return ms, f"runs {kernels}"
+
+
+def check_flash_attention_bwd(errs: dict) -> dict:
+    """The backward kernel (flash_attention_bwd: its dq and dk / dv kernels)
+    against its plain version on the card, fp32 and bf16, within BWD_TOL:
+    the five LMs' layer shapes at one batch row, ragged S (1, 17, 1000), G
+    = 1 and 8, windows with and without causal, a given scale, ragged head
+    dims and strided operands; the autograd Function on CUDA tensors runs
+    the kernel and not the plain version. Then each model shape at its
+    training batch, per recorded launch (torch.profiler), beside its bound
+    (the five products at the bf16 tensor-core peak, or the bytes), the
+    plain version's time and scaled_dot_product_attention's backward.
+    Returns the kernels line's row (its launches come from phase 13)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"{label}, B=1", 1, S, Hq, Hkv, dh, dhv, True, window, scale)
+             for label, _, S, Hq, Hkv, dh, dhv, window, scale in BWD_MODEL_SHAPES]
+    cases += [  # (label, B, S, Hq, Hkv, dh, dhv, causal, window, scale)
+        ("S=1 1/1 dh=64", 1, 1, 1, 1, 64, 64, True, None, None),
+        ("S=17 8/1 dh=64 (G=8) scale 0.3", 2, 17, 8, 1, 64, 64, True, None, 0.3),
+        ("S=1000 4/4 dh=128 (G=1) window 129", 2, 1000, 4, 4, 128, 128, True, 129, None),
+        ("S=1000 16/2 dh=80 (G=8) non-causal window 50", 1, 1000, 16, 2, 80, 80, False, 50,
+         None),
+        ("S=200 4/2 dh=32 non-causal, no window", 1, 200, 4, 2, 32, 32, False, None, None),
+        ("S=300 8/2 dh=200 dhv=160 (ragged head dims)", 1, 300, 8, 2, 200, 160, True, None,
+         None),
+        ("S=130 4/2 dh=64 dhv=256", 1, 130, 4, 2, 64, 256, True, None, None),
+        ("S=65 4/1 dh=16 window 1 (the diagonal only)", 2, 65, 4, 1, 16, 16, True, 1, None),
+    ]
+    for label, B, S, Hq, Hkv, dh, dhv, causal, window, scale in cases:
+        for dt in (bf16, f32):
+            def rnd(*shape):
+                return torch.randn(shape, generator=g, device=dev).to(dt)
+            q, k, v, dout = rnd(B, S, Hq, dh), rnd(B, S, Hkv, dh), rnd(B, S, Hkv, dhv), \
+                rnd(B, S, Hq, dhv)
+            out = kfa.flash_attention(q, k, v, causal, window, scale)
+            got = kfa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale)
+            want = plain_flash_attention_bwd(q, k, v, out, dout, causal, window, scale)
+            torch.cuda.synchronize()
+            worst, scale_g = [], bwd_scale(want)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                check(a.shape == b.shape and a.dtype == dt,
+                      f"flash_attention_bwd {name} shape/dtype: {label}")
+                check(bool(torch.isfinite(a).all()), f"flash_attention_bwd non-finite {name}: "
+                                                     f"{label}")
+                err, excess = bwd_excess(a, b, dt, scale_g)
+                worst.append((name, err, excess))
+                check(excess <= 0.0, f"flash_attention_bwd {name} outside BWD_TOL ({excess:.3g} "
+                                     f"over): {label} {dt}")
+                errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+            print(f"  flash_attention_bwd {label} {str(dt)[6:]}: max abs error "
+                  + ", ".join(f"{n} {e:.3g} (excess {x:.2g})" for n, e, x in worst))
+            del q, k, v, dout, out, got, want
+    # strided operands: q, k, v views into one packed projection, dout a transpose
+    B, S, H, dh = 2, 300, 4, 64
+    packed = torch.randn((B, S, 3 * H * dh), generator=g, device=dev).view(B, S, 3, H, dh)
+    q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+    dout = torch.randn((B, H, S, dh), generator=g, device=dev).transpose(1, 2)
+    out = kfa.flash_attention(q, k, v)
+    got = kfa.flash_attention_bwd(q, k, v, out, dout)
+    want = plain_flash_attention_bwd(q, k, v, out, dout)
+    check(all(bwd_excess(a, b, f32, bwd_scale(want))[1] <= 0.0 for a, b in zip(got, want)),
+          "flash_attention_bwd outside BWD_TOL on strided operands")
+    # the autograd Function on CUDA: one forward and one backward launch, no plain call
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = ops.launch_counts()
+    ops.flash_attention(*leaves).backward(dout)
+    after = ops.launch_counts()
+    check(after["flash_attention"] - before["flash_attention"] == 1
+          and after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1,
+          "the autograd Function did not launch the forward and backward kernels once each")
+    check(all(bwd_excess(leaf.grad, b, f32, bwd_scale(want))[1] <= 0.0
+              for leaf, b in zip(leaves, want)),
+          "autograd through ops.flash_attention on CUDA differs from the plain backward")
+    print("  flash_attention_bwd: strided operands within BWD_TOL; autograd through "
+          "ops.flash_attention on CUDA launched 1 forward + 1 backward kernel")
+    del packed, q, k, v, dout, out, got, want, leaves
+
+    shapes = []
+    for label, B, S, Hq, Hkv, dh, dhv, window, scale in BWD_MODEL_SHAPES:
+        q = torch.randn((B, S, Hq, dh), generator=g, device=dev).to(bf16)
+        k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf16)
+        v = torch.randn((B, S, Hkv, dhv), generator=g, device=dev).to(bf16)
+        dout = torch.randn((B, S, Hq, dhv), generator=g, device=dev).to(bf16)
+        out = kfa.flash_attention(q, k, v, True, window, scale)
+
+        def kern():
+            return kfa.flash_attention_bwd(q, k, v, out, dout, True, window, scale)
+        parts = device_ms_by_kernel(kern, reps=3, match="flash_bwd_",
+                                    launches={"dq_kernel": 1, "dkdv_kernel": 1})
+        k_ms = sum(parts.values())
+        p_ms = device_ms(lambda: plain_flash_attention_bwd(q, k, v, out, dout, True, window,
+                                                           scale), reps=1)
+        l_ms, l_note = _sdpa_bwd_ms(q, k, v, dout, window, scale)
+        # the five products over the visible pairs: q.k, dS k, dS^T q (dh);
+        # do.v, P^T do (dhv)
+        flops = _attention_flops(B, S, Hq, 3 * dh, window, dhv=2 * dhv)
+        b_ms, b_by = bound(_bwd_bytes(B, S, Hq, Hkv, dh, dhv, 2), flops, BF16_FLOP_PER_S)
+        print(f"  flash_attention_bwd {label} B={B} S={S} {Hq}/{Hkv} dh={dh} dhv={dhv} bf16 "
+              f"causal{'' if window is None else f' window {window}'}: kernel {k_ms:.3f} ms "
+              f"on the device ({', '.join(f'{n} {m:.3f}' for n, m in parts.items())}; "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s of the five products), plain {p_ms:.2f} ms "
+              f"(one batch row at a time), SDPA backward "
+              f"{'not timed' if l_ms is None else f'{l_ms:.3f} ms'} ({l_note}), bound "
+              f"{b_ms:.4f} ms ({b_by}: {flops:.4e} flops)")
+        shapes.append(dict(shape=f"{label}, B={B} x S={S}, {Hq}/{Hkv}, dh={dh}, dhv={dhv}, "
+                                 f"bf16, causal" + ("" if window is None else f", window {window}"),
+                           ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                           bound_by=b_by))
+        del q, k, v, dout, out
+    first = shapes[0]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/layers.py:60",
+                replaces_note="no Pallas kernel: the gradient the reference's autodiff "
+                              "takes of its attention_full",
+                launches=None, max_abs_err=errs["flash_attention_bwd"], ms=first["ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=first["library_ms"],
+                kernel="flash_bwd_dq_kernel + flash_bwd_dkdv_kernel", yardstick=None,
+                shapes=shapes[1:])
+
+
+class _PlainFlash(torch.autograd.Function):
+    """The attention's plain route on the card, differentiable: the flash
+    kernel's plain version forward and the backward kernel's plain version
+    backward (phase 13 (c)'s yardstick; launches no kernel of the port)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softmax_scale):
+        out = plain_flash_attention(q, k, v, causal, window, softmax_scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, softmax_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*plain_flash_attention_bwd(q, k, v, out, dout, *ctx.mask), None, None, None)
+
+
+def plain_flash_differentiable(q, k, v, causal=True, window=None, softmax_scale=None):
+    return _PlainFlash.apply(q, k, v, causal, window, softmax_scale)
 
 
 # -- phase 4: kernel path against plain path, in lock-step -------------------
@@ -2799,6 +3063,336 @@ def lm_serving() -> int:
     return launches
 
 
+# -- phase 13: LM training -------------------------------------------------------
+
+
+@contextlib.contextmanager
+def train_stages(flag: dict):
+    """record_function labels on a training step's parts while the block is
+    open: ``train: forward`` (the loss), ``train: recompute`` (a block's
+    forward run again inside the backward, where ``cfg.remat`` checkpoints
+    it: ``flag["bwd"]`` is set between the loss and the optimizer) and
+    ``train: optimizer``; the rest of the step is the backward."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import transformer as T
+
+    block_forward = T.Block.forward
+
+    def labelled(self, x, positions):
+        if flag["bwd"]:
+            with record_function("train: recompute"):
+                return block_forward(self, x, positions)
+        return block_forward(self, x, positions)
+    T.Block.forward = labelled
+    try:
+        yield
+    finally:
+        T.Block.forward = block_forward
+
+
+def labelled_train_step(opt_update):
+    """``make_train_step`` over ``loss_fn`` and ``opt_update`` wrapped in
+    :func:`train_stages`' labels, and the flag they share."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_loop import make_train_step
+
+    flag = {"bwd": False}
+
+    def loss_fn(model, batch):
+        with record_function("train: forward"):
+            out = T.loss_fn(model, batch)
+        flag["bwd"] = True
+        return out
+
+    def update(grads, state, params):
+        flag["bwd"] = False
+        with record_function("train: optimizer"):
+            return opt_update(grads, state, params)
+    return make_train_step(loss_fn, update), flag
+
+
+def train_step_profile(step_fn, flag, label: str) -> None:
+    """One training step under the profiler after a warm-up step: wall, the
+    device-busy share, and the device time of the forward, the recompute,
+    the backward (the rest), the flash backward kernel inside it and the
+    optimizer (the labels of :func:`train_stages`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("train: forward", "train: recompute", "train: optimizer")
+    cuda_type = torch.autograd.DeviceType.CUDA
+    with train_stages(flag):
+        step_fn()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                window_pad()
+                t = time.perf_counter()
+                step_fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t) * 1e6
+                window_pad()
+            events = prof.key_averages()
+            on_card = [e for e in events if e.device_type == cuda_type and e.key not in names]
+            dev_us = sum(e.self_device_time_total for e in on_card)
+            if dev_us > 0:
+                break
+        else:
+            print(f"  {label}: busy share and stages not measured (the profiler recorded no "
+                  f"device time in 3 windows); {wall_us / 1e3:.1f} ms wall")
+            return
+    by = {n: sum(e.device_time_total for e in events
+                 if e.key == n and e.device_type != cuda_type) for n in names}
+    flash_bwd = sum(e.self_device_time_total for e in on_card if "flash_bwd_" in e.key)
+    flash_fwd = sum(e.self_device_time_total for e in on_card if "flash_attention" in e.key)
+    backward = dev_us - sum(by.values())
+    print(f"  {label} under the profiler: {wall_us / 1e3:.1f} ms wall, {dev_us / 1e3:.1f} ms on "
+          f"the device ({dev_us / wall_us:.1%} busy, {1 - dev_us / wall_us:.1%} idle), "
+          f"{sum(e.count for e in on_card)} device ops")
+    for name, us in (("forward", by["train: forward"]), ("recompute", by["train: recompute"]),
+                     ("backward (the rest)", backward), ("  of it flash backward", flash_bwd),
+                     ("optimizer", by["train: optimizer"]),
+                     ("flash forward (forward + recompute)", flash_fwd)):
+        print(f"    {name:38s} {us / 1e3:9.1f} ms ({us / dev_us:.1%})")
+    for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.1f} ms x{e.count}")
+
+
+def _state_equal(a: dict, b: dict) -> list[str]:
+    """Keys of two checkpoint trees whose tensors differ in any bit."""
+    from repro_torch.train import checkpoint as ckpt
+
+    fa, fb = ckpt.flatten(a), ckpt.flatten(b)
+    return sorted(k for k in fa.keys() | fb.keys()
+                  if k not in fa or k not in fb or not torch.equal(fa[k], fb[k]))
+
+
+def lm_training() -> dict[str, int]:
+    """Phase 13. (a) TinyLlama-1.1B at published widths (bf16, remat) with
+    AdamW at the reference's defaults on 8 x 2048 tokens of
+    ``lm_batch_for_step(0, step, ...)`` for PHASE13_STEPS steps, the launch
+    counts set to 0 just before; a checkpoint at step PHASE13_CKPT_STEP;
+    one step profiled by stage. (b) a new model and optimizer restored from
+    that checkpoint run to step PHASE13_STEPS: parameters and optimizer state
+    bit-identical to (a)'s. (c) TinyLlama cut to 2 layers, one step on the
+    kernel route and on the plain route (``ops_replaced``): per-parameter
+    gradients within LM_GRAD_TOL. (d) DeepSeek-V3 at published widths cut to
+    1 dense + 1 MoE layer + the MTP head, Adafactor. (e) the five smoke
+    configs in fp32, 3 steps on the card and on the CPU. Returns (a)'s
+    launches per kernel."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.data.synthetic import lm_batch_for_step
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_loop import make_train_step, trainable
+
+    dev = torch.device("cuda")
+    ad = configs.get_arch("tinyllama-1.1b")
+    cfg = ad.model_cfg
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.d_ff, cfg.vocab, cfg.remat)
+          == (22, 2048, 32, 4, 5632, 32000, True) and ad.optimizer == "adamw",
+          "TinyLlama's config is not the published one")
+    B, S = PHASE13_BATCH, PHASE13_SEQ
+
+    def batch(step, rows=B):
+        return lm_batch_for_step(0, step, rows, S, cfg.vocab, dev)
+
+    # (a)
+    t = time.perf_counter()
+    model = T.init_params(cfg, 0, dev)
+    named = trainable(model)
+    opt_init, opt_update = make_optimizer(ad.optimizer)
+    state = opt_init(named)
+    step_fn = make_train_step(T.loss_fn, opt_update)
+    torch.cuda.synchronize()
+    print(f"(a) TinyLlama-1.1B, {T.param_count(model):,} parameters, bf16, remat, AdamW "
+          f"(reference defaults): init {time.perf_counter() - t:.2f} s")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, secs = [], []
+        for step in range(PHASE13_STEPS):
+            b = batch(step)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, state, metrics = step_fn(model, state, b)
+            losses.append(float(metrics["loss"]))
+            secs.append(time.perf_counter() - t)
+            if step + 1 == PHASE13_CKPT_STEP:
+                t = time.perf_counter()
+                path = ckpt.save(tmp, step + 1, {"params": named, "opt": state})
+                size = sum(f.stat().st_size for f in Path(path).iterdir())
+                print(f"    checkpoint at step {step + 1}: {size / 2**30:.2f} GiB in "
+                      f"{time.perf_counter() - t:.1f} s")
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = secs[1:]
+        ms = 1e3 * sum(steady) / len(steady)
+        print(f"(a) {PHASE13_STEPS} steps of {B} x {S}: loss {losses[0]:.4f} at step 0, "
+              f"{losses[-1]:.4f} at step {PHASE13_STEPS - 1} (every step: "
+              f"{[round(x, 4) for x in losses]}); {ms:.1f} ms a step after the first "
+              f"({1e3 * secs[0]:.1f} ms), {B * S / ms * 1e3:,.0f} tokens/s; peak "
+              f"{peak:.2f} GiB; flash launches a step: forward "
+              f"{launches['flash_attention'] / PHASE13_STEPS:g}, backward "
+              f"{launches['flash_attention_bwd'] / PHASE13_STEPS:g}")
+        check(all(np.isfinite(losses)), "TinyLlama training: a non-finite loss")
+        check(losses[-1] < losses[0], "TinyLlama training: the loss did not fall")
+        check(launches["flash_attention_bwd"] == cfg.n_layers * PHASE13_STEPS
+              and launches["flash_attention"] == 2 * cfg.n_layers * PHASE13_STEPS,
+              f"TinyLlama training launched {launches['flash_attention']} forward and "
+              f"{launches['flash_attention_bwd']} backward flash kernels, not 2 x 22 and 22 a "
+              f"step (remat runs each block's forward twice)")
+        check(all(v == 0 for k, v in launches.items()
+                  if k not in ("flash_attention", "flash_attention_bwd")),
+              f"TinyLlama training launched another kernel of the port: {launches}")
+        b0 = batch(PHASE13_STEPS)
+        labelled, flag = labelled_train_step(opt_update)
+        probe = {"state": state}
+
+        def one_step():
+            probe["state"] = labelled(model, probe["state"], b0)[1]
+        # on copies: the profiled steps must not move (a)'s end state
+        final = {"params": {n: p.detach().clone() for n, p in named.items()}, "opt": state}
+        train_step_profile(one_step, flag, "(a) one TinyLlama training step")
+        with torch.no_grad():
+            for n, p in named.items():
+                p.copy_(final["params"][n])
+        del probe, b0
+
+        # (b)
+        t = time.perf_counter()
+        model2 = T.Transformer(cfg, dev)
+        named2 = trainable(model2)
+        restored = ckpt.restore(tmp, PHASE13_CKPT_STEP, {"params": named2,
+                                                         "opt": opt_init(named2)})[0]
+        with torch.no_grad():
+            for n, p in named2.items():
+                p.copy_(restored["params"][n])
+        state2 = restored["opt"]
+        del restored
+        print(f"(b) a new model and optimizer restored from step {PHASE13_CKPT_STEP} in "
+              f"{time.perf_counter() - t:.1f} s")
+        for step in range(PHASE13_CKPT_STEP, PHASE13_STEPS):
+            _, state2, _ = step_fn(model2, state2, batch(step))
+        torch.cuda.synchronize()
+        differ = _state_equal(final, {"params": named2, "opt": state2})
+        print(f"(b) resumed to step {PHASE13_STEPS}: {len(differ)} of "
+              f"{len(ckpt.flatten(final))} parameter and optimizer tensors differ in any bit")
+        check(not differ, f"the restart is not bit-identical: {differ[:5]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, named, state, model2, named2, state2, final
+    torch.cuda.empty_cache()
+
+    # (c)
+    for dt in (torch.bfloat16, torch.float32):
+        small = dataclasses.replace(cfg, n_layers=2, dtype=dt)
+        lm = T.init_params(small, 0, dev)
+        leaves = trainable(lm)
+        b = batch(0, rows=PHASE13_LOCKSTEP_BATCH)
+        ops.reset_launch_counts()
+        loss_k, _ = T.loss_fn(lm, b)
+        grads_k = torch.autograd.grad(loss_k, list(leaves.values()))
+        loss_k = float(loss_k.detach())
+        k_launch = ops.launch_counts()
+        ops.reset_launch_counts()
+        with ops_replaced(flash_attention=plain_flash_differentiable):
+            loss_p, _ = T.loss_fn(lm, b)
+            grads_p = torch.autograd.grad(loss_p, list(leaves.values()))
+            loss_p = float(loss_p.detach())
+        p_launch = ops.launch_counts()
+        check(k_launch["flash_attention_bwd"] == 2 and p_launch["flash_attention_bwd"] == 0
+              and p_launch["flash_attention"] == 0,
+              f"(c) the routes' launches: kernel {k_launch}, plain {p_launch}")
+        worst = max(((float((gk.float() - gp.float()).abs().max())
+                      / max(float(gp.float().abs().max()), 1e-30)), n)
+                    for n, gk, gp in zip(leaves, grads_k, grads_p))
+        print(f"(c) lock-step, TinyLlama cut to 2 layers, {PHASE13_LOCKSTEP_BATCH} x {S} "
+              f"{str(dt)[6:]}: loss {loss_k:.6f} (kernel) against {loss_p:.6f} "
+              f"(plain); the largest per-parameter gradient difference {worst[0]:.3g} of that "
+              f"gradient's max-abs ({worst[1]}; tolerance {LM_GRAD_TOL[dt]})")
+        check(worst[0] <= LM_GRAD_TOL[dt], f"(c) {str(dt)[6:]} gradients of the two routes "
+                                           f"differ past LM_GRAD_TOL at {worst[1]}")
+        del lm, leaves, grads_k, grads_p, loss_k, loss_p
+    torch.cuda.empty_cache()
+
+    # (d)
+    dad = configs.get_arch("deepseek-v3-671b")
+    dcfg = dataclasses.replace(dad.model_cfg, n_layers=2, n_dense_prefix=1)
+    t = time.perf_counter()
+    dmodel = T.init_params(dcfg, 0, dev)
+    dnamed = trainable(dmodel)
+    dinit, dupdate = make_optimizer(dad.optimizer)
+    dstate = dinit(dnamed)
+    dstep = make_train_step(T.loss_fn, dupdate)
+    print(f"(d) DeepSeek-V3 at published widths cut to 1 dense + 1 MoE layer + MTP: "
+          f"{T.param_count(dmodel):,} parameters, bf16, remat, Adafactor (reference "
+          f"defaults): init {time.perf_counter() - t:.2f} s")
+    rows, cut = PHASE13_DEEPSEEK_BATCH, None
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    parts, secs = [], []
+    for step in range(PHASE13_DEEPSEEK_STEPS):
+        b = lm_batch_for_step(0, step, rows, S, dcfg.vocab, dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, dstate, m = dstep(dmodel, dstate, b)
+        loss, nll, aux = (float(m[k]) for k in ("loss", "nll", "aux"))
+        secs.append(time.perf_counter() - t)
+        parts.append((loss, nll, aux, (loss - nll - aux) / dcfg.mtp_weight))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if peak > PHASE13_PEAK_GIB and rows > 1:
+            rows, cut = 1, f"batch cut to 1 x {S}: the peak {peak:.2f} GiB passed {PHASE13_PEAK_GIB}"
+            print(f"(d) {cut}")
+    dl = ops.launch_counts()
+    print(f"(d) {PHASE13_DEEPSEEK_STEPS} steps of {rows} x {S}: (loss, nll, aux, MTP nll) a step "
+          f"{[tuple(round(x, 5) for x in p) for p in parts]}; {1e3 * sum(secs[1:]) / (len(secs) - 1):.1f} "
+          f"ms a step after the first ({1e3 * secs[0]:.1f} ms); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash launches forward "
+          f"{dl['flash_attention']}, backward {dl['flash_attention_bwd']}"
+          + (f"; cut: {cut}" if cut else ""))
+    check(all(np.isfinite(p).all() for p in parts), "DeepSeek training: a non-finite loss part")
+    check(dl["flash_attention_bwd"] == 3 * PHASE13_DEEPSEEK_STEPS,
+          "DeepSeek training did not run the backward kernel in its 2 MLA layers and the MTP "
+          "block each step")
+    del dmodel, dnamed, dstate
+    torch.cuda.empty_cache()
+
+    # (e)
+    for arch_id in configs.list_archs():
+        sad = configs.get_arch(arch_id)
+        scfg = sad.smoke_cfg
+        cpu_model = T.init_params(scfg, 0, "cpu")
+        card_model = T.Transformer(scfg, dev)
+        with torch.no_grad():
+            for (_, a), (_, c) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
+                c.copy_(a)
+        runs = []
+        for lm, where in ((cpu_model, "cpu"), (card_model, dev)):
+            init_, update_ = make_optimizer(sad.optimizer)
+            st = init_(trainable(lm))
+            fn = make_train_step(T.loss_fn, update_)
+            out = []
+            for step in range(3):
+                _, st, m = fn(lm, st, lm_batch_for_step(0, step, 2, 64, scfg.vocab, where))
+                out.append(float(m["loss"]))
+            runs.append(out)
+        rel = max(abs(a - b) / abs(a) for a, b in zip(*runs))
+        print(f"(e) {arch_id} smoke, fp32, {sad.optimizer}, 3 steps of 2 x 64: losses on the "
+              f"CPU {[round(x, 6) for x in runs[0]]}, on the card {[round(x, 6) for x in runs[1]]}; "
+              f"largest relative difference {rel:.3g}")
+        check(rel <= 1e-5, f"(e) {arch_id}: the card's losses differ from the CPU's past 1e-5")
+    return launches
+
+
 # -- phase 12: MoE and hybrid LM serving ----------------------------------------
 
 
@@ -4008,7 +4602,8 @@ def serve_entry_point(launches10: dict) -> None:
 
 def sweep(run, spec, pool, gt, launches10: dict) -> dict:
     """(b): closed-batch capacity, the paced single-request wall, and the
-    open loop at PHASE10_LOAD_FACTORS x capacity over 120 requests."""
+    open loop at PHASE10_LOAD_FACTORS x capacity over PHASE10_SWEEP_REQUESTS
+    requests."""
     from repro_torch.launch import loadgen
 
     out = counted(launches10, lambda: loadgen.serving_sweep(
@@ -4427,10 +5022,12 @@ def main(argv=None) -> int:
     check_pool_kernel(full_base, errs)
     check_compressed_kernels(full_base, errs)
     check_flash_attention(errs)
+    bwd_row = check_flash_attention_bwd(errs)
     print(f"  max abs error against the plain versions: {errs}")
     del full_base
     done(t0, "phase 2")
     if args.quick:
+        print(json.dumps({"kernels": [bwd_row]}))
         print(smi)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                   "count": count}}))
@@ -4606,6 +5203,14 @@ def main(argv=None) -> int:
     launches12 = moe_hybrid_serving()
     done(t0, "phase 12")
 
+    t0 = phase("phase 13: LM training (TinyLlama-1.1B at full width, its restart and "
+               "lock-step; DeepSeek-V3 at 2 layers + MTP; the smoke configs card vs CPU)")
+    torch.cuda.empty_cache()
+    launches13 = lm_training()
+    bwd_row["launches"] = launches13["flash_attention_bwd"]
+    rows.append(bwd_row)
+    done(t0, "phase 13")
+
     t0 = phase("phase 7: the paper's experiment (SIFT1M, GIST1M, RAND10M4D stand-ins)")
     paper_phase(dev, errs, rows)
     done(t0, "phase 7")
@@ -4615,6 +5220,7 @@ def main(argv=None) -> int:
         r["phase10_launches"] = launches10.get(r["name"], 0)
         r["phase11_launches"] = launches11.get(r["name"], 0)
         r["phase12_launches"] = launches12 if r["name"] == "flash_attention" else 0
+        r["phase13_launches"] = launches13.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

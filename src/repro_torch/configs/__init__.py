@@ -1,6 +1,6 @@
-"""Configurations of the port: the registry of the LM archs it serves,
-under the reference's arch ids (``repro/configs``; each a reduced
-``ArchDef`` with only what serving reads), and the paper's ANN
+"""Configurations of the port: the registry of the LM archs it serves and
+trains, under the reference's arch ids (``repro/configs``; each a reduced
+``ArchDef`` with what serving and training read), and the paper's ANN
 experiments (``ann_paper``)."""
 from __future__ import annotations
 
@@ -16,9 +16,10 @@ class ArchDef:
     family: str          # lm
     model_cfg: object    # models.transformer.LMConfig at published widths
     smoke_cfg: object    # the reference's reduced config for CPU tests
+    optimizer: str       # adamw | adafactor, the reference's per arch
 
 
-_ARCHS = {m.ARCH_ID: ArchDef(m.ARCH_ID, "lm", m.CONFIG, m.SMOKE)
+_ARCHS = {m.ARCH_ID: ArchDef(m.ARCH_ID, "lm", m.CONFIG, m.SMOKE, m.OPTIMIZER)
           for m in (tinyllama_1_1b, h2o_danube_1_8b, qwen3_moe_30b_a3b, gemma3_12b,
                     deepseek_v3_671b)}
 

@@ -7,6 +7,7 @@ from ..models.layers import MoEConfig
 from ..models.transformer import LMConfig
 
 ARCH_ID = "qwen3-moe-30b-a3b"
+OPTIMIZER = "adafactor"
 
 CONFIG = LMConfig(
     name="qwen3-moe-30b-a3b",

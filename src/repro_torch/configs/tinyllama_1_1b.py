@@ -5,6 +5,7 @@ import torch
 from ..models.transformer import LMConfig
 
 ARCH_ID = "tinyllama-1.1b"
+OPTIMIZER = "adamw"
 
 CONFIG = LMConfig(
     name="tinyllama-1.1b",

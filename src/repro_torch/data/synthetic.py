@@ -12,7 +12,12 @@ feed it the same numpy draws as the reference's formula. The draws differ
 from ``jax.random``'s: a dataset agrees with the reference's in its law
 (LID, ``tab1_datasets``), not bit for bit.
 
-The LM, recsys and GNN substrates of the reference module are not here.
+The LM token stream (``lm_batch``, ``lm_batch_for_step``) is the
+reference's affine-recurrent stream with noise; its draws come from a CPU
+``torch.Generator`` seeded from (seed, step) and are split from the formula
+(:func:`lm_tokens`), so the tests can feed it the reference's own
+``jax.random`` draws and get its tokens and labels bit for bit. The recsys
+and GNN substrates are not here yet (ROADMAP queue A item 14.5).
 """
 from __future__ import annotations
 
@@ -94,3 +99,46 @@ def make_ann_dataset(name: str, seed: int | None = None, scale: float = 1.0,
         both = manifold_dataset(gen, n + n_queries, spec["d"], spec["latent"])
         base, queries = both[:n], both[n:n + n_queries].clone()
     return base, queries, spec["metric"]
+
+
+# -- LM token streams ---------------------------------------------------------
+
+
+def lm_tokens(a: torch.Tensor, start: torch.Tensor, noise: torch.Tensor,
+              rnd: torch.Tensor, vocab: int) -> dict:
+    """The reference's learnable stream from its draws: a (B, 1) steps in
+    [1, 17), start (B, 1) in [0, vocab), noise (B, S) bool, rnd (B, S) in
+    [0, vocab) -> {tokens: (start + a * t) % vocab, replaced by rnd where
+    noise, int32; labels: tokens shifted left by one, the last -100}."""
+    t = torch.arange(noise.shape[1], device=noise.device)[None, :]
+    toks = torch.where(noise, rnd, (start + a * t) % vocab).to(torch.int32)
+    labels = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -100)], dim=1)
+    return {"tokens": toks, "labels": labels}
+
+
+def lm_batch(generator: torch.Generator, batch: int, seq: int, vocab: int) -> dict:
+    """A batch of the stream, its draws (a, start, noise at p = 0.05, rnd)
+    from ``generator`` in that order, on its device."""
+    dev = generator.device
+    a = torch.randint(1, 17, (batch, 1), generator=generator, device=dev)
+    start = torch.randint(0, vocab, (batch, 1), generator=generator, device=dev)
+    noise = torch.rand((batch, seq), generator=generator, device=dev) < 0.05
+    rnd = torch.randint(0, vocab, (batch, seq), generator=generator, device=dev)
+    return lm_tokens(a, start, noise, rnd, vocab)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The generator seed of (seed, step), as the reference folds the step
+    into its key."""
+    return (seed * 0x9E3779B1 + 0x632BE5AB * (step + 1)) % (2**63 - 1)
+
+
+def lm_batch_for_step(seed: int, step: int, batch: int, seq: int, vocab: int,
+                      device="cpu") -> dict:
+    """The batch of ``step``: a pure function of (seed, step), drawn on the
+    CPU (so it is the same on every device and topology), then moved to
+    ``device``."""
+    gen = torch.Generator().manual_seed(step_seed(seed, step))
+    out = lm_batch(gen, batch, seq, vocab)
+    dev = resolve_device(device)
+    return {k: v.to(dev) for k, v in out.items()}

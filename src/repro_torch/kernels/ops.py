@@ -2,7 +2,11 @@
 
 A CPU tensor goes to the plain version in ``kernels.ref``; a CUDA tensor goes
 to the hand-written kernel, which raises on anything it does not take.
-Nothing falls back from the card to a plain version. The reference's
+Nothing falls back from the card to a plain version. ``flash_attention`` is
+differentiable: where autograd records, it runs as an autograd Function whose
+backward is the backward kernel on the card and its plain version on the CPU
+(the reference's Pallas kernel has no VJP; its models train through plain
+attention, whose gradient this computes). The reference's
 one-hot gather branch is not carried over: it exists only for the TPU's
 matrix unit and is bit-identical to the plain gather.
 """
@@ -88,13 +92,50 @@ def pq_adc(codes, luts):
     return _pa.pq_adc(codes, luts)
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
-                    softmax_scale: float | None = None):
-    """GQA attention q (B, S, Hq, dh), k/v (B, S, Hkv, d) -> (B, S, Hq, dhv)
-    in q's dtype: causal and/or windowed mask, fp32 scores and softmax."""
+def _flash_forward(q, k, v, causal, window, softmax_scale):
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal, window, softmax_scale)
     return _fa.flash_attention(q, k, v, causal, window, softmax_scale)
+
+
+def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
+                        window: int | None = None, softmax_scale: float | None = None):
+    """The gradient of ``flash_attention`` at (q, k, v) given its output
+    ``out`` and cotangent ``dout`` -> (dq, dk, dv) in the inputs' dtypes."""
+    if _on_cpu(q):
+        return ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window,
+                                           softmax_scale)
+    return _fa.flash_attention_bwd(q, k, v, out, dout, causal, window, softmax_scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward's one launch (or plain call), saving q, k, v and the
+    output; the backward is ``flash_attention_bwd`` on the same device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softmax_scale):
+        out = _flash_forward(q, k, v, causal, window, softmax_scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, softmax_scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
+                    softmax_scale: float | None = None):
+    """GQA attention q (B, S, Hq, dh), k/v (B, S, Hkv, d) -> (B, S, Hq, dhv)
+    in q's dtype: causal and/or windowed mask, fp32 scores and softmax.
+    Where autograd records and an input requires grad it is differentiable
+    (``_FlashAttention``); otherwise (``inference_mode``, ``no_grad``,
+    frozen inputs) it is the forward's single launch and nothing is saved."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softmax_scale)
+    return _flash_forward(q, k, v, causal, window, softmax_scale)
 
 
 def launch_counts() -> dict[str, int]:

@@ -187,3 +187,39 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p.masked_fill(torch.isnan(p), 0.0)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+                            window: int | None = None,
+                            softmax_scale: float | None = None):
+    """The gradient of ``flash_attention_ref``, dense in fp32, the backward
+    kernel's oracle: (dq, dk, dv) in q's, k's and v's dtypes. P is the
+    forward's masked softmax; dP = dout . v; D = rowsum(dout * out) (the
+    forward's output, as the kernel reads it); dS = P (dP - D); dq = scale
+    dS k, dk = scale dS^T q, dv = P^T dout, summed over the G query heads of
+    each KV head. A row that sees no key has P = 0, so its dq is 0 and it
+    adds nothing to dk and dv, never NaN."""
+    B, S, Hq, dh = q.shape
+    Hkv, dhv = k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else dh ** -0.5
+    qg = q.reshape(B, S, Hkv, G, dh).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg * scale, kf)
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    p = p.masked_fill(torch.isnan(p), 0.0)
+    dog = dout.reshape(B, S, Hkv, G, dhv).float()
+    delta = (dog * out.reshape(B, S, Hkv, G, dhv).float()).sum(-1)      # (B, S, Hkv, G)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dq.reshape(B, S, Hq, dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -2,9 +2,11 @@
 mirroring ``repro/models/transformer.py``.
 
 ``LMConfig`` carries the reference's fields and defaults, so configs copy
-over with only the dtype changed; fields that only training or the
-reference's sharding reads (``remat``, ``scan_unroll``, the ``*_spec``
-fields, ...) are kept and unused. The model is ``nn.Module``s
+over with only the dtype changed; ``remat`` checkpoints each block in
+training, and the fields only the reference's XLA lowering or sharding
+reads (``scan_unroll``, ``attn_unroll``, the ``*_spec`` fields,
+``xent_mode``, ``bf16_grad_sync``, ``remat_policy``) are kept and do not
+change the result. The model is ``nn.Module``s
 (``Transformer`` > ``Block`` > ``GQAttention`` or ``MLAttention``, +
 ``SwiGLU`` or ``MoE``) whose parameter names follow the reference's tree
 (``layers.{i}.attn.wq``, ``layers.{i}.mlp.router``), with a Python loop over
@@ -21,7 +23,7 @@ layers (``attention="mla"``) take no window and keep full-length latent
 caches. DeepSeek's multi-token-prediction head (``cfg.mtp``: ``mtp.proj``
 (2D, D), ``mtp.layer``, a dense block, and ``mtp.norm``) is built, drawn and
 carried, so the parameter count and tree are the reference's; only the
-reference's training loss reads it, so prefill and decode do not run it.
+training loss runs it, so prefill and decode do not.
 
 Entry points (forward, prefill and decode under ``torch.inference_mode``):
 
@@ -34,7 +36,11 @@ Entry points (forward, prefill and decode under ``torch.inference_mode``):
 * ``init_cache`` + ``decode_step``: one token at a time against per-layer
   caches that are updated in place; a windowed layer's cache is a ring of
   ``min(window, max_len)`` slots, its mask built from the absolute position
-  stored in each slot.
+  stored in each slot;
+* ``loss_fn`` (training): ``Transformer.hidden``'s (hidden, aux), the
+  cross-entropy, the MTP term and the aux, differentiable. Weights are
+  created frozen (``requires_grad=False``) for serving; training turns them
+  on (``train.train_loop.trainable``).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import layers as L
@@ -227,11 +234,11 @@ class MoE(nn.Module):
                            "w_down": self.shared.w_down}
         return p
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, S, D) -> (B, S, D); each batch row is a group of its own
-        (at decode, S = 1: C = 1 and nothing drops)."""
-        out, _ = L.moe_forward(self.params(), x, self.moe)
-        return out
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """x (B, S, D) -> (out (B, S, D), the load-balance aux loss, fp32);
+        each batch row is a group of its own (at decode, S = 1: C = 1 and
+        nothing drops)."""
+        return L.moe_forward(self.params(), x, self.moe)
 
 
 class Block(nn.Module):
@@ -249,20 +256,27 @@ class Block(nn.Module):
         self.mlp = (MoE(cfg, device) if cfg.moe is not None and not dense_mlp
                     else SwiGLU(cfg, cfg.d_ff, device))
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        """-> (x (B, S, D), aux): the MoE's load-balance loss, fp32 0 for a
+        dense MLP."""
         x = x + self.attn(L.rms_norm(x, self.attn_norm), positions)
-        return x + self.mlp(L.rms_norm(x, self.mlp_norm))
+        h = L.rms_norm(x, self.mlp_norm)
+        if isinstance(self.mlp, MoE):
+            m, aux = self.mlp(h)
+        else:
+            m, aux = self.mlp(h), torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + m, aux
 
     def decode(self, x: torch.Tensor, pos: torch.Tensor, cache: dict) -> torch.Tensor:
         x = x + self.attn.decode(L.rms_norm(x, self.attn_norm), pos, cache)
         h = L.rms_norm(x, self.mlp_norm)
-        return x + (self.mlp(h[:, None])[:, 0] if isinstance(self.mlp, MoE) else self.mlp(h))
+        return x + (self.mlp(h[:, None])[0][:, 0] if isinstance(self.mlp, MoE) else self.mlp(h))
 
 
 class MTP(nn.Module):
     """The multi-token-prediction head's weights: proj (2D, D), a dense
-    global block and a norm. Only the reference's training loss reads them;
-    prefill and decode do not run them."""
+    global block and a norm. Only the training loss (``loss_fn``) runs
+    them; prefill and decode do not."""
 
     def __init__(self, cfg: LMConfig, device):
         super().__init__()
@@ -300,12 +314,26 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S) -> final-normed hidden states (B, S, D)."""
+        return self.hidden(tokens)[0]
+
+    def hidden(self, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (final-normed hidden (B, S, D), aux): the
+        reference's ``forward``, aux the fp32 sum of the MoE layers'
+        load-balance losses. Where ``cfg.remat`` is set and autograd
+        records, each block is checkpointed (``torch.utils.checkpoint``,
+        non-reentrant): its activations are recomputed in the backward."""
         B, S = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(S, device=tokens.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.blocks():
-            x = block(x, positions)
-        return L.rms_norm(x, self.final_norm)
+            if remat:
+                x, a = checkpoint(block, x, positions, use_reentrant=False)
+            else:
+                x, a = block(x, positions)
+            aux = aux + a
+        return L.rms_norm(x, self.final_norm), aux
 
     def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list) -> torch.Tensor:
         """token (B,), pos (B,) -> logits (B, V) fp32; caches (one a block,
@@ -342,6 +370,42 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Transformer:
         for part in p.split(rows):
             part.copy_(torch.randn(part.shape, generator=g, device=p.device).mul_(s))
     return model
+
+
+def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_sharded_xent``: the mean over valid labels (>= 0;
+    -100 is ignored) of logsumexp(logits) - the gold logit; 0 where there is
+    none. Its ``xent_mode="onehot"`` gives identical values, so the port
+    keeps one form."""
+    valid = labels >= 0
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = torch.where(valid, torch.logsumexp(logits, dim=-1) - gold, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
+    """The reference's ``loss_fn``: batch {tokens, labels} (B, S), labels
+    -100 = ignore -> (loss, {"nll", "aux"}). loss = the LM head's
+    cross-entropy (fp32 logits) + aux (the MoE layers' load-balance sum) +,
+    where ``cfg.mtp``, ``mtp_weight`` times the depth-1 MTP head's
+    cross-entropy: ``rms_norm(h, mtp.norm)`` beside the next token's
+    embedding, through ``mtp.proj`` and ``mtp.layer`` (a global block), to
+    the LM head, against the labels rolled by one with the last -100."""
+    cfg = model.cfg
+    tokens, labels = batch["tokens"], batch["labels"]
+    h, aux = model.hidden(tokens)
+    nll = xent((h @ model.lm_head).float(), labels)
+    loss = nll
+    if cfg.mtp:
+        mtp = model.mtp
+        B, S = tokens.shape
+        emb_next = model.embed[torch.roll(tokens, -1, dims=1)]
+        hm = torch.cat([L.rms_norm(h, mtp.norm), emb_next], dim=-1) @ mtp.proj
+        hm, _ = mtp.layer(hm, torch.arange(S, device=tokens.device).expand(B, S))
+        labels_m = torch.roll(labels, -1, dims=1)
+        labels_m[:, -1] = -100
+        loss = loss + cfg.mtp_weight * xent((hm @ model.lm_head).float(), labels_m)
+    return loss + aux, {"nll": nll, "aux": aux}
 
 
 @torch.inference_mode()

@@ -562,7 +562,7 @@ def test_cuda_ops_dispatch_to_the_kernels_and_count(cuda):
                                    "gather_sq8_masked_generic": 0,
                                    "gather_adc_masked": 1, "gather_adc_masked_generic": 0,
                                    "pq_adc": 1, "pq_adc_generic": 1,
-                                   "flash_attention": 1}
+                                   "flash_attention": 1, "flash_attention_bwd": 0}
     with pytest.raises(ValueError, match="contiguous"):
         ops.distance_matrix(qt.t(), bt.t())
     with pytest.raises(ValueError, match="int32"):
@@ -1193,3 +1193,95 @@ def test_cuda_one_rank_nccl_host_tiers_match_device_pq(nccl_shard_world):
         assert torch.equal(hi, i) and torch.equal(hd, d), placement
         assert (hc - c).abs().max() <= 1, placement
         store.close()
+
+
+# -- the attention backward and LM training ---------------------------------------
+
+# (B, S, Hq, Hkv, dh, dhv, causal, window, scale)
+BWD_CASES = [(2, 100, 8, 2, 64, 64, True, None, None), (1, 77, 4, 4, 128, 128, True, 20, 0.2),
+             (1, 65, 4, 2, 256, 256, True, None, None), (1, 70, 4, 4, 192, 128, True, None, None),
+             (2, 33, 8, 1, 16, 16, False, 5, None), (1, 1, 1, 1, 64, 64, True, None, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c[:8])))
+def test_cuda_flash_attention_bwd_matches_plain(cuda, case, dtype):
+    """|kernel - plain| <= rtol |plain| + atol m, m the largest max-abs of
+    the call's plain dq, dk and dv (chip_smoke.py's BWD_TOL: both sum the
+    same fp32 terms in another order; bf16 also rounds the result)."""
+    B, S, Hq, Hkv, dh, dhv, causal, window, scale = case
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+    g = torch.Generator(device=cuda).manual_seed(S + dh)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                     for shape in ((B, S, Hq, dh), (B, S, Hkv, dh), (B, S, Hkv, dhv),
+                                   (B, S, Hq, dhv)))
+    out = cuda_fa.flash_attention(q, k, v, causal, window, scale)
+    got = cuda_fa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window, scale)
+    m = max(float(w.float().abs().max()) for w in want)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        excess = (a.float() - b.float()).abs() - rtol * b.float().abs() - atol * m
+        assert float(excess.max()) <= 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_runs_the_backward_kernel_never_the_plain_version(cuda, monkeypatch):
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain backward ran on CUDA tensors")
+
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", no_plain)
+    monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda, requires_grad=True)
+               for shape in ((2, 64, 4, 32), (2, 64, 2, 32), (2, 64, 2, 32)))
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v, window=16)
+    out.backward(torch.ones_like(out))
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention_bwd"] == after["flash_attention_bwd"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["tinyllama-1.1b", "deepseek-v3-671b"])
+def test_cuda_train_step_matches_cpu(cuda, arch_id):
+    """A smoke config in fp32 from the same weights and batches on the card
+    and on the CPU: the first step's loss within 1e-5 relative and every
+    gradient within 1e-4 of its max-abs (fp32 sums in another order); then
+    one step of the arch's optimizer on each, and the next loss within 1e-5
+    relative."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import lm_batch_for_step
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_loop import make_train_step, trainable
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ad = configs.get_arch(arch_id)
+    cpu_model = T.init_params(ad.smoke_cfg, 0, "cpu")
+    card_model = T.Transformer(ad.smoke_cfg, cuda)
+    with torch.no_grad():
+        for (_, a), (_, c) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
+            c.copy_(a)
+    losses, grads = [], []
+    for lm, dev in ((cpu_model, "cpu"), (card_model, cuda)):
+        named = trainable(lm)
+        loss, _ = T.loss_fn(lm, lm_batch_for_step(0, 0, 2, 64, ad.smoke_cfg.vocab, dev))
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, list(named.values()))])
+        init, update = make_optimizer(ad.optimizer)
+        step = make_train_step(T.loss_fn, update)
+        state = init(named)
+        for i in range(2):
+            _, state, m = step(lm, state, lm_batch_for_step(0, i, 2, 64, ad.smoke_cfg.vocab,
+                                                            dev))
+            losses.append(float(m["loss"]))
+    assert abs(losses[2] - losses[0]) <= 1e-5 * abs(losses[0])
+    assert abs(losses[3] - losses[1]) <= 1e-5 * abs(losses[1])
+    for (n, _), a, c in zip(cpu_model.named_parameters(), *grads):
+        assert float((c - a).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-30), n

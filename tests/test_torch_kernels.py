@@ -1074,7 +1074,7 @@ def test_ops_dispatches_cpu_tensors_to_plain_versions():
                            "distance_matrix_tile32", "gather_sq8_masked",
                            "gather_sq8_masked_generic", "gather_adc_masked",
                            "gather_adc_masked_generic", "pq_adc", "pq_adc_generic",
-                           "flash_attention"}
+                           "flash_attention", "flash_attention_bwd"}
 
 
 def test_adc_rejects_codes_past_the_lut():
