@@ -86,17 +86,25 @@ Phases (each prints its seconds):
    fp32: rtol 2e-5, atol 2e-5 (the reference's own kernel tests); bf16:
    rtol 1e-2, atol 1e-5, one bf16 ulp (<= 2^-7 relative) of a cast from
    fp32 values that agree to ~1e-6.
-   flash_attention_bwd (the attention backward: its dq and dk / dv kernels)
-   against its plain version, bf16 and fp32, within BWD_TOL: the five LMs'
-   layer shapes at one batch row (TinyLlama 32/4 dh 64, Qwen3 32/4 dh 128,
-   Gemma3 16/8 dh 256 global and local with its window of 1024, DeepSeek's
-   MLA 128/128 dh 192 / dhv 128; S = 2048), ragged S (1, 17, 1000), G = 1
-   and 8, windows with and without causal, a given scale, ragged head dims,
-   strided operands; the autograd Function on CUDA tensors launches the
-   forward and backward kernels once each. Then each layer at its training
-   batch (TinyLlama 8, the others 2) per recorded launch beside its bound
-   (the five products over the visible pairs at the bf16 tensor-core peak),
-   its plain version and scaled_dot_product_attention's backward.
+   flash_attention_bwd (the attention backward) against its plain version
+   within BWD_TOL: bf16 through the tensor-core route (preprocess, dq and
+   dk / dv wgmma kernels, from the forward's saved log-sum-exp), bf16 and
+   fp32 through the first backward's FMA pair (the fp32 route and the
+   yardstick): the five LMs' layer shapes at one batch row (TinyLlama 32/4
+   dh 64, Qwen3 32/4 dh 128, Gemma3 16/8 dh 256 global and local with its
+   window of 1024, DeepSeek's MLA 128/128 dh 192 / dhv 128; S = 2048),
+   ragged S (1, 17, 1000), G = 1 and 8, windows with and without causal, a
+   given scale, ragged head dims (dhv 36: rows not 16-byte multiples),
+   strided operands; at each bf16 case the forward's lse
+   within 1e-5 of the plain log-sum-exp, its output bit for bit the
+   forward's without lse, two backward calls bit for bit; the autograd
+   Function on CUDA tensors launches the forward and backward kernels once
+   each (fp32 and bf16). Then each layer at its training batch (TinyLlama
+   8, the others 2) per recorded launch: the tensor-core route by kernel
+   beside its bound (the five products over the visible pairs at the bf16
+   tensor-core peak), the route with P and dS rounded to bf16 alone (what
+   the hi + lo split costs), the FMA yardstick, its plain version and
+   scaled_dot_product_attention's backward.
 4b. The hierarchy path at full width: ``serve --entry hierarchy`` on the
    n=1M world (HNSW over the shared NN-Descent graph; its layers, build
    stages, peak memory and seed-phase comps; every kernel of the path
@@ -176,7 +184,7 @@ Phases (each prints its seconds):
    apart); TinyLlama's 22 layers (phase 6) stay within LM_LOGIT_RTOL; (d)
    fp32 weights at full width, prefill == decode within 1e-3 relative; (e)
    ``serve --arch <arch> --batch 8 --tokens 32 --max-len 2048``. One
-   prefill and 8 decode steps also run under the profiler (busy share, the
+   prefill and 2 decode steps also run under the profiler (busy share, the
    leading ops, and the device time split by record_function labels into
    flash, the SwiGLUs and the MoE's router and dispatch, expert products and
    combine). Cuts: Qwen3's
@@ -220,7 +228,8 @@ Phases (each prints its seconds):
    and 1 MoE layer plus the MTP head (bf16, remat, Adafactor), 4 steps of 2
    x 2048 (cut to 1 x 2048 if the peak passes 76 GiB): the nll, aux and MTP
    parts finite, peak, ms a step, 3 backward launches a step (two MLA layers
-   and the MTP block at dh 192 / dhv 128); (e) the five smoke configs in
+   and the MTP block at dh 192 / dhv 128), and one step under the profiler
+   split as (a)'s; (e) the five smoke configs in
    fp32, 3 steps on the card and on the CPU from the same weights and
    batches: losses within 1e-5 relative.
 
@@ -279,9 +288,10 @@ Phases (each prints its seconds):
 9. Streaming mutation on phase 4's world and searcher (after phase 8,
    before phase 6 frees them); each step's seconds from CUDA events. (a)
    ``MutableIndex.from_build`` over the NN-Descent + GD graph, its edge
-   distances through the pair kernel (held to the plain gather). (b) 1,000
-   inserts drawn from the seed at insert_ef=32 with GD inline (the
-   reference's ``--serve-mutate`` settings); the first doubles the
+   distances through the pair kernel (held to the plain gather). (b) 150
+   inserts (cut from 1,000: host-bound) drawn from the seed at
+   insert_ef=32 with GD inline (the reference's ``--serve-mutate``
+   settings); the first doubles the
    capacity to 2M (its seconds and the bytes of each device mirror);
    insert_rate and an insert's ms by part; one insert's device-busy
    share; then 20% of the original ids deleted. (c) The 8 x 64 stream at
@@ -301,10 +311,10 @@ Phases (each prints its seconds):
    directory (removed), ``load_index`` and ``from_artifact``: arrays and a
    batch from the same entries bit-identical. (f) ``construct=
    "incremental"``: exact mode (insert_ef=0, graph_k=20) on the smoke
-   world bit-identical to ``construct="exact"``; beam mode (insert_ef=64,
-   GD inline) through ``serve.build_searcher`` on the smoke world's first
-   500 points (cut: an insert's Q=1 beam is host-bound; cut from 2,000
-   to make room for phase 13), recall@10 of
+   world's first 5,000 points bit-identical to ``construct="exact"``; beam
+   mode (insert_ef=64, GD inline) through ``serve.build_searcher`` on the
+   smoke world's first 100 points (cut: an insert's Q=1 beam is
+   host-bound; cut from 2,000, then 500), recall@10 of
    512 queries against NN-Descent + GD over the same points. The launches
    over phase 9's driven runs go into the kernels line
    (``phase9_launches``), the new shapes into the rows' ``shapes``.
@@ -317,19 +327,20 @@ Phases (each prints its seconds):
    rows/s offered, buckets 1-16, 4 live, 16 queued): completed + shed =
    200, every completed request bit-identical to its direct search (rerun
    off the timed path), served recall@1 equal to the direct twins'. (b)
-   ``loadgen.serving_sweep`` over 80 requests (cut from 120 to make room
-   for phase 13): closed-batch capacity, the
+   ``loadgen.serving_sweep`` over 48 requests (cut from 120, then 80:
+   host-bound): closed-batch capacity, the
    paced single-request wall, then the open loop at 0.5x and 3x capacity
    (the reference's 0.05x point is cut: ~5 minutes of arrivals alone):
    p50/p90/p99, queue and service ms, sustained qps, shed, fill, buckets,
-   the largest live window; parity 1.0, completed + shed = 80,
-   timestamps in order, shed > 0 at 3x. (c) closed loops of 32 requests
+   the largest live window; parity 1.0, completed + shed = 48,
+   timestamps in order, shed > 0 at 3x. (c) closed loops of 9 requests
    under pq (device, host) and sq8, and exact with phase 8's tenant=3
    filter on every third request: each bit-identical to its direct search.
    (d) a ``MutableIndex`` of phase 4's graph (the first insert doubles the
-   capacity to 2M), a snapshot Searcher serving 40 requests, 499 more
+   capacity to 2M), a snapshot Searcher serving 16 requests, 99 more
    inserts (insert_ef=32, GD inline) and 250 deletes, a hot swap with 8
-   requests queued at the flip, 120 more requests: the snapshot answers
+   requests queued at the flip, 24 more requests (counts cut from 40,
+   499 and 120: host-bound): the snapshot answers
    as before the inserts, each mirror cloned once (its ms by CUDA events
    and bytes printed), each side bit-identical to direct search on its
    version, 0 dead or unallocated ids, nothing loaded or built after the
@@ -412,29 +423,35 @@ PHASE8_KERNELS = ("gather_distance", "gather_distance_masked", "gather_adc_maske
                   "gather_sq8_masked", "distance_matrix")
 # phase 9: the mutation path on phase 4's world (the reference's
 # --serve-mutate settings: insert_ef=32, GD inline; 20% of the ids deleted as
-# in its tests) and the incremental construct's beam-mode cut
-PHASE9_INSERTS = 1000
+# in its tests) and the incremental construct's cuts. Inserts and the
+# incremental construct are host-bound (a Q=1 beam each); their counts are
+# cut to keep the script within half its time limit.
+PHASE9_INSERTS = 150   # cut from 1,000
 PHASE9_PROFILED_INSERTS = 5
 PHASE9_INSERT_EF = 32
 PHASE9_DELETE_SHARE = 0.2
 PHASE9_SELF_QUERIES = 64
 PHASE9_CHECK_ROWS = 65_536
-PHASE9_BEAM_POINTS = 500   # cut from 2,000 to make room for phase 13
+PHASE9_EXACT_POINTS = 5_000   # of the smoke world's 20,000
+PHASE9_BEAM_POINTS = 100   # cut from 2,000, then 500
 PHASE9_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "disk"), ("sq8", "disk"))
 PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                   "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
                   "distance_matrix_small")
 # phase 10: the continuous-batching server on phase 4's world. The sweep
 # leaves out the reference's 0.05x load point: at ~0.1 s a request its 120
-# Poisson arrivals alone would take ~5 minutes.
+# Poisson arrivals alone would take ~5 minutes. Requests and inserts are
+# host-bound (~0.13 s a request, ~0.065 s an insert); their counts are cut
+# to keep the script within half its time limit.
 PHASE10_LOAD_FACTORS = (0.5, 3.0)
-PHASE10_SWEEP_REQUESTS = 80   # cut from 120 to make room for phase 13
+PHASE10_SWEEP_REQUESTS = 48   # cut from 120, then 80
 PHASE10_POOL = 256
-PHASE10_PARITY_REQUESTS = 32
-PHASE10_INSERTS = 500
+PHASE10_PARITY_REQUESTS = 9   # cut from 32
+PHASE10_INSERTS = 100   # cut from 500
 PHASE10_DELETES = 250
+PHASE10_PRE_SWAP_REQUESTS = 16   # cut from 40
 PHASE10_QUEUED_AT_FLIP = 8
-PHASE10_POST_SWAP_REQUESTS = 120
+PHASE10_POST_SWAP_REQUESTS = 24   # cut from 120
 PHASE10_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                    "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
                    "distance_matrix_small")
@@ -471,7 +488,9 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
 # the attention backward against its plain version: |got - want| <= rtol
 # |want| + atol m per gradient, m the largest max-abs of the call's dq, dk
 # and dv. Both compute the same fp32 sums on the same inputs in another order
-# (the kernel tiles over 64 or 32 keys, the plain version is dense); a dq or
+# (the kernels tile over 32-128 keys or queries, the plain version is dense;
+# the tensor-core route's products take P and dS as bf16 hi + lo, to ~2^-17:
+# rounded to bf16 alone they leave this tolerance); a dq or
 # dk element sums ~S terms of dS = P (dP - D), which cancel (at S = 1 exactly:
 # dq is 0 up to the rounding of dP - D), so the difference scales with the
 # call's gradients, not with the element: atol is relative to m. bf16: both
@@ -560,9 +579,9 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"FAIL: {msg}")
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
 
@@ -1289,6 +1308,16 @@ def check_flash_attention(errs: dict) -> None:
     print("  flash_attention raises on dh=257")
 
 
+def plain_flash_lse(q, k, v, causal=True, window=None, softmax_scale=None):
+    """The forward's plain log-sum-exp (fp32 (B, Hq, S), log2 unit) one
+    batch row at a time."""
+    from repro_torch.kernels import ref
+
+    return torch.cat([ref.flash_attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal,
+                                              window, softmax_scale, True)[1]
+                      for b in range(q.shape[0])])
+
+
 def plain_flash_attention_bwd(q, k, v, out, dout, causal=True, window=None,
                               softmax_scale=None):
     """The backward kernel's plain version one batch row at a time, so its
@@ -1337,16 +1366,24 @@ def _sdpa_bwd_ms(q, k, v, dout, window, scale) -> tuple[float | None, str]:
 
 
 def check_flash_attention_bwd(errs: dict) -> dict:
-    """The backward kernel (flash_attention_bwd: its dq and dk / dv kernels)
-    against its plain version on the card, fp32 and bf16, within BWD_TOL:
-    the five LMs' layer shapes at one batch row, ragged S (1, 17, 1000), G
-    = 1 and 8, windows with and without causal, a given scale, ragged head
-    dims and strided operands; the autograd Function on CUDA tensors runs
-    the kernel and not the plain version. Then each model shape at its
-    training batch, per recorded launch (torch.profiler), beside its bound
-    (the five products at the bf16 tensor-core peak, or the bytes), the
-    plain version's time and scaled_dot_product_attention's backward.
-    Returns the kernels line's row (its launches come from phase 13)."""
+    """The backward (flash_attention_bwd) against its plain version on the
+    card, within BWD_TOL: bf16 through the tensor-core route (the
+    preprocess, dq and dk / dv wgmma kernels, from the forward's saved
+    lse), fp32 and bf16 through the first backward's FMA pair (the fp32 route, and the
+    bf16 route's yardstick): the five LMs' layer shapes at one batch row,
+    ragged S (1, 17, 1000), G = 1 and 8, windows with and without causal, a
+    given scale, ragged head dims and strided operands. At every bf16 case
+    the forward's lse is held within 1e-5 of the plain log-sum-exp, its
+    output bit for bit to the forward without lse, and two backward calls
+    to each other bit for bit. The autograd Function on CUDA tensors runs
+    the kernels and not the plain version, in both dtypes. Then each model
+    shape at its training batch, per recorded launch (torch.profiler): the
+    tensor-core route by kernel, beside its bound (the five products at
+    the bf16 tensor-core peak, or the bytes), the same route with P and dS
+    rounded to bf16 alone (``flash_attention_bwd_unsplit``, the split's
+    cost), the FMA yardstick, the plain version and
+    scaled_dot_product_attention's backward. Returns the kernels line's row
+    (its launches come from phase 13)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
 
@@ -1366,7 +1403,26 @@ def check_flash_attention_bwd(errs: dict) -> dict:
          None),
         ("S=130 4/2 dh=64 dhv=256", 1, 130, 4, 2, 64, 256, True, None, None),
         ("S=65 4/1 dh=16 window 1 (the diagonal only)", 2, 65, 4, 1, 16, 16, True, 1, None),
+        ("S=90 4/2 dh=40 dhv=36 (rows not 16-byte multiples)", 1, 90, 4, 2, 40, 36, True, None,
+         None),
     ]
+
+    def held(label, route, got, want, dt):
+        worst, scale_g = [], bwd_scale(want)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(a.shape == b.shape and a.dtype == dt,
+                  f"flash_attention_bwd {route} {name} shape/dtype: {label}")
+            check(bool(torch.isfinite(a).all()), f"flash_attention_bwd {route} non-finite "
+                                                 f"{name}: {label}")
+            err, excess = bwd_excess(a, b, dt, scale_g)
+            worst.append((name, err, excess))
+            check(excess <= 0.0, f"flash_attention_bwd {route} {name} outside BWD_TOL "
+                                 f"({excess:.3g} over): {label} {dt}")
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
+        print(f"  flash_attention_bwd {label} {str(dt)[6:]} {route}: max abs error "
+              + ", ".join(f"{n} {e:.3g} (excess {x:.2g})" for n, e, x in worst))
+
+    lse_err = 0.0
     for label, B, S, Hq, Hkv, dh, dhv, causal, window, scale in cases:
         for dt in (bf16, f32):
             def rnd(*shape):
@@ -1374,61 +1430,79 @@ def check_flash_attention_bwd(errs: dict) -> dict:
             q, k, v, dout = rnd(B, S, Hq, dh), rnd(B, S, Hkv, dh), rnd(B, S, Hkv, dhv), \
                 rnd(B, S, Hq, dhv)
             out = kfa.flash_attention(q, k, v, causal, window, scale)
-            got = kfa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale)
             want = plain_flash_attention_bwd(q, k, v, out, dout, causal, window, scale)
-            torch.cuda.synchronize()
-            worst, scale_g = [], bwd_scale(want)
-            for name, a, b in zip(("dq", "dk", "dv"), got, want):
-                check(a.shape == b.shape and a.dtype == dt,
-                      f"flash_attention_bwd {name} shape/dtype: {label}")
-                check(bool(torch.isfinite(a).all()), f"flash_attention_bwd non-finite {name}: "
-                                                     f"{label}")
-                err, excess = bwd_excess(a, b, dt, scale_g)
-                worst.append((name, err, excess))
-                check(excess <= 0.0, f"flash_attention_bwd {name} outside BWD_TOL ({excess:.3g} "
-                                     f"over): {label} {dt}")
-                errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
-            print(f"  flash_attention_bwd {label} {str(dt)[6:]}: max abs error "
-                  + ", ".join(f"{n} {e:.3g} (excess {x:.2g})" for n, e, x in worst))
+            if dt == bf16:
+                out2, lse = kfa.flash_attention(q, k, v, causal, window, scale, return_lse=True)
+                err = float((lse - plain_flash_lse(q, k, v, causal, window, scale)).abs().max())
+                lse_err = max(lse_err, err)
+                check(torch.equal(out2, out), f"the forward's output changed with lse: {label}")
+                check(err <= 1e-5, f"the forward's lse is {err:.3g} from the plain one: {label}")
+                got = kfa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale,
+                                              lse=lse)
+                again = kfa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale,
+                                                lse=lse)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"two tensor-core backward calls differ in bits: {label}")
+                held(label, "wgmma", got, want, dt)
+                del out2, lse, again
+            got = kfa.flash_attention_bwd_fma(q, k, v, out, dout, causal, window, scale)
+            held(label, "fma", got, want, dt)
             del q, k, v, dout, out, got, want
+    print(f"  the forward's lse against the plain log-sum-exp: largest difference "
+          f"{lse_err:.3g} (tolerance 1e-5)")
     # strided operands: q, k, v views into one packed projection, dout a transpose
     B, S, H, dh = 2, 300, 4, 64
-    packed = torch.randn((B, S, 3 * H * dh), generator=g, device=dev).view(B, S, 3, H, dh)
-    q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
-    dout = torch.randn((B, H, S, dh), generator=g, device=dev).transpose(1, 2)
-    out = kfa.flash_attention(q, k, v)
-    got = kfa.flash_attention_bwd(q, k, v, out, dout)
-    want = plain_flash_attention_bwd(q, k, v, out, dout)
-    check(all(bwd_excess(a, b, f32, bwd_scale(want))[1] <= 0.0 for a, b in zip(got, want)),
-          "flash_attention_bwd outside BWD_TOL on strided operands")
-    # the autograd Function on CUDA: one forward and one backward launch, no plain call
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    before = ops.launch_counts()
-    ops.flash_attention(*leaves).backward(dout)
-    after = ops.launch_counts()
-    check(after["flash_attention"] - before["flash_attention"] == 1
-          and after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1,
-          "the autograd Function did not launch the forward and backward kernels once each")
-    check(all(bwd_excess(leaf.grad, b, f32, bwd_scale(want))[1] <= 0.0
-              for leaf, b in zip(leaves, want)),
-          "autograd through ops.flash_attention on CUDA differs from the plain backward")
+    for dt in (f32, bf16):
+        packed = torch.randn((B, S, 3 * H * dh), generator=g, device=dev).to(dt)
+        packed = packed.view(B, S, 3, H, dh)
+        q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+        dout = torch.randn((B, H, S, dh), generator=g, device=dev).to(dt).transpose(1, 2)
+        out, lse = (kfa.flash_attention(q, k, v, return_lse=True) if dt == bf16
+                    else (kfa.flash_attention(q, k, v), None))
+        got = kfa.flash_attention_bwd(q, k, v, out, dout, lse=lse)
+        want = plain_flash_attention_bwd(q, k, v, out, dout)
+        check(all(bwd_excess(a, b, dt, bwd_scale(want))[1] <= 0.0 for a, b in zip(got, want)),
+              f"flash_attention_bwd outside BWD_TOL on strided operands ({dt})")
+        # the autograd Function on CUDA: one forward and one backward launch, no plain call
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = ops.launch_counts()
+        ops.flash_attention(*leaves).backward(dout)
+        after = ops.launch_counts()
+        check(after["flash_attention"] - before["flash_attention"] == 1
+              and after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1,
+              "the autograd Function did not launch the forward and backward kernels once each")
+        check(all(bwd_excess(leaf.grad, b, dt, bwd_scale(want))[1] <= 0.0
+                  for leaf, b in zip(leaves, want)),
+              f"autograd through ops.flash_attention on CUDA differs from the plain backward "
+              f"({dt})")
+        del packed, q, k, v, dout, out, lse, got, want, leaves
     print("  flash_attention_bwd: strided operands within BWD_TOL; autograd through "
-          "ops.flash_attention on CUDA launched 1 forward + 1 backward kernel")
-    del packed, q, k, v, dout, out, got, want, leaves
+          "ops.flash_attention on CUDA launched 1 forward + 1 backward kernel (fp32, bf16)")
 
     shapes = []
+    tc_parts = {"preprocess_kernel": 1, "dq_wgmma_kernel": 1, "dkdv_wgmma_kernel": 1}
     for label, B, S, Hq, Hkv, dh, dhv, window, scale in BWD_MODEL_SHAPES:
         q = torch.randn((B, S, Hq, dh), generator=g, device=dev).to(bf16)
         k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf16)
         v = torch.randn((B, S, Hkv, dhv), generator=g, device=dev).to(bf16)
         dout = torch.randn((B, S, Hq, dhv), generator=g, device=dev).to(bf16)
-        out = kfa.flash_attention(q, k, v, True, window, scale)
+        out, lse = kfa.flash_attention(q, k, v, True, window, scale, return_lse=True)
 
         def kern():
-            return kfa.flash_attention_bwd(q, k, v, out, dout, True, window, scale)
-        parts = device_ms_by_kernel(kern, reps=3, match="flash_bwd_",
-                                    launches={"dq_kernel": 1, "dkdv_kernel": 1})
+            return kfa.flash_attention_bwd(q, k, v, out, dout, True, window, scale, lse=lse)
+
+        def unsplit():
+            return kfa.flash_attention_bwd_unsplit(q, k, v, out, dout, True, window, scale,
+                                                   lse=lse)
+
+        def fma():
+            return kfa.flash_attention_bwd_fma(q, k, v, out, dout, True, window, scale)
+        parts = device_ms_by_kernel(kern, reps=5, match="flash_bwd_", launches=tc_parts)
         k_ms = sum(parts.values())
+        u_ms = sum(device_ms_by_kernel(unsplit, reps=5, match="flash_bwd_",
+                                       launches=tc_parts).values())
+        y_ms = sum(device_ms_by_kernel(fma, reps=2, match="flash_bwd_",
+                                       launches={"dq_kernel": 1, "dkdv_kernel": 1}).values())
         p_ms = device_ms(lambda: plain_flash_attention_bwd(q, k, v, out, dout, True, window,
                                                            scale), reps=1)
         l_ms, l_note = _sdpa_bwd_ms(q, k, v, dout, window, scale)
@@ -1437,17 +1511,18 @@ def check_flash_attention_bwd(errs: dict) -> dict:
         flops = _attention_flops(B, S, Hq, 3 * dh, window, dhv=2 * dhv)
         b_ms, b_by = bound(_bwd_bytes(B, S, Hq, Hkv, dh, dhv, 2), flops, BF16_FLOP_PER_S)
         print(f"  flash_attention_bwd {label} B={B} S={S} {Hq}/{Hkv} dh={dh} dhv={dhv} bf16 "
-              f"causal{'' if window is None else f' window {window}'}: kernel {k_ms:.3f} ms "
-              f"on the device ({', '.join(f'{n} {m:.3f}' for n, m in parts.items())}; "
-              f"{flops / k_ms / 1e9:.1f} TFLOP/s of the five products), plain {p_ms:.2f} ms "
-              f"(one batch row at a time), SDPA backward "
-              f"{'not timed' if l_ms is None else f'{l_ms:.3f} ms'} ({l_note}), bound "
+              f"causal{'' if window is None else f' window {window}'}: tensor-core route "
+              f"{k_ms:.4f} ms on the device ({', '.join(f'{n} {m:.4f}' for n, m in parts.items())}; "
+              f"{flops / k_ms / 1e9:.1f} TFLOP/s of the five products); P and dS bf16 alone "
+              f"{u_ms:.4f} ms; the FMA pair {y_ms:.3f} ms; plain {p_ms:.2f} ms (one batch "
+              f"row at a time), SDPA backward "
+              f"{'not timed' if l_ms is None else f'{l_ms:.4f} ms'} ({l_note}), bound "
               f"{b_ms:.4f} ms ({b_by}: {flops:.4e} flops)")
         shapes.append(dict(shape=f"{label}, B={B} x S={S}, {Hq}/{Hkv}, dh={dh}, dhv={dhv}, "
                                  f"bf16, causal" + ("" if window is None else f", window {window}"),
-                           ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                           bound_by=b_by))
-        del q, k, v, dout, out
+                           ms=k_ms, parts=parts, unsplit_ms=u_ms, yardstick_ms=y_ms,
+                           plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, dout, out, lse
     first = shapes[0]
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1457,8 +1532,10 @@ def check_flash_attention_bwd(errs: dict) -> dict:
                 launches=None, max_abs_err=errs["flash_attention_bwd"], ms=first["ms"],
                 plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
                 bound_by=first["bound_by"], library_ms=first["library_ms"],
-                kernel="flash_bwd_dq_kernel + flash_bwd_dkdv_kernel", yardstick=None,
-                shapes=shapes[1:])
+                kernel="flash_bwd_preprocess_kernel + flash_bwd_dq_wgmma_kernel + "
+                       "flash_bwd_dkdv_wgmma_kernel",
+                yardstick="flash_bwd_dq_kernel + flash_bwd_dkdv_kernel (fp32 FMA)",
+                yardstick_ms=first["yardstick_ms"], shapes=shapes[1:])
 
 
 class _PlainFlash(torch.autograd.Function):
@@ -3151,9 +3228,14 @@ def train_step_profile(step_fn, flag, label: str) -> None:
     print(f"  {label} under the profiler: {wall_us / 1e3:.1f} ms wall, {dev_us / 1e3:.1f} ms on "
           f"the device ({dev_us / wall_us:.1%} busy, {1 - dev_us / wall_us:.1%} idle), "
           f"{sum(e.count for e in on_card)} device ops")
-    for name, us in (("forward", by["train: forward"]), ("recompute", by["train: recompute"]),
-                     ("backward (the rest)", backward), ("  of it flash backward", flash_bwd),
-                     ("optimizer", by["train: optimizer"]),
+    split = [("forward", by["train: forward"]), ("recompute", by["train: recompute"]),
+             ("backward (the rest)", backward), ("optimizer", by["train: optimizer"])]
+    if backward < 0:
+        # the profiler has billed a label more device time than the step had
+        print(f"    the labels' split is not measured: their device times "
+              f"{ {n: round(us / 1e3, 1) for n, us in split} } ms overlap")
+        split = []
+    for name, us in (*split, ("flash backward", flash_bwd),
                      ("flash forward (forward + recompute)", flash_fwd)):
         print(f"    {name:38s} {us / 1e3:9.1f} ms ({us / dev_us:.1%})")
     for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:6]:
@@ -3243,6 +3325,9 @@ def lm_training() -> dict[str, int]:
               f"{peak:.2f} GiB; flash launches a step: forward "
               f"{launches['flash_attention'] / PHASE13_STEPS:g}, backward "
               f"{launches['flash_attention_bwd'] / PHASE13_STEPS:g}")
+        print(f"    ms a step: {[round(1e3 * x, 1) for x in secs]}; right after the last: "
+              f"{nvidia_smi_line('clocks.sm,clocks.max.sm,power.draw,temperature.gpu')} "
+              f"(SM clock, its max, power draw, temperature)")
         check(all(np.isfinite(losses)), "TinyLlama training: a non-finite loss")
         check(losses[-1] < losses[0], "TinyLlama training: the loss did not fall")
         check(launches["flash_attention_bwd"] == cfg.n_layers * PHASE13_STEPS
@@ -3363,7 +3448,14 @@ def lm_training() -> dict[str, int]:
     check(dl["flash_attention_bwd"] == 3 * PHASE13_DEEPSEEK_STEPS,
           "DeepSeek training did not run the backward kernel in its 2 MLA layers and the MTP "
           "block each step")
-    del dmodel, dnamed, dstate
+    dlabelled, dflag = labelled_train_step(dupdate)
+    dprobe = {"state": dstate}
+    db = lm_batch_for_step(0, PHASE13_DEEPSEEK_STEPS, rows, S, dcfg.vocab, dev)
+
+    def d_one_step():
+        dprobe["state"] = dlabelled(dmodel, dprobe["state"], db)[1]
+    train_step_profile(d_one_step, dflag, "(d) one DeepSeek-V3 training step")
+    del dmodel, dnamed, dstate, dprobe, db
     torch.cuda.empty_cache()
 
     # (e)
@@ -3699,7 +3791,7 @@ def lm_arch_serving(arch_id: str, batch: int, depth: int | None, d_layers: int,
     def decode():
         tf.decode_step(model, tok, torch.full((B,), next(step), dtype=torch.int32,
                                               device=dev), caches)
-    stage_profile(decode, f"decode step, batch {B}, caches of {S}", calls=8)
+    stage_profile(decode, f"decode step, batch {B}, caches of {S}", calls=2)
     print(f"  [(c), decode profile] {time.perf_counter() - t0:.1f} s")
     del caches, prompts
     if depth is not None:   # the full config does not fit the card: serve the cut model
@@ -4359,8 +4451,9 @@ def mutable_checkpoint(run, midx, spec9, cres, dev) -> None:
 
 
 def incremental_construct(dev, launches9: dict) -> None:
-    """(f): the incremental construct on the smoke world: exact mode
-    bit-identical to ``construct="exact"``; beam mode (insert_ef=64, GD
+    """(f): the incremental construct on the smoke world: exact mode on
+    its first PHASE9_EXACT_POINTS points bit-identical to
+    ``construct="exact"``; beam mode (insert_ef=64, GD
     inline) through ``serve.build_searcher`` on the first
     PHASE9_BEAM_POINTS points against NN-Descent + GD over the same points."""
     from repro_torch.core.bruteforce import ground_truth
@@ -4369,7 +4462,8 @@ def incremental_construct(dev, launches9: dict) -> None:
     from repro_torch.launch import serve
 
     n, d = serve.SMOKE_WORLD
-    base = torch.from_numpy(serve.numpy_world(n, d, 0)).to(dev)
+    base = torch.from_numpy(serve.numpy_world(n, d, 0)[:PHASE9_EXACT_POINTS]).to(dev)
+    n = base.shape[0]
     kw = dict(diversify="none", graph_k=20)
     inc, inc_s = event_s(lambda: counted(launches9, lambda: build_index(
         base, BuildSpec(construct="incremental", insert_ef=0, **kw), seed=0)))
@@ -4625,9 +4719,10 @@ def sweep(run, spec, pool, gt, launches10: dict) -> dict:
 
 
 def scorer_parity(run, spec, pool, launches10: dict) -> None:
-    """(c): closed loops of 32 requests under pq (device and host) and sq8
-    (device), and one where every third request carries the tenant=3
-    filter: every request bit-identical to its direct search."""
+    """(c): closed loops of PHASE10_PARITY_REQUESTS requests under pq
+    (device and host) and sq8 (device), and one where every third request
+    carries the tenant=3 filter: every request bit-identical to its direct
+    search."""
     from repro_torch.core.filters import FilterSpec
     from repro_torch.launch import loadgen
     from repro_torch.launch.server import AnnServer
@@ -4671,9 +4766,10 @@ def scorer_parity(run, spec, pool, launches10: dict) -> None:
 
 def serve_mutate(run, spec, pool, launches10: dict) -> dict:
     """(d): a MutableIndex over phase 4's graph (the first insert doubles
-    the capacity to 2M), a snapshot Searcher serving a first stream, 500
-    inserts (insert_ef=32, GD inline) and 250 deletes, a hot swap with
-    requests queued at the flip, a second stream of 120 requests."""
+    the capacity to 2M), a snapshot Searcher serving a first stream,
+    PHASE10_INSERTS inserts (insert_ef=32, GD inline) and PHASE10_DELETES
+    deletes, a hot swap with requests queued at the flip, a second stream
+    of PHASE10_POST_SWAP_REQUESTS requests."""
     from repro_torch.core.mutable import MutableIndex
     from repro_torch.launch import loadgen
     from repro_torch.launch.server import AnnServer, prepared_state
@@ -4695,7 +4791,8 @@ def serve_mutate(run, spec, pool, launches10: dict) -> dict:
           f"a clone of each mirror (the copy a write to a shared mirror makes; CUDA events): "
           + ", ".join(f"{k} {clone_ms[k]:.3f} ms / {clone_bytes[k]:,} bytes" for k in clone_ms))
 
-    reqs_a = loadgen.make_requests(pool, 40, loadgen.REQUEST_SIZES, 4, base_seed=41)
+    reqs_a = loadgen.make_requests(pool, PHASE10_PRE_SWAP_REQUESTS, loadgen.REQUEST_SIZES, 4,
+                                   base_seed=41)
     reqs_q = loadgen.make_requests(pool, PHASE10_QUEUED_AT_FLIP, loadgen.REQUEST_SIZES, 5,
                                    base_seed=42)
     reqs_b = loadgen.make_requests(pool, PHASE10_POST_SWAP_REQUESTS, loadgen.REQUEST_SIZES, 6,

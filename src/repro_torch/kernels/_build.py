@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("gather_distance", "gather_distance_pool", "distance_matrix",
-           "gather_sq8", "gather_adc", "pq_adc", "flash_attention", "flash_attention_bwd")
+           "gather_sq8", "gather_adc", "pq_adc", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_unsplit")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 # nvcc's stderr per source (ptxas register / shared-memory / spill report)

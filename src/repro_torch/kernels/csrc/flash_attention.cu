@@ -53,7 +53,10 @@
 //                 slower, so two it is. V is B, MN-major, in its natural
 //                 (keys, dhv) layout; no transpose.
 // The consumers release a stage (one mbarrier arrival per warp) once both
-// products have read it. The kernel is bound by the softmax's instructions
+// products have read it. Where the caller passes an lse buffer (training:
+// the backward reads it), the epilogue also writes each row's log-sum-exp
+// in the softmax's log2 unit, m + log2(l) (+inf for a row that saw no key);
+// with a null pointer (inference) it stores nothing more. The kernel is bound by the softmax's instructions
 // (ex2 and the split of P), not by the tensor cores: the products of one
 // warpgroup overlap the other's softmax (with one consumer, at dhv > 128,
 // nothing overlaps them). Registers are the limit on doing more: a software
@@ -88,11 +91,12 @@
 // 213,760 bytes (Q and K at 257 floats a row, V, P), under the 232,448 a
 // block may opt in to.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -304,9 +308,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 namespace {
 namespace wg {
 
+using namespace repro_kernels::hopper;
+
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr int kSwizzleBytes = 128;   // one TMA box row: 64 bf16
 constexpr float kNeg = -1e30f;
 
 // A block's shape and its shared-memory layout, in bytes from a 1024-aligned
@@ -333,286 +338,6 @@ struct Smem {
   static constexpr int kAlloc = kBar + (2 * kStages + 1) * 8 + 1024;
   static_assert(kAlloc <= 227 * 1024, "a block's shared memory is past 227 KiB");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of parity ``parity`` has completed. Traps after ~10 s
-// (a lost arrival is a fault; trapping ends the launch with an error
-// instead of hanging the card).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  uint64_t t0 = 0;
-  for (uint32_t spin = 0;; ++spin) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if ((spin & 1023u) == 0) {
-      const uint64_t now = global_ns();
-      if (spin == 0) t0 = now;
-      else if (now - t0 > 10000000000ull) __trap();
-    }
-  }
-}
-
-// One box of a 4-d tensor map, coordinates (d, h, s, b), into shared memory;
-// completion is counted on ``bar`` in bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, int c3, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-         "r"(bar)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (each >> 4), layout type 1 (128B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that an in-flight wgmma reads or writes to this point of the
-// program, so the compiler moves no access to them across a fence or wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-#define ACC8(i)                                                                  \
-  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),           \
-      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-#define OUT8(i)                                                                  \
-  "=f"(d[(i)]), "=f"(d[(i) + 1]), "=f"(d[(i) + 2]), "=f"(d[(i) + 3]),           \
-      "=f"(d[(i) + 4]), "=f"(d[(i) + 5]), "=f"(d[(i) + 6]), "=f"(d[(i) + 7])
-
-// d (64 x 128, fp32) = a (64 x 16) . b (16 x 128) when ``first`` (d is only
-// written), else d += a . b; a and b bf16 in shared memory, both K-major.
-template <bool first>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
-  if constexpr (first) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : OUT8(0),
-          OUT8(8),
-          OUT8(16),
-          OUT8(24),
-          OUT8(32),
-          OUT8(40),
-          OUT8(48),
-          OUT8(56)
-        : "l"(da), "l"(db), "r"(0));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0),
-          ACC8(8),
-          ACC8(16),
-          ACC8(24),
-          ACC8(32),
-          ACC8(40),
-          ACC8(48),
-          ACC8(56)
-        : "l"(da), "l"(db), "r"(1));
-  }
-}
-
-// d (64 x 64, fp32) = a (64 x 16) . b (16 x 64) when ``first``, else d += a .
-// b; a and b bf16 in shared memory, both K-major (the 64-key score tile).
-template <bool first>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
-  if constexpr (first) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : OUT8(0),
-          OUT8(8),
-          OUT8(16),
-          OUT8(24)
-        : "l"(da), "l"(db), "r"(0));
-  } else {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : ACC8(0),
-          ACC8(8),
-          ACC8(16),
-          ACC8(24)
-        : "l"(da), "l"(db), "r"(1));
-  }
-}
-
-// d (64 x 64, fp32) += a (64 x 16, bf16 fragments in registers) . b (16 x 64,
-// bf16 in shared memory, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC8(0),
-        ACC8(8),
-        ACC8(16),
-        ACC8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += a (64 x 16, bf16 fragments in registers) . b (16 x 128,
-// bf16 in shared memory, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : ACC8(0),
-        ACC8(8),
-        ACC8(16),
-        ACC8(24),
-        ACC8(32),
-        ACC8(40),
-        ACC8(48),
-        ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 256, fp32) += a (64 x 16, bf16 fragments in registers) . b (16 x 256,
-// bf16 in shared memory, MN-major): O at dhv = 256, 128 registers a thread.
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : ACC8(0),
-        ACC8(8),
-        ACC8(16),
-        ACC8(24),
-        ACC8(32),
-        ACC8(40),
-        ACC8(48),
-        ACC8(56),
-        ACC8(64),
-        ACC8(72),
-        ACC8(80),
-        ACC8(88),
-        ACC8(96),
-        ACC8(104),
-        ACC8(112),
-        ACC8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef ACC8
-#undef OUT8
-
-template <int DV>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  static_assert(DV == 64 || DV == 128 || DV == 256, "DV is 64, 128 or 256");
-  if constexpr (DV == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (DV == 128) wgmma_rs_n128(o, a, db);
-  else wgmma_rs_n256(o, a, db);
-}
-
-// S (64 x BN) = Q . K^T, one k16 step kk of DH / 16.
-template <int BN>
-__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t dq, uint64_t dk,
-                                         bool first) {
-  static_assert(BN == 64 || BN == 128, "BN is 64 or 128");
-  if constexpr (BN == 64) {
-    if (first) wgmma_ss_n64<true>(s, dq, dk);
-    else wgmma_ss_n64<false>(s, dq, dk);
-  } else {
-    if (first) wgmma_ss_n128<true>(s, dq, dk);
-    else wgmma_ss_n128<false>(s, dq, dk);
-  }
-}
 
 // The online softmax over one tile of scores s: this thread holds rows r =
 // 0, 1 (row_q0, row_q0 + 8) at columns col0 + 8 (i / 4) + (i % 2) of the
@@ -665,8 +390,9 @@ __global__ void __launch_bounds__(Smem<DH, DV>::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
-                             __nv_bfloat16* __restrict__ o, int S, int Hq, int Hkv, int dhv,
-                             float scale_log2, int causal, int window) {
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S,
+                             int Hq, int Hkv, int dhv, float scale_log2, int causal,
+                             int window) {
   using L = Smem<DH, DV>;
   constexpr int kStages = L::kStages;
   constexpr int kBN = L::kBN, kBM = L::kBM;
@@ -766,7 +492,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const uint32_t koff = (kk >> 2) * kBN * kSwizzleBytes + (kk & 3) * 32;
           const uint64_t dq = smem_desc(q_rows + off, 16, 1024);
           const uint64_t dk = smem_desc(k_rows + koff, 16, 1024);
-          wgmma_qk<kBN>(s, dq, dk, kk == 0);
+          wgmma_ss<kBN>(s, dq, dk, kk == 0);
         }
         wgmma_commit();
         wgmma_wait_all();
@@ -836,6 +562,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       lt += __shfl_xor_sync(0xffffffffu, lt, 2);
       const int qp = row_q0 + 8 * r;
       if (qp >= S) continue;
+      // the row's log-sum-exp in the log2 domain (m + log2 l); +inf for a
+      // row that saw no key, so the backward's ex2(x - lse) gives it P = 0
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[static_cast<int64_t>(bh) * S + qp] = lt > 0.f ? m[r] + log2f(lt) : INFINITY;
       const float denom = fmaxf(lt, 1e-30f);
       __nv_bfloat16* orow = o + (static_cast<int64_t>(b) * S + qp) * Hq * dhv +
                             static_cast<int64_t>(h) * dhv;
@@ -854,54 +584,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (d, H, S, B) map over a bf16 tensor with element strides (sh, ss, sb),
-// boxes of 64 x 1 x rows x 1, 128-byte swizzle, zero fill out of bounds.
-bool encode(CUtensorMap* map, const void* ptr, int d, int H, int S, int B, int64_t sh,
-            int64_t ss, int64_t sb, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Encodes the maps (K and V boxes of the instantiation's kBN rows) and
 // launches; a layout TMA refuses returns cudaErrorInvalidValue.
 template <int DH, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Hq,
-           int Hkv, int dh, int dhv, const int64_t (&ls)[9], float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int Hq, int Hkv, int dh, int dhv, const int64_t (&ls)[9], float scale, int causal,
            int window, cudaStream_t stream) {
   using L = Smem<DH, DV>;
   constexpr int smem = L::kAlloc, bn = L::kBN, bm = L::kBM;
@@ -915,7 +602,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(B * Hq), static_cast<unsigned>((S + bm - 1) / bm));
   flash_attention_wgmma_kernel<DH, DV><<<grid, L::kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, Hq, Hkv, dhv,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, S, Hq, Hkv, dhv,
       scale * 1.4426950408889634f, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -926,17 +613,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 // q, k, v: element strides (b, s, h) each, head dimension contiguous; o
 // (B, S, Hq, dhv) contiguous. dtype 0 = fp32 (the FMA kernel), 1 = bf16 (the
 // wgmma kernel; base 16-byte aligned, strides multiples of 8 elements).
-// window <= 0: no window. Returns the first CUDA error of the launch (0 on
-// success); an unsupported shape, or a layout TMA refuses, returns
-// cudaErrorInvalidValue.
+// lse: null, or (B * Hq, S) fp32 that the bf16 kernel fills with each row's
+// log-sum-exp of its visible scores times scale * log2(e) (the backward's
+// unit); the fp32 kernel takes null only. window <= 0: no window. Returns the
+// first CUDA error of the launch (0 on success); an unsupported shape, or a
+// layout TMA refuses, returns cudaErrorInvalidValue.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B, int S,
+    const void* q, const void* k, const void* v, void* o, float* lse, int dtype, int B, int S,
     int Hq, int Hkv, int dh, int dhv, int64_t qsb, int64_t qss, int64_t qsh,
     int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
     float scale, int causal, int window, void* stream) {
   if (B <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
   if (dh < 1 || dh > kMaxHeadDim || dhv < 1 || dhv > kMaxHeadDim || Hkv < 1 ||
-      Hq % Hkv != 0 || (dtype != 0 && dtype != 1))
+      Hq % Hkv != 0 || (dtype != 0 && dtype != 1) || (dtype == 0 && lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -950,13 +639,13 @@ extern "C" int flash_attention_fwd(
   // the smallest instantiation that holds dh and dhv
   const int64_t ls[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   if (dh > 192 || dhv > 128)
-    return wg::launch<256, 256>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
+    return wg::launch<256, 256>(q, k, v, o, lse, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
   if (dh > 128)
-    return wg::launch<192, 128>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
+    return wg::launch<192, 128>(q, k, v, o, lse, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
   const bool wide_k = dh > 64, wide_v = dhv > 64;
   if (wide_k)
-    return wide_v ? wg::launch<128, 128>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s)
-                  : wg::launch<128, 64>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
-  return wide_v ? wg::launch<64, 128>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s)
-                : wg::launch<64, 64>(q, k, v, o, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
+    return wide_v ? wg::launch<128, 128>(q, k, v, o, lse, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s)
+                  : wg::launch<128, 64>(q, k, v, o, lse, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
+  return wide_v ? wg::launch<64, 128>(q, k, v, o, lse, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s)
+                : wg::launch<64, 64>(q, k, v, o, lse, B, S, Hq, Hkv, dh, dhv, ls, scale, causal, window, s);
 }

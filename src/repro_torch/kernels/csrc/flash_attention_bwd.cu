@@ -6,53 +6,98 @@
 // (src/repro/kernels/flash_attention.py) has no VJP, and the reference trains
 // through its plain chunked attention, whose gradient JAX's autodiff takes.
 // On the card the port's attention forward is csrc/flash_attention.cu, so the
-// gradient of that same function is this kernel, behind the autograd Function
+// gradient of that same function is this file, behind the autograd Function
 // of kernels/ops.py. Inputs q (B, S, Hq, dh), k (B, S, Hkv, dh), v (B, S, Hkv,
 // dhv), the forward's output o (B, S, Hq, dhv) and its cotangent do, read
 // through (b, s, h) element strides with the last dimension contiguous;
 // outputs dq, dk, dv contiguous in the inputs' shapes and dtype. Query head h
-// reads KV head h / (Hq / Hkv). fp32 or bf16; dh, dhv <= 256.
+// reads KV head h / (Hq / Hkv). dh, dhv <= 256. With P = softmax(scale q.k)
+// under the mask, the gradient is dP = do.v, D = rowsum(do * o), dS = P (dP
+// - D), dq = scale dS k, dk = scale dS^T q, dv = P^T do: five products over
+// the visible (query, key) pairs. What bounds it: operations (at TinyLlama's
+// layer, B = 8, S = 2048, 32/4, dh 64: 3.4e11 flops, 0.35 ms at the bf16
+// tensor-core peak, against 0.05 ms of bytes). Two routes, by dtype; neither
+// is atomic: every output element is summed by one block in a fixed order,
+// so two runs give the same bits (a restart from a checkpoint is bit for
+// bit). Tiles the mask cannot reach are skipped; masked pairs get P = 0, so a
+// row that sees no key gets dq = 0 and adds nothing to dk and dv.
 //
-// The FlashAttention-2 backward with fp32 accumulation, in two kernels on one
-// stream:
+// bf16: the tensor-core route, three kernels on one stream, seven wgmma
+// products where the gradient needs five (S and dP are formed twice, once in
+// each of the two output kernels), hand-written PTX (wgmma.cuh) as in the
+// forward:
+//   flash_bwd_preprocess_kernel  D = rowsum(do * o), and the forward's
+//                          log-sum-exp (which the forward saves, in its log2
+//                          unit, so no product recomputes it), into fp32 rows
+//                          padded to 128 (D 0, lse +inf past S). Bytes-bound.
+//   flash_bwd_dq_wgmma_kernel  one block per (b * Hq + h, query tile), tiles
+//                          last-first; a consumer warpgroup a 64-row slice
+//                          (two a block up to dh 192 / dhv 128, one at 256 /
+//                          256). Per visible 64-key tile: S = Q K^T and dP =
+//                          dO V^T (SS, both operands K-major), P = ex2(S c -
+//                          lse) with c = scale log2(e), dS = P (dP - D), dQ +=
+//                          dS K (RS, K MN-major). 3 products.
+//   flash_bwd_dkdv_wgmma_kernel  one block per (b * Hkv + hk, 64-key tile),
+//                          key tiles first-first (the first keys see the most
+//                          queries); it walks the G query heads of hk and
+//                          their visible query steps (64 queries, 128 at head
+//                          dims in (64, 128]) in a fixed order. The tile is
+//                          transposed (keys as rows), so every operand stays
+//                          in its natural layout. Warpgroup 0: S^T = K Q^T
+//                          (SS), P^T, dV += P^T dO (RS, dO MN-major).
+//                          Warpgroup 1: dP^T = V dO^T (SS), dS^T = P^T (dP^T
+//                          - D), dK += dS^T Q (RS, Q MN-major). 4 products.
+// Registers are the limit past head dim 128: at dh = dhv = 256 the dK and dV
+// accumulators are 128 fp32 registers a thread each. So the two warpgroups of
+// a dk / dv block share one key tile and own one accumulator each, and P^T
+// crosses from warpgroup 0 to 1 through 16-32 KiB of shared memory (fp32,
+// thread-major, so each thread reads back its own fragment), ordered by two
+// named barriers (P^T written; P^T read). Neither kernel has a producer
+// warpgroup: one consumer thread keeps a two-stage TMA ring (128-byte
+// swizzle, mbarriers) full, so a 256-thread block keeps up to 255 registers
+// a thread (a 384-thread block is held to 168). TMA's zero fill pads head
+// dims to the instantiation's (64, 128, 192, 256, as the forward's) and the
+// ragged S tail; the lse and D of a query step come by bulk copy. Phase 1
+// of chip_smoke.py prints each instantiation's registers and spills.
+// Precision: P and dS enter their products (dV, dK, dQ) as bf16 hi +
+// bf16 lo, which keeps them to ~2^-17 (the forward's split of P). Rounded to
+// bf16 alone, dk and dv left chip_smoke.py's BWD_TOL at several shapes (dq
+// stayed within it, by a thin margin); the split gives those three products
+// twice the tensor work (phase 2 of chip_smoke.py times the route without
+// it: flash_attention_bwd_unsplit).
+//
+// fp32 (and the bf16 route's yardstick): the first backward, FlashAttention-2
+// with fp32 accumulation on the CUDA cores' FMA, two kernels on one stream:
 //   flash_bwd_dq_kernel    one block per (b * Hq + h, 64-row query tile).
 //                          Pass 1 recomputes the row's log-sum-exp over the
-//                          key tiles the mask reaches (the forward kernel is
-//                          not touched, so it does not save it) and D =
-//                          rowsum(do * o); both go to global scratch. Pass 2
-//                          walks the same key tiles: P = exp(scale q.k - lse),
-//                          dP = do.v, dS = P (dP - D), dq += dS k; dq is
-//                          written times scale.
+//                          key tiles the mask reaches and D = rowsum(do * o);
+//                          both go to global scratch. Pass 2 walks the same
+//                          key tiles: P = exp(scale q.k - lse), dP = do.v, dS
+//                          = P (dP - D), dq += dS k; dq is written times
+//                          scale.
 //   flash_bwd_dkdv_kernel  one block per (b * Hkv + hk, BK-row key tile). It
 //                          loops over the G query heads that read KV head hk
 //                          and, for each, the query tiles the mask reaches,
 //                          with that tile's lse and D from the first kernel:
 //                          dv += P^T do, dk += dS^T q; dk times scale.
-// Every output element is summed by one block in a fixed order, and nothing
-// is atomic, so two runs give the same bits. Tiles the mask cannot reach are
-// skipped on both sides (causal: keys after the tile's last query; window:
-// keys at or before q - window), as in the forward. Masked pairs get P = 0,
-// so a row that sees no key gets dq = 0 and adds nothing to dk and dv (the
-// forward's rule: that row's output is 0).
-//
-// What bounds it: operations. The gradient is five products over the visible
-// (query, key) pairs (q.k, do.v, dS k, dS^T q, P^T do); this design runs
-// eight (q.k three times, do.v twice). It is a simple kernel on the CUDA
-// cores' fp32 FMA, for both dtypes: bf16 operands are widened into fp32
-// shared memory. Thread (tr, tc) = (t / 16, t % 16) of 256 owns score rows
-// tr + 16 i and columns tc + 16 j, and output columns tc + 16 e: the 16
-// threads of a row are one half-warp, so a row's max and sums are shuffles.
-// Rows in shared memory are padded to d + 1 floats, so a half-warp reading
-// 16 rows at one column hits 16 banks. The key tile BK is 64 where dh and
-// dhv are at most 128, else 32, so that the largest block (dh = dhv = 256:
-// K, V, Q, do, P and dS tiles) takes 214,784 bytes of the 232,448 a block
-// may opt in to, and the dk / dv accumulators (2 x 16 fp32 each a thread)
-// stay in registers. The tensor cores (wgmma) are left for a later redesign.
+// It runs eight products (q.k three times, do.v twice), bf16 operands
+// widened into fp32 shared memory. Thread (tr, tc) = (t / 16, t % 16) of 256
+// owns score rows tr + 16 i and columns tc + 16 j, and output columns tc +
+// 16 e: the 16 threads of a row are one half-warp, so a row's max and sums
+// are shuffles. Rows in shared memory are padded to d + 1 floats, so a
+// half-warp reading 16 rows at one column hits 16 banks. The key tile BK is
+// 64 where dh and dhv are at most 128, else 32, so that the largest block
+// (dh = dhv = 256: K, V, Q, do, P and dS tiles) takes 214,784 bytes of the
+// 232,448 a block may opt in to, and the dk / dv accumulators (2 x 16 fp32
+// each a thread) stay in registers. The tensor cores give no fp32 product
+// without TF32, which the port avoids.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_bwd_wgmma.cuh"
 
 namespace {
 
@@ -512,6 +557,7 @@ int dispatch(const Params& p, cudaStream_t s) {
 
 }  // namespace
 
+
 // dtype 0 = fp32, 1 = bf16. lse and delta are (B * Hq, S) fp32 scratch.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -538,4 +584,23 @@ extern "C" int flash_attention_bwd(
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? dispatch<float>(p, s) : dispatch<__nv_bfloat16>(p, s);
+}
+
+// bf16 on the tensor cores: lse is the forward's (B * Hq, S) log-sum-exp in
+// its log2 unit (flash_attention_fwd's), scratch 2 * B * Hq * Spad fp32 (Spad
+// = S rounded up to 128) for the padded lse and D. q, k, v and dout as TMA
+// reads them (base 16-byte aligned, strides multiples of 8 elements); o
+// through its strides; dq, dk, dv contiguous. Returns the first CUDA error
+// of the three launches (0 on success); an unsupported shape or a layout
+// TMA refuses returns cudaErrorInvalidValue.
+extern "C" int flash_attention_bwd_wgmma(
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    void* dq, void* dk, void* dv, const float* lse, float* scratch, int B, int S, int Hq,
+    int Hkv, int dh, int dhv, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+    int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
+    int64_t oss, int64_t osh, int64_t gsb, int64_t gss, int64_t gsh, float scale,
+    int causal, int window, void* stream) {
+  return repro_kernels::flash_bwd_tc::entry<true>(
+      q, k, v, o, dout, dq, dk, dv, lse, scratch, B, S, Hq, Hkv, dh, dhv, qsb, qss, qsh, ksb,
+      kss, ksh, vsb, vss, vsh, osb, oss, osh, gsb, gss, gsh, scale, causal, window, stream);
 }

@@ -92,37 +92,54 @@ def pq_adc(codes, luts):
     return _pa.pq_adc(codes, luts)
 
 
-def _flash_forward(q, k, v, causal, window, softmax_scale):
+def _flash_forward(q, k, v, causal, window, softmax_scale, return_lse=False):
     if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal, window, softmax_scale)
-    return _fa.flash_attention(q, k, v, causal, window, softmax_scale)
+        return ref.flash_attention_ref(q, k, v, causal, window, softmax_scale, return_lse)
+    return _fa.flash_attention(q, k, v, causal, window, softmax_scale, return_lse)
 
 
 def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
-                        window: int | None = None, softmax_scale: float | None = None):
+                        window: int | None = None, softmax_scale: float | None = None,
+                        lse=None):
     """The gradient of ``flash_attention`` at (q, k, v) given its output
-    ``out`` and cotangent ``dout`` -> (dq, dk, dv) in the inputs' dtypes."""
+    ``out``, its cotangent ``dout`` and, where the forward saved it, its
+    log-sum-exp ``lse`` (fp32 (B, Hq, S), log2 unit) -> (dq, dk, dv) in the
+    inputs' dtypes. The card's bf16 route needs ``lse``; the plain version
+    recomputes it where none is given."""
+    if lse is not None:
+        _fa.check_lse(lse, q)
     if _on_cpu(q):
         return ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window,
-                                           softmax_scale)
-    return _fa.flash_attention_bwd(q, k, v, out, dout, causal, window, softmax_scale)
+                                           softmax_scale, lse)
+    return _fa.flash_attention_bwd(q, k, v, out, dout, causal, window, softmax_scale, lse)
+
+
+def _saves_lse(q) -> bool:
+    """Whether the forward saves its log-sum-exp for the backward: on the
+    CPU's plain path and the card's bf16 route (the fp32 card route
+    recomputes it)."""
+    return q.device.type == "cpu" or q.dtype == torch.bfloat16
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward's one launch (or plain call), saving q, k, v and the
-    output; the backward is ``flash_attention_bwd`` on the same device."""
+    """The forward's one launch (or plain call), saving q, k, v, the output
+    and (:func:`_saves_lse`) the log-sum-exp; the backward is
+    ``flash_attention_bwd`` on the same device."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softmax_scale):
-        out = _flash_forward(q, k, v, causal, window, softmax_scale)
-        ctx.save_for_backward(q, k, v, out)
+        if _saves_lse(q):
+            out, lse = _flash_forward(q, k, v, causal, window, softmax_scale, True)
+        else:
+            out, lse = _flash_forward(q, k, v, causal, window, softmax_scale), None
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, softmax_scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.mask)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, *ctx.mask, lse)
         return dq, dk, dv, None, None, None
 
 

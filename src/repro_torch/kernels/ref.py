@@ -162,44 +162,65 @@ def pq_adc_ref(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+LOG2E = 1.4426950408889634
+
+
+def _attention_mask(S: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S, S) bool, query rows by key columns: keys at or before the query
+    (causal) and ``q_pos - k_pos < window``."""
+    pos = torch.arange(S, device=device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[:, None] - pos[None, :] < window
+    return mask
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
-                        softmax_scale: float | None = None) -> torch.Tensor:
+                        softmax_scale: float | None = None, return_lse: bool = False):
     """Dense GQA attention, the flash kernel's oracle: q (B, S, Hq, dh), k
     (B, S, Hkv, dh), v (B, S, Hkv, dhv) -> (B, S, Hq, dhv) in q's dtype.
     Query head h reads KV head h // (Hq // Hkv); scores ``(q * scale) . k``
     and the softmax in fp32; masked scores are -inf, and a row that sees no
-    key (softmax NaN) comes out 0. Builds the (S, S) scores of every head."""
+    key (softmax NaN) comes out 0. Builds the (S, S) scores of every head.
+    With ``return_lse`` -> (out, lse): lse fp32 (B, Hq, S), each row's
+    log-sum-exp of its visible scores in the kernel's log2 unit (log2 of
+    the sum of exp2(score * log2(e))), +inf for a row that sees no key (so
+    exp2(x - lse) gives it P = 0, as in the kernel)."""
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     scale = softmax_scale if softmax_scale is not None else dh ** -0.5
     qg = q.reshape(B, S, Hkv, G, dh).float() * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= pos[:, None] - pos[None, :] < window
-    s = s.masked_fill(~mask, float("-inf"))
+    s = s.masked_fill(~_attention_mask(S, causal, window, q.device), float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = p.masked_fill(torch.isnan(p), 0.0)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)
+    out = o.reshape(B, S, Hq, v.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1) * LOG2E                     # (B, Hkv, G, S)
+    lse = lse.masked_fill(torch.isneginf(lse), float("inf"))
+    return out, lse.reshape(B, Hq, S)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, dout: torch.Tensor, causal: bool = True,
                             window: int | None = None,
-                            softmax_scale: float | None = None):
+                            softmax_scale: float | None = None,
+                            lse: torch.Tensor | None = None):
     """The gradient of ``flash_attention_ref``, dense in fp32, the backward
-    kernel's oracle: (dq, dk, dv) in q's, k's and v's dtypes. P is the
-    forward's masked softmax; dP = dout . v; D = rowsum(dout * out) (the
-    forward's output, as the kernel reads it); dS = P (dP - D); dq = scale
-    dS k, dk = scale dS^T q, dv = P^T dout, summed over the G query heads of
-    each KV head. A row that sees no key has P = 0, so its dq is 0 and it
-    adds nothing to dk and dv, never NaN."""
+    kernels' oracle: (dq, dk, dv) in q's, k's and v's dtypes. P is the
+    forward's masked softmax: from the forward's ``lse`` (fp32 (B, Hq, S),
+    log2 unit) as the tensor-core kernels take it, P = exp2(score * log2(e)
+    - lse), or recomputed where none is given; dP = dout . v; D =
+    rowsum(dout * out) (the forward's output, as the kernels read it); dS =
+    P (dP - D); dq = scale dS k, dk = scale dS^T q, dv = P^T dout, summed
+    over the G query heads of each KV head. A row that sees no key has P =
+    0, so its dq is 0 and it adds nothing to dk and dv, never NaN."""
     B, S, Hq, dh = q.shape
     Hkv, dhv = k.shape[2], v.shape[-1]
     G = Hq // Hkv
@@ -207,14 +228,13 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, S, Hkv, G, dh).float()
     kf, vf = k.float(), v.float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg * scale, kf)
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= pos[:, None] - pos[None, :] < window
-    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
-    p = p.masked_fill(torch.isnan(p), 0.0)
+    mask = _attention_mask(S, causal, window, q.device)
+    if lse is None:
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        p = p.masked_fill(torch.isnan(p), 0.0)
+    else:
+        p = torch.exp2(s * LOG2E - lse.reshape(B, Hkv, G, S, 1))
+        p = p.masked_fill(~mask, 0.0)
     dog = dout.reshape(B, S, Hkv, G, dhv).float()
     delta = (dog * out.reshape(B, S, Hkv, G, dhv).float()).sum(-1)      # (B, S, Hkv, G)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)

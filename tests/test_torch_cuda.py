@@ -1200,30 +1200,132 @@ def test_cuda_one_rank_nccl_host_tiers_match_device_pq(nccl_shard_world):
 # (B, S, Hq, Hkv, dh, dhv, causal, window, scale)
 BWD_CASES = [(2, 100, 8, 2, 64, 64, True, None, None), (1, 77, 4, 4, 128, 128, True, 20, 0.2),
              (1, 65, 4, 2, 256, 256, True, None, None), (1, 70, 4, 4, 192, 128, True, None, None),
-             (2, 33, 8, 1, 16, 16, False, 5, None), (1, 1, 1, 1, 64, 64, True, None, None)]
+             (2, 33, 8, 1, 16, 16, False, 5, None), (1, 1, 1, 1, 64, 64, True, None, None),
+             (1, 90, 4, 2, 40, 36, True, None, None)]
+
+
+def _bwd_inputs(cuda, case, dtype):
+    B, S, Hq, Hkv, dh, dhv, causal, window, scale = case
+    g = torch.Generator(device=cuda).manual_seed(S + dh)
+    return tuple(torch.randn(shape, generator=g, device=cuda).to(dtype)
+                 for shape in ((B, S, Hq, dh), (B, S, Hkv, dh), (B, S, Hkv, dhv),
+                               (B, S, Hq, dhv)))
+
+
+def _assert_within_bwd_tol(got, want, dtype):
+    """|kernel - plain| <= rtol |plain| + atol m, m the largest max-abs of
+    the call's plain dq, dk and dv (chip_smoke.py's BWD_TOL)."""
+    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+    m = max(float(w.float().abs().max()) for w in want)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        excess = (a.float() - b.float()).abs() - rtol * b.float().abs() - atol * m
+        assert float(excess.max()) <= 0.0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c[:8])))
 def test_cuda_flash_attention_bwd_matches_plain(cuda, case, dtype):
-    """|kernel - plain| <= rtol |plain| + atol m, m the largest max-abs of
-    the call's plain dq, dk and dv (chip_smoke.py's BWD_TOL: both sum the
-    same fp32 terms in another order; bf16 also rounds the result)."""
-    B, S, Hq, Hkv, dh, dhv, causal, window, scale = case
-    rtol, atol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
-    g = torch.Generator(device=cuda).manual_seed(S + dh)
-    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
-                     for shape in ((B, S, Hq, dh), (B, S, Hkv, dh), (B, S, Hkv, dhv),
-                                   (B, S, Hq, dhv)))
-    out = cuda_fa.flash_attention(q, k, v, causal, window, scale)
-    got = cuda_fa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale)
+    """The backward's routes against the plain version within BWD_TOL: bf16
+    on the tensor cores from the forward's lse, fp32 on the FMA pair (both
+    sum the same terms in another order, the tensor-core route with P and
+    dS as bf16 hi + lo; bf16 also rounds the result)."""
+    _, _, _, _, _, _, causal, window, scale = case
+    q, k, v, dout = _bwd_inputs(cuda, case, dtype)
+    if dtype == torch.bfloat16:
+        out, lse = cuda_fa.flash_attention(q, k, v, causal, window, scale, return_lse=True)
+    else:
+        out, lse = cuda_fa.flash_attention(q, k, v, causal, window, scale), None
+    got = cuda_fa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale, lse=lse)
     want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window, scale)
-    m = max(float(w.float().abs().max()) for w in want)
-    for a, b in zip(got, want):
-        assert a.dtype == dtype and a.shape == b.shape
-        excess = (a.float() - b.float()).abs() - rtol * b.float().abs() - atol * m
-        assert float(excess.max()) <= 0.0
+    _assert_within_bwd_tol(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c[:8])))
+def test_cuda_flash_attention_bwd_fma_yardstick_matches_plain(cuda, case, dtype):
+    """The first backward's FMA pair (the fp32 route and the bf16 route's yardstick)
+    within BWD_TOL in both dtypes."""
+    _, _, _, _, _, _, causal, window, scale = case
+    q, k, v, dout = _bwd_inputs(cuda, case, dtype)
+    out = cuda_fa.flash_attention(q, k, v, causal, window, scale)
+    got = cuda_fa.flash_attention_bwd_fma(q, k, v, out, dout, causal, window, scale)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal, window, scale)
+    _assert_within_bwd_tol(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c[:8])))
+def test_cuda_flash_attention_bwd_tensor_core_route_is_deterministic(cuda, case):
+    """Two bf16 backward calls on the same inputs give the same bits (no
+    atomics: each output element is summed by one block in a fixed order)."""
+    _, _, _, _, _, _, causal, window, scale = case
+    q, k, v, dout = _bwd_inputs(cuda, case, torch.bfloat16)
+    out, lse = cuda_fa.flash_attention(q, k, v, causal, window, scale, return_lse=True)
+    first = cuda_fa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale, lse=lse)
+    again = cuda_fa.flash_attention_bwd(q, k, v, out, dout, causal, window, scale, lse=lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c[:8])))
+def test_cuda_flash_attention_lse_keeps_the_output_bits(cuda, case):
+    """The bf16 forward asked for its log-sum-exp gives the same output bits
+    as without, and an lse within 1e-5 of the plain one (log2 unit)."""
+    _, _, _, _, _, _, causal, window, scale = case
+    q, k, v, _ = _bwd_inputs(cuda, case, torch.bfloat16)
+    out = cuda_fa.flash_attention(q, k, v, causal, window, scale)
+    out2, lse = cuda_fa.flash_attention(q, k, v, causal, window, scale, return_lse=True)
+    _, want = ref.flash_attention_ref(q, k, v, causal, window, scale, return_lse=True)
+    assert torch.equal(out, out2)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert float((lse - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_routes_by_dtype(cuda):
+    """bf16 runs the three tensor-core kernels and the FMA pair never, by
+    symbol under the profiler over three calls (the profiler has been seen
+    to leave a window's first kernels out); fp32 the other way round; the
+    fp32 forward refuses return_lse and bf16 refuses a missing lse."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    tc = ("flash_bwd_preprocess_kernel", "flash_bwd_dq_wgmma_kernel",
+          "flash_bwd_dkdv_wgmma_kernel")
+    fma = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    for dtype, runs, never in ((torch.bfloat16, tc, fma), (torch.float32, fma, tc)):
+        q, dout = (torch.randn((1, 256, 32, 64), generator=g, device=cuda).to(dtype)
+                   for _ in range(2))
+        kv = torch.randn((1, 256, 4, 64), generator=g, device=cuda).to(dtype)
+        if dtype == torch.bfloat16:
+            out, lse = cuda_fa.flash_attention(q, kv, kv, return_lse=True)
+        else:
+            out, lse = cuda_fa.flash_attention(q, kv, kv), None
+        cuda_fa.flash_attention_bwd(q, kv, kv, out, dout, lse=lse)
+        marker = torch.zeros(1, device=cuda)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                cuda_fa.flash_attention_bwd(q, kv, kv, out, dout, lse=lse)
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = [e.key for e in on_card]
+        for name in runs:   # every kernel of the file is a template: name<...>
+            assert 2 <= sum(e.count for e in on_card if name + "<" in e.key) <= 3, (name,
+                                                                                     names)
+        assert not any(name + "<" in n for n in names for name in never), names
+    q = torch.randn((1, 16, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="return_lse"):
+        cuda_fa.flash_attention(q, q, q, return_lse=True)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError, match="lse"):
+        cuda_fa.flash_attention_bwd(qb, qb, qb, qb, qb)
 
 
 @pytest.mark.cuda
@@ -1246,6 +1348,38 @@ def test_cuda_autograd_runs_the_backward_kernel_never_the_plain_version(cuda, mo
     with torch.no_grad():
         ops.flash_attention(q, k, v)
     assert ops.launch_counts()["flash_attention_bwd"] == after["flash_attention_bwd"]
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_bf16_saves_the_lse_for_the_tensor_core_backward(cuda, monkeypatch):
+    """bf16 through ops.flash_attention: the forward saves its lse and the
+    backward passes it to the tensor-core route (one launch each way, no
+    plain call), the gradients within BWD_TOL of the plain backward."""
+    seen = []
+    wgmma_bwd = cuda_fa.flash_attention_bwd
+
+    def recorded(*args, **kwargs):
+        seen.append(args[-1] if len(args) == 9 else kwargs.get("lse"))
+        return wgmma_bwd(*args, **kwargs)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).bfloat16()
+                     for shape in ((2, 96, 8, 64), (2, 96, 2, 64), (2, 96, 2, 64),
+                                   (2, 96, 8, 64)))
+    want = ref.flash_attention_bwd_ref(q, k, v, cuda_fa.flash_attention(q, k, v), dout)
+    monkeypatch.setattr(cuda_fa, "flash_attention_bwd", recorded)
+    monkeypatch.setattr(ref, "flash_attention_bwd_ref", no_plain)
+    monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = ops.launch_counts()
+    ops.flash_attention(*leaves).backward(dout)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == 1
+    assert after["flash_attention_bwd"] - before["flash_attention_bwd"] == 1
+    assert len(seen) == 1 and seen[0] is not None and seen[0].shape == (2, 8, 96)
+    _assert_within_bwd_tol([t.grad for t in leaves], want, torch.bfloat16)
 
 
 @pytest.mark.cuda
