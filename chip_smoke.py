@@ -19,7 +19,10 @@ Phases (each prints its seconds):
    960 at n = 30001 and 1M, n = 5M at d = 8) and, bit for bit against the
    generic gather kernel (1024 rows a launch), wherever d is a multiple
    of 32 and at n=1M, C=240, d=64 on a uniform pool and on a real pool
-   drawn by ``nndescent._candidate_pool``. The beam's hop kernel
+   drawn by ``nndescent._candidate_pool`` (also one drawn from an ip
+   build, under ip, and against the plain version), and at phase 14's
+   edges_from_knn pass (n = 232,965, d = 602, l2) against the plain
+   version on 8,192 rows. The beam's hop kernel
    (gather_distance_masked) also bit for bit against the generic masked
    kernel wherever d is a multiple of 32, the n=1M hop included, with a
    row of visited ids and ids past n - 1. The sq8 hop kernel
@@ -233,6 +236,36 @@ Phases (each prints its seconds):
    fp32, 3 steps on the card and on the CPU from the same weights and
    batches: losses within 1e-5 relative.
 
+14. Recsys and GraphSAGE at published widths (after phase 13, before phase
+   7; nothing else resident, everything freed after it; random weights
+   from a seed; each step's seconds from CUDA events and its peak GiB).
+   (a) DLRM (its five tables above ONE_CARD_ROW_CAP rows capped there, ids
+   modulo the cap: 87,956,992 of 187,775,488 rows, 41.9 GiB), DeepFM,
+   AutoInt and BERT4Rec at serve_p99 (B=512) and serve_bulk (B=262,144) on
+   ``recsys_batch`` / ``bert4rec_batch``: ms and rows/s; BERT4Rec's bulk
+   pass in chunks of BERT4REC_CHUNK rows keeping each row's top-1 (its
+   first 512 rows against their unchunked scores). The first 64 rows of
+   each p99 batch against a float64 recomputation on the card from the
+   same weights (only the table rows they touch), within F64_TOL; DLRM's
+   retrieval_cand (one query's top 100 by ip over 1M x 128 through
+   ``retrieval_score_exact``) against the float64 scores. (b) ``serve.main
+   --arch dlrm-mlperf`` (the recsys / GNN branch: NN-Descent k=16 and GD
+   under ip, the beam at ef=96, k=10) with 512 queries on the smoke world,
+   recall@1 / @10 at least the reference's CPU figures less
+   RETRIEVAL_SLACK, and on the full world (n=1M, d=64): build s, exact and
+   ANN ms, recall, comps/query. (c) GraphSAGE (d_hidden 128, 41 classes) on
+   SBM graphs of each GNN cell: minibatch_lg (n=232,965, d=602, avg_deg
+   492: 114,618,780 edges; CSR on the card; 1,024 nodes at the cell's
+   fanout 15-10: sampling, gather and collapse ms; 64 rows against
+   float64), ``edges_from_knn`` over its features (seconds, at most
+   SAGE_KNN_MAX_S; the graph-recall proxy on 2,000 points; the kNN edges'
+   class homophily beside the SBM's), full_graph_sm (n=2,708, d=1,433) and
+   ogb_products (n=2,449,029, d=100, avg_deg 25) through ``forward_full``
+   twice (bit-identical or not, within F64_TOL) and molecule (128 graphs of
+   30 nodes, d=16) through ``forward_dense``, each against float64 where it
+   fits. The launches over (b) and (c) go into the kernels line
+   (``phase14_launches``); every kernel of the ip path must have launched.
+
 7. The paper's experiment through ``repro_torch.paper`` (the counterpart
    of the reference's ``benchmarks/run.py``), 1,000 queries a world, at the
    datasets' full sizes: the SIFT1M stand-in (n=1M, d=128: tab1's LID,
@@ -376,6 +409,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -411,6 +445,17 @@ SMOKE_FLOORS = {"exact": (REF_SMOKE_RECALL10, RECALL_SLACK),
 # CLI, `python -m repro.launch.serve --arch ann --smoke --entry hierarchy`,
 # reports recall@1 only, on its jax.random world: 0.750 over 16 queries.
 REF_SMOKE_RECALL10_HIERARCHY = 0.7433593273162842
+# recall@1 / recall@10 of the JAX reference's recsys / GNN serve branch
+# (NN-Descent k=16, 8 rounds, GD, both under ip; ef=96, k=10, 16 random
+# entries) over 512 queries on the smoke world, on the CPU
+# (scripts/reference_smoke_recall.py --retrieval, seed 0; phase 14 (b))
+REF_RETRIEVAL_RECALL1 = 0.88671875
+REF_RETRIEVAL_RECALL10 = 0.784960925579071
+# the port's CPU figures on the same worlds, seeds 0 / 1 / 2: recall@1
+# +0.0059 / +0.0039 / -0.0098 from the reference's, recall@10 +0.0012 /
+# +0.0018 / +0.0084 (NN-Descent and the entries draw from other
+# generators); 0.02 is twice the widest of them
+RETRIEVAL_SLACK = 0.02
 # phase 4b: the hierarchy rung on the plain versions against the kernels'
 PLAIN_RECALL_SLACK = 0.005
 SCORERS = ("exact", "sq8", "pq")
@@ -461,6 +506,19 @@ PHASE11_SEED = 11
 PHASE11_MERGE_REPS = 200
 PHASE11_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                    "distance_matrix_small", "gather_adc_masked")
+# phase 14: recsys and GraphSAGE at published widths
+PHASE14_QUERIES = 512
+PHASE14_KERNELS = ("gather_distance_pool", "gather_distance_masked", "distance_matrix",
+                   "distance_matrix_small")
+BERT4REC_CHUNK = 4096        # serve_bulk's rows a chunk (module docstring)
+PHASE14_CHECK_ROWS = 64
+# the card's fp32 (TF32 off) against a float64 recomputation on the card
+F64_TOL = dict(rtol=1e-4, atol=1e-4)
+# one query's top 100 over 1M x 128 items (DLRM's retrieval_cand)
+RETRIEVAL_CAND = (1_000_000, 128, 100)
+SAGE_BATCH_NODES = 1024
+SAGE_KNN_SAMPLE = 2_000      # points whose exact 8-NN the recall proxy reads
+SAGE_KNN_MAX_S = 20.0
 # phase 7: the paper's worlds (repro_torch.data.synthetic) and the figures
 # each runs; PAPER_SCALE lists a cut of n where the run needs one (none)
 PAPER_WORLDS = (("SIFT1M", ("fig3", "fig4", "fig5", "fig6")),
@@ -972,7 +1030,7 @@ def uniform_pool(n: int, C: int, seed: int) -> torch.Tensor:
     return pool
 
 
-def nndescent_state(base: torch.Tensor, rounds: int):
+def nndescent_state(base: torch.Tensor, rounds: int, metric: str = "l2"):
     """A full-world NN-Descent state after ``rounds`` rounds of the build's
     own loop (default config, seed 0): (ids, dists, isnew, generator, cfg)."""
     from repro_torch.core import nndescent as nd
@@ -981,20 +1039,45 @@ def nndescent_state(base: torch.Tensor, rounds: int):
     cfg = nd.NNDescentConfig()
     gen = torch.Generator(device=base.device).manual_seed(0)
     ids = nd._random_init(gen, base.shape[0], cfg.k)
-    dists, ids = dedup_by_id(nd._score_chunked(base, ids, "l2", cfg.chunk), ids)
+    dists, ids = dedup_by_id(nd._score_chunked(base, ids, metric, cfg.chunk), ids)
     isnew = torch.ones_like(ids, dtype=torch.bool)
     for _ in range(rounds):
-        ids, dists, isnew, _ = nd._round(base, ids, dists, isnew, gen, cfg, "l2")
+        ids, dists, isnew, _ = nd._round(base, ids, dists, isnew, gen, cfg, metric)
     return ids, dists, isnew, gen, cfg
 
 
-def real_pool(base: torch.Tensor) -> torch.Tensor:
+def real_pool(base: torch.Tensor, metric: str = "l2") -> torch.Tensor:
     """A candidate pool as a round draws it (``nndescent._candidate_pool``
-    through ``_round_pool``) from the full-world k-NN graph after 2 rounds."""
+    through ``_round_pool``) from the full-world k-NN graph after 2 rounds
+    of a build under ``metric``."""
     from repro_torch.core import nndescent as nd
 
-    ids, _, isnew, gen, cfg = nndescent_state(base, 2)
+    ids, _, isnew, gen, cfg = nndescent_state(base, 2, metric)
     return nd._round_pool(ids, isnew, gen, cfg)
+
+
+def check_pool_at_sage_width() -> None:
+    """gather_distance_pool at phase 14's ``edges_from_knn`` pass (n =
+    232,965, d = 602, not a multiple of 32; C = 240) under l2, against the
+    plain version on the last rows and a random sample (gather_tol)."""
+    from repro_torch.kernels import gather_distance_pool as kgp
+    from repro_torch.kernels import ref
+
+    n, C, d = 232_965, 240, 602
+    route = "staged" if kgp.pool_plan(n, d, C, torch.cuda.get_device_properties(
+        "cuda").L2_cache_size) else "direct"
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    base = torch.randn((n, d), device="cuda", generator=gen)
+    pool = uniform_pool(n, C, 9)
+    rows = torch.cat([torch.arange(n - 2048, n, device="cuda"),
+                      torch.randint(0, n - 2048, (6144,), generator=gen, device="cuda")])
+    got = kgp.gather_distance_pool(base, pool, "l2")[rows]
+    want = ref.gather_distance_ref(base[rows], pool[rows], base, "l2")
+    torch.testing.assert_close(got, want, **gather_tol(d))
+    print(f"  gather_distance_pool n={n} C={C} d={d} ({route}), l2: agrees with the plain "
+          f"version on {rows.numel()} rows (max abs {max_abs_err(got, want):.3g}; rtol "
+          f"{gather_tol(d)['rtol']}, atol {gather_tol(d)['atol']:.3g})")
+    del base, pool
 
 
 def check_pool_kernel(full_base: torch.Tensor, errs: dict) -> None:
@@ -1043,21 +1126,25 @@ def check_pool_kernel(full_base: torch.Tensor, errs: dict) -> None:
               + ("; bit-identical to the generic gather kernel" if d % 32 == 0 else "")
               + timing)
     check_pool_past_int32(errs)
+    check_pool_at_sage_width()
     n = full_base.shape[0]
-    for label, pool in (("uniform", uniform_pool(n, 240, 4)), ("real", real_pool(full_base))):
-        for metric in METRICS:
+    for label, pool in (("uniform", uniform_pool(n, 240, 4)), ("real", real_pool(full_base)),
+                        ("real ip", real_pool(full_base, "ip"))):
+        for metric in (("ip",) if label == "real ip" else METRICS):
             got = kgp.gather_distance_pool(full_base, pool, metric)
             check(torch.equal(got, gather_kernel_pass(full_base, pool, metric)),
                   f"gather_distance_pool differs from the generic gather kernel: "
                   f"{label} pool {metric}")
-            if label == "uniform":
+            if label != "real":
                 want = ref.gather_distance_pool_ref(full_base, pool, metric)
                 torch.testing.assert_close(got, want, **GATHER_TOL)
                 errs["gather_distance_pool"] = max(errs["gather_distance_pool"],
                                                    max_abs_err(got, want))
         print(f"  gather_distance_pool NN-Descent pass n={n} C={pool.shape[1]} d="
               f"{full_base.shape[1]}, {label} pool ({float(pool.ge(0).float().mean()):.3f} "
-              f"valid): l2/ip/cos bit-identical to the generic gather kernel")
+              f"valid): {'ip' if label == 'real ip' else 'l2/ip/cos'} bit-identical to the "
+              f"generic gather kernel" + ("" if label == "real" else
+                                          ", within GATHER_TOL of the plain version"))
         del pool
 
 def check_pool_past_int32(errs: dict) -> None:
@@ -3459,7 +3546,7 @@ def lm_training() -> dict[str, int]:
     torch.cuda.empty_cache()
 
     # (e)
-    for arch_id in configs.list_archs():
+    for arch_id in configs.list_archs("lm"):
         sad = configs.get_arch(arch_id)
         scfg = sad.smoke_cfg
         cpu_model = T.init_params(scfg, 0, "cpu")
@@ -5072,6 +5159,338 @@ def sharded_phase(run, dev) -> dict:
           f"a kernel of phase 11's path never launched: {launches11}")
     return launches11
 
+# -- phase 14: recsys and GraphSAGE at published widths ----------------------------
+
+
+def step14(label: str, fn):
+    """``fn()`` between CUDA events with the peak reset before it; prints its
+    seconds and peak GiB, returns (result, seconds)."""
+    torch.cuda.reset_peak_memory_stats()
+    res, s = event_s(fn)
+    print(f"  {label}: {s:.4f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    return res, s
+
+
+def f64_rows(model, sparse: torch.Tensor, rows: int):
+    """A float64 copy of a DLRM / DeepFM / AutoInt model that holds only the
+    table rows the first ``rows`` batch rows touch, and those rows' ids in
+    it: the float64 recomputation of those rows from the same weights."""
+    from repro_torch.models import recsys
+
+    sub = sparse[:rows].long()
+    uniq, local = zip(*(torch.unique(sub[:, i], return_inverse=True)
+                        for i in range(sub.shape[1])))
+    cfg64 = dataclasses.replace(model.cfg, vocab_sizes=tuple(len(u) for u in uniq),
+                                dtype=torch.float64)
+    m64 = recsys.build(cfg64, sparse.device)
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, p in m64.named_parameters():
+            src = params[name]
+            if name.startswith(("tables.", "first.")):
+                src = src[uniq[int(name.split(".")[1])]]
+            p.copy_(src.double())
+    return m64, torch.stack(local, dim=1)
+
+
+def double(model):
+    """A float64 copy of a recsys or GNN model (its config's dtype too)."""
+    import copy
+
+    m64 = copy.deepcopy(model).double()
+    m64.cfg = dataclasses.replace(m64.cfg, dtype=torch.float64)
+    return m64
+
+
+def f64_check(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    want = want.double()       # BERT4Rec's serve step casts its scores to fp32
+    err = max_abs_err(got.double(), want)
+    print(f"    {label}: {got.shape[0]} rows against float64, max abs error {err:.3g} "
+          f"(largest |value| {float(want.abs().max()):.3g}; rtol {F64_TOL['rtol']}, "
+          f"atol {F64_TOL['atol']})")
+    torch.testing.assert_close(got.double(), want, **F64_TOL)
+
+
+def bert4rec_serve(model, items: torch.Tensor, chunked: bool):
+    """serve_p99: every item's score (B, V); serve_bulk: each row's top-1
+    (values, ids), BERT4REC_CHUNK rows a call (the rows are independent, so
+    the chunks give the rows' own scores)."""
+    from repro_torch.models import recsys
+
+    if not chunked:
+        return recsys.next_item_scores(model, items)
+    tops = [recsys.next_item_scores(model, c).max(dim=-1) for c in items.split(BERT4REC_CHUNK)]
+    return torch.cat([t.values for t in tops]), torch.cat([t.indices for t in tops])
+
+
+def recsys_inputs(arch_id: str, cfg, published_vocab, B: int, gen):
+    """(batch, args): a ``recsys_batch`` of the published vocab (ids modulo
+    the cut vocab) or a ``bert4rec_batch``, and the serve call's arguments."""
+    from repro_torch.data import synthetic
+
+    if arch_id == "bert4rec":
+        batch = synthetic.bert4rec_batch(gen, B, cfg.seq_len, cfg.n_items, cfg.mask_token)
+        return batch, (batch["items"],)
+    batch = synthetic.recsys_batch(gen, B, published_vocab, getattr(cfg, "n_dense", 0))
+    sparse = batch["sparse"] % torch.tensor(cfg.vocab_sizes, device=gen.device)
+    return batch, ((batch["dense"],) if "dense" in batch else ()) + (sparse,)
+
+
+def retrieval_cand(dev, gen) -> None:
+    """DLRM's retrieval_cand: one query's top 100 by ip over 1M x 128 items
+    through ``retrieval_score_exact``, against the float64 scores."""
+    from repro_torch.models import recsys
+
+    n, d, k = RETRIEVAL_CAND
+    items = torch.randn((n, d), generator=gen, device=dev)
+    q = torch.randn((1, d), generator=gen, device=dev)
+    recsys.retrieval_score_exact(q, items, k)                # warm-up
+    (dists, ids), s = step14(f"dlrm-mlperf retrieval_cand: top {k} by ip over {n:,} x {d}",
+                             lambda: recsys.retrieval_score_exact(q, items, k))
+    scores = items.double() @ q[0].double()
+    want = torch.topk(scores, k)
+    got = scores[ids[0].long()]
+    near = float((-dists[0].double() - want.values).abs().max())
+    print(f"    {s * 1e3:.3f} ms; scores within {near:.3g} of the float64 top {k}, ids equal on "
+          f"{int((ids[0].long() == want.indices).sum())} of {k}")
+    check(bool((got >= want.values[-1] - 1e-4).all()) and near <= 1e-4,
+          "retrieval_cand: the top 100 are not the float64 top 100 (within 1e-4)")
+
+
+@torch.inference_mode()
+def recsys_forwards(dev) -> None:
+    """(a): DLRM (its five tables past ONE_CARD_ROW_CAP cut to it, ids modulo
+    the cap), DeepFM, AutoInt and BERT4Rec at serve_p99 and serve_bulk; the
+    first PHASE14_CHECK_ROWS rows of each p99 batch against float64; the
+    bulk BERT4Rec's first p99-sized rows against their unchunked scores;
+    DLRM's retrieval_cand."""
+    from repro_torch import configs
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.models import recsys
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    R = PHASE14_CHECK_ROWS
+    for arch_id in ("dlrm-mlperf", "deepfm", "autoint", "bert4rec"):
+        cfg = published = configs.get_arch(arch_id).model_cfg
+        cut = ""
+        if arch_id == "dlrm-mlperf":
+            cap = dlrm_mlperf.ONE_CARD_ROW_CAP
+            cfg = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, cap) for v in cfg.vocab_sizes))
+            cut = (f"; cut: {sum(v == cap for v in cfg.vocab_sizes)} tables capped at {cap:,} "
+                   f"rows (ids modulo the cap), {sum(cfg.vocab_sizes):,} of "
+                   f"{sum(published.vocab_sizes):,} rows")
+        model, _ = step14(f"{arch_id}: init", lambda: recsys.init_params(cfg, 14, dev))
+        print(f"    {sum(p.numel() for p in model.parameters()):,} parameters, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident{cut}")
+        vocab = getattr(published, "vocab_sizes", None)
+        for shape in ("serve_p99", "serve_bulk"):
+            B = configs.RECSYS_SHAPES[shape]["batch"]
+            batch, args = recsys_inputs(arch_id, cfg, vocab, B, gen)
+            if arch_id == "bert4rec":
+                def call(args=args, bulk=shape == "serve_bulk"):
+                    return bert4rec_serve(model, *args, chunked=bulk)
+            else:
+                def call(args=args):
+                    return model(*args)
+            call()                                               # warm-up
+            out, s = step14(f"{arch_id} {shape}, B={B:,}", call)
+            print(f"    {s * 1e3:.3f} ms, {B / s:,.0f} rows/s")
+            vals = out[0] if isinstance(out, tuple) else out
+            check(bool(torch.isfinite(vals).all()), f"{arch_id} {shape}: a non-finite output")
+            if shape == "serve_p99":
+                if arch_id == "bert4rec":
+                    m64 = double(model)
+                    f64_check("next-item scores", out[:R],
+                              recsys.next_item_scores(m64, args[0][:R]))
+                else:
+                    m64, local = f64_rows(model, args[-1], R)
+                    f64_check("logits", out[:R], m64(*[a[:R].double() for a in args[:-1]],
+                                                      local))
+                del m64
+            elif arch_id == "bert4rec":
+                p = configs.RECSYS_SHAPES["serve_p99"]["batch"]
+                whole = bert4rec_serve(model, args[0][:p], chunked=False).max(dim=-1)
+                same = float((whole.indices == out[1][:p]).float().mean())
+                print(f"    chunked top-1 against unchunked scores of the first {p} rows: "
+                      f"values within {max_abs_err(out[0][:p], whole.values):.3g}, ids equal "
+                      f"on {same:.4f}")
+                torch.testing.assert_close(out[0][:p], whole.values, **F64_TOL)
+                check(same >= 0.99, "bert4rec serve_bulk: chunked top-1 ids differ")
+            del batch, args, out, vals
+        if arch_id == "dlrm-mlperf":
+            retrieval_cand(dev, gen)
+        del model
+        torch.cuda.empty_cache()
+
+
+def retrieval_serving(launches14: dict) -> None:
+    """(b): ``serve.main`` for dlrm-mlperf on the smoke world (512 queries;
+    recall against the reference's CPU figures less RETRIEVAL_SLACK) and on
+    the full world; their launches into ``launches14``."""
+    from repro_torch.launch import serve
+
+    for label, extra in (("smoke world", ["--smoke"]), ("full world", [])):
+        argv = ["--arch", "dlrm-mlperf", "--device", "cuda", "--batch",
+                str(PHASE14_QUERIES)] + extra
+        before = dict(launches14)
+        run, s = step14(f"serve {label}", lambda: counted(launches14, lambda: serve.main(argv)))
+        sm = run.summary
+        used = {k: v - before.get(k, 0) for k, v in launches14.items() if v > before.get(k, 0)}
+        print(f"    n={sm['n']:,} d={sm['d']}, {sm['queries']} queries: build (NN-Descent "
+              f"k=16, 8 rounds + GD, ip) {sm['build_s']:.3f} s, exact {sm['exact_ms']:.2f} ms, "
+              f"ANN {sm['ann_ms']:.2f} ms ({sm['steps_per_batch']:.0f} steps), recall@1 "
+              f"{sm['recall@1']:.4f}, recall@10 {sm['recall@10']:.4f}, comps/query "
+              f"{sm['comps_per_query']:.1f}; launches {used}")
+        check(all(used.get(k, 0) > 0 for k in PHASE14_KERNELS),
+              f"a kernel of the ip retrieval path never launched ({label})")
+        check(0.0 < sm["recall@10"] <= 1.0, f"ip retrieval recall@10 out of range ({label})")
+        if extra:
+            for name, ref in (("recall@1", REF_RETRIEVAL_RECALL1),
+                              ("recall@10", REF_RETRIEVAL_RECALL10)):
+                print(f"    {name} {sm[name]:.4f}: the JAX reference on the CPU {ref:.4f}, "
+                      f"floor {ref - RETRIEVAL_SLACK:.4f}")
+                check(sm[name] >= ref - RETRIEVAL_SLACK,
+                      f"smoke ip retrieval {name} below the reference's less the slack")
+        del run
+        torch.cuda.empty_cache()
+
+
+def sbm14(gen, n: int, d: int, avg_deg: int, label: str) -> dict:
+    from repro_torch.data import synthetic
+
+    g, _ = step14(f"{label}: sbm_graph n={n:,} d={d} avg_deg {avg_deg}",
+                  lambda: synthetic.sbm_graph(gen, n, 41, d, avg_deg=avg_deg))
+    print(f"    {g['edges'].shape[0]:,} edges")
+    return g
+
+
+def bits_and_f64(label: str, fn, fn64) -> None:
+    """Two card calls of ``fn`` (same bits or not, and how far apart) and the
+    first against ``fn64`` (the float64 forward)."""
+    a, s = step14(f"{label}", fn)
+    b = fn()
+    same = torch.equal(a, b)
+    print(f"    {s * 1e3:.3f} ms; two card calls {'bit-identical' if same else 'differ'} "
+          f"(max abs {max_abs_err(a, b):.3g})")
+    torch.testing.assert_close(a, b, **F64_TOL)
+    check(bool(torch.isfinite(a).all()), f"{label}: a non-finite logit")
+    if fn64 is not None:
+        f64_check("logits", a[:PHASE14_CHECK_ROWS], fn64()[:PHASE14_CHECK_ROWS])
+
+
+@torch.inference_mode()
+def sage_phase(dev, launches14: dict) -> None:
+    """(c): GraphSAGE (d_hidden 128, 41 classes) on each GNN cell's graph."""
+    from repro_torch import configs
+    from repro_torch.core import nndescent
+    from repro_torch.core.bruteforce import exact_search
+    from repro_torch.data import synthetic
+    from repro_torch.models import gnn
+
+    ad = configs.get_arch("graphsage-reddit")
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    # minibatch_lg at the cell's fanout (the reference's lowerable keeps the
+    # config's 25-10: ROADMAP queue C)
+    sh = configs.GNN_SHAPES["minibatch_lg"]
+    cfg = dataclasses.replace(configs.cell_config(ad, "minibatch_lg"), fanouts=sh["fanout"])
+    model = gnn.init_params(cfg, 15, dev)
+    g = sbm14(gen, sh["n_nodes"], sh["d_feat"], 492, "minibatch_lg")
+    n = sh["n_nodes"]
+    (indptr, indices), _ = step14("edges_to_csr on the card",
+                                  lambda: synthetic.edges_to_csr(g["edges"], n))
+    src_sorted = torch.repeat_interleave(torch.arange(n, device=dev), indptr.diff().long())
+    check(int(indptr[-1]) == g["edges"].shape[0]
+          and torch.equal(src_sorted, torch.sort(g["edges"][:, 0].long()).values),
+          "edges_to_csr: indptr does not match the sources")
+    nodes = torch.randint(0, n, (SAGE_BATCH_NODES,), generator=gen, device=dev)
+    gnn.forward_minibatch(model, g["feats"], indptr, indices, nodes, generator=gen)  # warm-up
+    fr, s_sample = step14(f"sample_blocks, {SAGE_BATCH_NODES} nodes, fanout {cfg.fanouts}",
+                          lambda: gnn.sample_blocks(indptr, indices, nodes, cfg.fanouts, gen))
+    hs, s_gather = step14("gather_blocks", lambda: gnn.gather_blocks(g["feats"], fr, cfg.dtype))
+    logits, s_coll = step14("collapse", lambda: gnn.collapse(model, hs))
+    m64 = double(model)
+    R = PHASE14_CHECK_ROWS
+    print(f"    minibatch_lg: sampling {s_sample * 1e3:.3f} ms, gather {s_gather * 1e3:.3f} ms, "
+          f"collapse {s_coll * 1e3:.3f} ms; logits {tuple(logits.shape)}")
+    check(logits.shape == (SAGE_BATCH_NODES, cfg.n_classes) and bool(torch.isfinite(logits).all()),
+          "minibatch_lg: logits of the wrong shape or non-finite")
+    f64_check("minibatch logits", logits[:R], gnn.collapse(m64, [h[:R].double() for h in hs]))
+    del fr, hs, logits, m64
+
+    # edges_from_knn over the cell's 232,965 x 602 features (k=8, l2)
+    knn, s = step14(f"edges_from_knn over {n:,} x {sh['d_feat']} (k=8, 8 rounds, l2)",
+                    lambda: counted(launches14, lambda: gnn.edges_from_knn(g["feats"], k=8)))
+    sample = torch.randperm(n, generator=gen, device=dev)[:SAGE_KNN_SAMPLE]
+    _, ex = exact_search(g["feats"][sample], g["feats"], 9)
+    ex = ex[:, 1:]                                           # drop the point itself
+    got = knn[:, 1].reshape(n, 8)[sample]
+    recall = float((got[:, :, None] == ex[:, None, :]).any(1).float().mean())
+    lab = g["labels"].long()
+    homo_knn = float((lab[knn[:, 0].long()] == lab[knn[:, 1].long()]).float().mean())
+    homo_sbm = float((lab[g["edges"][:, 0].long()] == lab[g["edges"][:, 1].long()])
+                     .float().mean())
+    print(f"    graph-recall proxy {recall:.4f} on {SAGE_KNN_SAMPLE} points; class homophily "
+          f"of the kNN edges {homo_knn:.4f}, of the SBM's {homo_sbm:.4f}")
+    _, stats = nndescent.build_knn_graph_with_stats(g["feats"], nndescent.NNDescentConfig(
+        k=8, rounds=8, sample=8))
+    print(f"    its NN-Descent (the same config and seed again): rounds {stats.rounds}, "
+          f"converged {stats.converged}, update curve {list(stats.update_curve)}")
+    check(s <= SAGE_KNN_MAX_S, f"edges_from_knn took {s:.1f} s (> {SAGE_KNN_MAX_S}): cut n")
+    # a class's ~5,700 points sit near one distance from each other at d=602,
+    # so the exact 8-NN are hard to find; the random start recalls 8 / n.
+    # The edges must find the classes at least as well as the SBM's own edges
+    check(recall > 1000 * 8 / n and homo_knn >= homo_sbm,
+          "edges_from_knn: recall near a random graph's, or fewer same-class edges than the SBM")
+    del g, indptr, indices, knn, model
+    torch.cuda.empty_cache()
+
+    for shape in ("full_graph_sm", "ogb_products"):
+        sh = configs.GNN_SHAPES[shape]
+        cfg = configs.cell_config(ad, shape)
+        model = gnn.init_params(cfg, 16, dev)
+        deg = {"full_graph_sm": 4, "ogb_products": 25}[shape]
+        g = sbm14(gen, sh["n_nodes"], sh["d_feat"], deg, shape)
+        gnn.forward_full(model, g["feats"], g["edges"])          # warm-up
+        if shape == "full_graph_sm":
+            m64 = double(model)
+            f64 = lambda: gnn.forward_full(m64, g["feats"].double(), g["edges"])  # noqa: E731
+        else:
+            f64 = None
+        bits_and_f64(f"{shape}: forward_full", lambda: gnn.forward_full(model, g["feats"],
+                                                                         g["edges"]), f64)
+        del g, model
+        torch.cuda.empty_cache()
+
+    sh = configs.GNN_SHAPES["molecule"]
+    cfg = configs.cell_config(ad, "molecule")
+    model = gnn.init_params(cfg, 17, dev)
+    B, N = sh["batch"], sh["n_nodes"]
+    feats = torch.randn((B, N, sh["d_feat"]), generator=gen, device=dev)
+    adj = (torch.rand((B, N, N), generator=gen, device=dev) < sh["n_edges"] / N**2).float()
+    gnn.forward_dense(model, feats, adj)
+    m64 = double(model)
+    bits_and_f64(f"molecule: forward_dense, {B} graphs of {N} nodes",
+                 lambda: gnn.forward_dense(model, feats, adj),
+                 lambda: gnn.forward_dense(m64, feats.double(), adj.double()))
+
+
+def recsys_gnn_phase(dev) -> dict:
+    """Phase 14 (module docstring). Returns the launches over (b) and (c)'s
+    runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  resident at the start: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    launches14: dict = {}
+    recsys_forwards(dev)
+    retrieval_serving(launches14)
+    sage_phase(dev, launches14)
+    print(f"launches over phase 14's runs: { {k: v for k, v in launches14.items() if v} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches14
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5308,6 +5727,11 @@ def main(argv=None) -> int:
     rows.append(bwd_row)
     done(t0, "phase 13")
 
+    t0 = phase("phase 14: recsys and GraphSAGE at published widths (DLRM, DeepFM, AutoInt, "
+               "BERT4Rec; ip retrieval through serve; GraphSAGE's four cells)")
+    launches14 = recsys_gnn_phase(dev)
+    done(t0, "phase 14")
+
     t0 = phase("phase 7: the paper's experiment (SIFT1M, GIST1M, RAND10M4D stand-ins)")
     paper_phase(dev, errs, rows)
     done(t0, "phase 7")
@@ -5318,6 +5742,7 @@ def main(argv=None) -> int:
         r["phase11_launches"] = launches11.get(r["name"], 0)
         r["phase12_launches"] = launches12 if r["name"] == "flash_attention" else 0
         r["phase13_launches"] = launches13.get(r["name"], 0)
+        r["phase14_launches"] = launches14.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

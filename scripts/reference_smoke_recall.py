@@ -15,8 +15,19 @@ line. With ``--port`` it also runs the port on the CPU over the same world;
     JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py --port \
         [--scorer sq8|pq] [--entry hierarchy|hubs|projection|lsh]
 
-``chip_smoke.py`` holds the port on the card to these recall@10 figures
-less a slack (its constants ``REF_SMOKE_RECALL10*``).
+``--retrieval`` runs the serve CLI's recsys / GNN branch instead (the
+reference's ``launch/serve.py`` non-LM branch) on the same world:
+NN-Descent under ``ip`` (k=16, 8 rounds), GD under ``ip``, and the beam
+(ef=96, k=10) from 16 random entries a query over ``--batch`` queries
+(default 512), scored against the exact inner-product top 10; it prints
+recall@1, recall@10 and comps/query (and, with ``--port``, the port's
+``serve_retrieval`` on the CPU):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=src python scripts/reference_smoke_recall.py \
+        --retrieval --port
+
+``chip_smoke.py`` holds the port on the card to these recall figures less a
+slack (its constants ``REF_SMOKE_RECALL10*`` and ``REF_RETRIEVAL_RECALL*``).
 """
 from __future__ import annotations
 
@@ -75,6 +86,45 @@ def reference(seed: int, n: int, d: int, scorer: str = "exact",
     }
 
 
+def reference_retrieval(seed: int, n: int, d: int, batch: int) -> dict:
+    from repro.core import beam_search as jbeam
+    from repro.core.diversify import build_gd_graph
+    from repro.core.nndescent import NNDescentConfig, build_knn_graph
+    from repro.models.recsys import retrieval_score_exact
+    from repro_torch.launch.serve import RETRIEVAL_EF, RETRIEVAL_K, RETRIEVAL_KNN
+
+    items = jnp.asarray(numpy_world(n, d, seed))
+    queries = jnp.asarray(numpy_queries(d, batch, 1, seed)[0])
+    key = jax.random.PRNGKey(seed)
+    _, exact = retrieval_score_exact(queries, items, k=RETRIEVAL_K)
+    t0 = time.perf_counter()
+    knn = build_knn_graph(items, NNDescentConfig(k=RETRIEVAL_KNN.k, rounds=RETRIEVAL_KNN.rounds),
+                          metric="ip", key=key)
+    gd = build_gd_graph(items, knn, metric="ip")
+    jax.block_until_ready(gd.neighbors)
+    build_s = time.perf_counter() - t0
+    # retrieval_score_ann's own draw and beam, kept whole for n_comps
+    entries = jbeam.random_entries(key, n, batch, min(16, RETRIEVAL_EF))
+    res = jbeam.beam_search(queries, items, gd.neighbors, entries, ef=RETRIEVAL_EF,
+                            k=RETRIEVAL_K, metric="ip")
+    found, exact = np.asarray(res.ids), np.asarray(exact)
+    return {"impl": "repro (JAX, CPU)", "mode": "retrieval", "n": n, "d": d, "seed": seed,
+            "queries": batch, "build_s": build_s,
+            "recall@1": float((found[:, 0] == exact[:, 0]).mean()),
+            f"recall@{RETRIEVAL_K}": float(recall_at_k(jnp.asarray(found), jnp.asarray(exact))),
+            "comps_per_query": float(np.asarray(res.n_comps).mean())}
+
+
+def port_retrieval(seed: int, n: int, d: int, batch: int) -> dict:
+    from repro_torch.launch import serve
+
+    serve.SMOKE_WORLD = (n, d)
+    run = serve.serve_retrieval(serve.parser().parse_args(
+        ["--arch", "dlrm-mlperf", "--smoke", "--device", "cpu", "--seed", str(seed),
+         "--batch", str(batch)]))
+    return {"impl": "repro_torch (CPU)", "mode": "retrieval", **run.summary}
+
+
 def port(seed: int, n: int, d: int, scorer: str = "exact", entry: str = "random") -> dict:
     from repro_torch.launch import serve
 
@@ -102,7 +152,16 @@ def main() -> None:
                     choices=["random", "projection", "hierarchy", "lsh", "hubs"])
     ap.add_argument("--port", action="store_true",
                     help="also run the port on the CPU over the same world")
+    ap.add_argument("--retrieval", action="store_true",
+                    help="the recsys / GNN serve branch (ip) instead of the ANN path")
+    ap.add_argument("--batch", type=int, default=512, help="[--retrieval] queries")
     args = ap.parse_args()
+    if args.retrieval:
+        print(json.dumps(reference_retrieval(args.seed, args.n, args.d, args.batch)),
+              flush=True)
+        if args.port:
+            print(json.dumps(port_retrieval(args.seed, args.n, args.d, args.batch)))
+        return
     print(json.dumps(reference(args.seed, args.n, args.d, args.scorer, args.entry)),
           flush=True)
     if args.port:

@@ -10,6 +10,7 @@ from ..models.layers import MLAConfig, MoEConfig
 from ..models.transformer import LMConfig
 
 ARCH_ID = "deepseek-v3-671b"
+FAMILY = "lm"
 OPTIMIZER = "adafactor"
 
 CONFIG = LMConfig(

@@ -6,6 +6,7 @@ import torch
 from ..models.transformer import LMConfig
 
 ARCH_ID = "gemma3-12b"
+FAMILY = "lm"
 OPTIMIZER = "adamw"
 
 CONFIG = LMConfig(

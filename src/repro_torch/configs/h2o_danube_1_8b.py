@@ -6,6 +6,7 @@ import torch
 from ..models.transformer import LMConfig
 
 ARCH_ID = "h2o-danube-1.8b"
+FAMILY = "lm"
 OPTIMIZER = "adamw"
 
 CONFIG = LMConfig(

@@ -7,6 +7,7 @@ from ..models.layers import MoEConfig
 from ..models.transformer import LMConfig
 
 ARCH_ID = "qwen3-moe-30b-a3b"
+FAMILY = "lm"
 OPTIMIZER = "adafactor"
 
 CONFIG = LMConfig(

@@ -5,6 +5,7 @@ import torch
 from ..models.transformer import LMConfig
 
 ARCH_ID = "tinyllama-1.1b"
+FAMILY = "lm"
 OPTIMIZER = "adamw"
 
 CONFIG = LMConfig(

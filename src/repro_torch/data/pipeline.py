@@ -7,8 +7,8 @@ global batch by (host_id, num_hosts)); and a rescaled job that changes
 num_hosts sees the same global batch at each step. The draws come from a
 CPU ``torch.Generator`` seeded from (seed, step) (``synthetic.step_seed``),
 not from threefry, so batches agree with the reference's in law, not bit
-for bit. Kinds: ``lm`` and ``bert4rec``; ``recsys`` (and ``gnn-minibatch``)
-wait for the recsys substrate (ROADMAP queue A item 14.5).
+for bit. Kinds: ``lm``, ``recsys`` and ``bert4rec``; ``gnn-minibatch`` is
+named in the spec but, as in the reference, has no batch (``ValueError``).
 """
 from __future__ import annotations
 
@@ -60,9 +60,9 @@ def global_batch(spec: PipelineSpec, step: int) -> dict:
         pos = torch.stack([torch.randperm(spec.seq, generator=gen)[:spec.n_masked]
                            for _ in range(spec.batch)])
         return bert4rec_cloze(step_sz, start, pos, spec.n_items, spec.seq, spec.mask_token)
-    if spec.kind in ("recsys", "gnn-minibatch"):
-        raise ValueError(f"pipeline kind {spec.kind!r} is not ported yet: its substrate "
-                         "(recsys_batch) lands with ROADMAP queue A item 14.5")
+    if spec.kind == "recsys":
+        gen = torch.Generator().manual_seed(synthetic.step_seed(spec.seed, step))
+        return synthetic.recsys_batch(gen, spec.batch, spec.vocab_sizes, spec.n_dense)
     raise ValueError(spec.kind)
 
 

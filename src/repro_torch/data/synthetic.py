@@ -16,8 +16,14 @@ The LM token stream (``lm_batch``, ``lm_batch_for_step``) is the
 reference's affine-recurrent stream with noise; its draws come from a CPU
 ``torch.Generator`` seeded from (seed, step) and are split from the formula
 (:func:`lm_tokens`), so the tests can feed it the reference's own
-``jax.random`` draws and get its tokens and labels bit for bit. The recsys
-and GNN substrates are not here yet (ROADMAP queue A item 14.5).
+``jax.random`` draws and get its tokens and labels bit for bit.
+
+The recsys and GNN substrates (``recsys_batch``, ``bert4rec_batch``,
+``sbm_graph``) draw from an explicit ``torch.Generator`` on its device, and
+each is split from its draws (``recsys_from_draws``, ``bert4rec_from_draws``,
+``sbm_from_draws``), so the tests build the reference's batches and graphs
+bit for bit from its ``jax.random`` draws. ``edges_to_csr`` runs on the
+edges' device (a stable sort: the reference's host argsort, bit for bit).
 """
 from __future__ import annotations
 
@@ -142,3 +148,112 @@ def lm_batch_for_step(seed: int, step: int, batch: int, seq: int, vocab: int,
     out = lm_batch(gen, batch, seq, vocab)
     dev = resolve_device(device)
     return {k: v.to(dev) for k, v in out.items()}
+
+
+# -- recsys batches -------------------------------------------------------------
+
+
+def recsys_from_draws(raw: torch.Tensor, dense: torch.Tensor | None, u: torch.Tensor,
+                      vocab_sizes: tuple[int, ...]) -> dict:
+    """The reference's Criteo-like batch from its draws: raw (B, F) ids in
+    [0, 2**30), dense (B, n_dense) normals or None, u (B,) uniforms ->
+    {sparse: raw % vocab (int32), dense, label}, the label 1.0 where u is
+    below sigmoid of the planted teacher sum_f sin(id * phi_f) / sqrt(F)
+    (+ sum(dense) / sqrt(n_dense)), phi = linspace(0.1, 1.7, F)."""
+    F = len(vocab_sizes)
+    sparse = raw % torch.tensor(vocab_sizes, device=raw.device)[None, :]
+    phi = torch.linspace(0.1, 1.7, F, device=raw.device)[None, :]
+    teacher = torch.sin(sparse.float() * phi).sum(dim=1) / math.sqrt(F)
+    out = {"sparse": sparse.to(torch.int32)}
+    if dense is not None:
+        teacher = teacher + dense.sum(dim=1) / math.sqrt(dense.shape[1])
+        out["dense"] = dense
+    out["label"] = (u < torch.sigmoid(teacher)).float()
+    return out
+
+
+def recsys_batch(generator: torch.Generator, batch: int, vocab_sizes: tuple[int, ...],
+                 n_dense: int = 0) -> dict:
+    """A batch of ``batch`` rows on the generator's device; draws raw ids,
+    the dense features (where ``n_dense``) and the label uniforms, in that
+    order."""
+    dev = generator.device
+    raw = torch.randint(0, 1 << 30, (batch, len(vocab_sizes)), generator=generator,
+                        device=dev)
+    dense = (torch.randn((batch, n_dense), generator=generator, device=dev)
+             if n_dense else None)
+    u = torch.rand((batch,), generator=generator, device=dev)
+    return recsys_from_draws(raw, dense, u, vocab_sizes)
+
+
+def bert4rec_from_draws(step_sz: torch.Tensor, start: torch.Tensor, masked: torch.Tensor,
+                        n_items: int, mask_token: int) -> dict:
+    """Markov item sequences (start + step_sz * t) % n_items (step_sz,
+    start (B, 1)) with Bernoulli cloze masking (masked (B, S) bool) ->
+    {items: mask_token where masked, labels: the item there, else -100},
+    int32."""
+    t = torch.arange(masked.shape[1], device=masked.device)[None, :]
+    seqs = (start + step_sz * t) % n_items
+    return {"items": torch.where(masked, mask_token, seqs).to(torch.int32),
+            "labels": torch.where(masked, seqs, -100).to(torch.int32)}
+
+
+def bert4rec_batch(generator: torch.Generator, batch: int, seq: int, n_items: int,
+                   mask_token: int, mask_prob: float = 0.15) -> dict:
+    """A batch on the generator's device; draws step sizes in [1, 7),
+    starts in [0, n_items) and the mask (uniform < mask_prob)."""
+    dev = generator.device
+    step_sz = torch.randint(1, 7, (batch, 1), generator=generator, device=dev)
+    start = torch.randint(0, n_items, (batch, 1), generator=generator, device=dev)
+    masked = torch.rand((batch, seq), generator=generator, device=dev) < mask_prob
+    return bert4rec_from_draws(step_sz, start, masked, n_items, mask_token)
+
+
+# -- GNN graphs ------------------------------------------------------------------
+
+
+def sbm_from_draws(labels: torch.Tensor, src: torch.Tensor, dst_rand: torch.Tensor,
+                   u: torch.Tensor, centers: torch.Tensor, noise: torch.Tensor,
+                   p_in: float = 0.05, p_out: float = 0.005) -> dict:
+    """The reference's stochastic block model from its draws: labels (n,),
+    edge sources and candidate destinations (E,), uniforms u (E,), class
+    centers (C, d) and noise (n, d). A candidate of another class is kept
+    with probability p_out / p_in (of the same class always), a rejected
+    one turns into a self loop -> {feats: centers[labels] + 0.5 noise,
+    edges (E, 2) int32, labels int32}."""
+    same = labels[src] == labels[dst_rand]
+    accept = u < torch.where(same, 1.0, p_out / p_in)
+    dst = torch.where(accept, dst_rand, src)
+    return {"feats": centers[labels] + 0.5 * noise,
+            "edges": torch.stack([src, dst], dim=1).to(torch.int32),
+            "labels": labels.to(torch.int32)}
+
+
+def sbm_graph(generator: torch.Generator, n: int, n_classes: int, d_feat: int,
+              p_in: float = 0.05, p_out: float = 0.005, avg_deg: int = 10) -> dict:
+    """An SBM graph of n * avg_deg edges with class-correlated features on
+    the generator's device; draws labels, sources, candidates, uniforms,
+    centers and noise, in that order."""
+    dev = generator.device
+    E = n * avg_deg
+
+    def ints(hi, size):
+        return torch.randint(0, hi, size, generator=generator, device=dev, dtype=torch.int32)
+
+    labels = ints(n_classes, (n,))
+    src, dst_rand = ints(n, (E,)), ints(n, (E,))
+    u = torch.rand((E,), generator=generator, device=dev)
+    centers = torch.randn((n_classes, d_feat), generator=generator, device=dev)
+    noise = torch.randn((n, d_feat), generator=generator, device=dev)
+    return sbm_from_draws(labels, src, dst_rand, u, centers, noise, p_in, p_out)
+
+
+def edges_to_csr(edges: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E, 2) src -> dst edges -> CSR (indptr (n + 1,), indices (E,)), int32,
+    on the edges' device: the destinations in a stable sort by source, so
+    each node's neighbors keep the edge list's order."""
+    src = edges[:, 0]
+    order = torch.sort(src, stable=True).indices
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device=edges.device)
+    indptr[1:] = torch.cumsum(torch.bincount(src.long(), minlength=n), 0)
+    return indptr, edges[order, 1].to(torch.int32)

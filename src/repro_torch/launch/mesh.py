@@ -3,9 +3,10 @@
 starts nothing.
 
 Only the ANN shard-and-merge layout is here (``make_flat_group``, the
-reference's ``make_flat_mesh``). The LM meshes (``make_production_mesh``,
-``make_test_mesh``, ``data_axes``) come with the LM training and recsys
-workloads.
+reference's ``make_flat_mesh``). The reference's LM meshes
+(``make_production_mesh``, ``make_test_mesh``, ``data_axes``) are not
+ported yet: the port serves and trains the LMs, and serves the recsys and
+GNN archs, on one device.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""Query serving on the PyTorch port: graph ANN (``--arch ann``) and
-greedy LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b |
-qwen3-moe-30b-a3b | gemma3-12b | deepseek-v3-671b``).
+"""Query serving on the PyTorch port: graph ANN (``--arch ann``), greedy
+LM decoding (``--arch tinyllama-1.1b | h2o-danube-1.8b | qwen3-moe-30b-a3b |
+gemma3-12b | deepseek-v3-671b``) and item retrieval under the inner product
+for the recsys and GNN archs.
 
 Builds the paper's index through ``core.build`` (``--build-construct``:
 NN-Descent + GD by default, HNSW with no diversify stage for ``--entry
@@ -68,6 +69,20 @@ holds, so on one card it runs with ``--smoke``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
         --smoke --device cpu
+
+A recsys or GNN arch (``dlrm-mlperf``, ``deepfm``, ``autoint``,
+``bert4rec``, ``graphsage-reddit``) runs the reference's non-LM branch: the
+item-retrieval workload those models serve. Items (``(1_000_000, 64)``, or
+``(20_000, 32)`` under ``--smoke``) and ``--batch`` queries (default 2) come
+from ``--seed`` as the ANN world does; exact inner-product retrieval of the
+top 10 (``models.recsys.retrieval_score_exact``), an NN-Descent graph (k=16,
+8 rounds) pruned by GD, both under ``ip``, and the beam over it
+(``retrieval_score_ann``, ef=96, k=10, 16 random entries); it prints exact
+ms, ANN ms and recall@1 (and the build's seconds, recall@10 and
+comps/query):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf \
+        --smoke --device cpu --batch 64
 """
 from __future__ import annotations
 
@@ -84,12 +99,19 @@ from .._device import resolve_device
 from ..core import io as index_io
 from ..core.bruteforce import ground_truth
 from ..core.build import BuildSpec, GraphBuilder
+from ..core.diversify import build_gd_graph
 from ..core.engine import Searcher, SearchSpec, _fold
+from ..core.nndescent import NNDescentConfig, build_knn_graph
 from ..core.topk import recall_at_k
+from ..models import recsys
 from ..models import transformer as tf
 
 SMOKE_WORLD = (20_000, 32)
 FULL_WORLD = (1_000_000, 64)
+# the reference's recsys / GNN serve branch: its graph, beam and answers
+RETRIEVAL_KNN = NNDescentConfig(k=16, rounds=8)
+RETRIEVAL_EF = 96
+RETRIEVAL_K = 10
 
 
 def numpy_world(n: int, d: int, seed: int = 0) -> np.ndarray:
@@ -501,32 +523,80 @@ def serve_lm_arch(args) -> LMServeRun:
     return serve_lm(model, args.batch or 2, args.tokens, args.max_len)
 
 
+class RetrievalRun(NamedTuple):
+    """What one :func:`serve_retrieval` run made: the printed figures
+    (``summary``) and the objects behind them."""
+
+    summary: dict
+    items: torch.Tensor
+    queries: torch.Tensor
+    exact: tuple              # (dists, ids) of the exact top RETRIEVAL_K
+    graph: object             # the GD graph (core.graph_index.KnnGraph)
+    ann: object               # the beam's SearchResult
+
+
+def serve_retrieval(args) -> RetrievalRun:
+    """``--arch`` a recsys or GNN arch: the reference's retrieval branch
+    (module docstring) on ``--device``. Each timed part ends with the
+    device synchronised."""
+    dev = resolve_device(args.device)
+    n, d = SMOKE_WORLD if args.smoke else FULL_WORLD
+    items = torch.from_numpy(numpy_world(n, d, args.seed)).to(dev)
+    queries = torch.from_numpy(numpy_queries(d, args.batch or 2, 1, args.seed)[0]).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    exact = recsys.retrieval_score_exact(queries, items, k=RETRIEVAL_K)
+    _sync(dev)
+    exact_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[serve] exact retrieval over {n}: {exact_ms:.1f} ms")
+    t0 = time.perf_counter()
+    knn = build_knn_graph(items, RETRIEVAL_KNN, metric="ip", seed=args.seed)
+    gd = build_gd_graph(items, knn, metric="ip")
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    res = recsys.retrieval_score_ann(queries, items, gd.neighbors, k=RETRIEVAL_K,
+                                     ef=RETRIEVAL_EF, generator=gen)
+    _sync(dev)
+    ann_ms = (time.perf_counter() - t0) * 1e3
+    out = {"arch": args.arch, "n": n, "d": d, "queries": queries.shape[0],
+           "exact_ms": exact_ms, "build_s": build_s, "ann_ms": ann_ms,
+           **summarize([res], exact[1], RETRIEVAL_K)}
+    print(f"[serve] ANN retrieval: {ann_ms:.1f} ms recall@1={out['recall@1']:.3f} "
+          f"(recall@{RETRIEVAL_K}={out[f'recall@{RETRIEVAL_K}']:.3f}, comps/query="
+          f"{out['comps_per_query']:.1f}; NN-Descent + GD under ip {build_s:.2f} s) on {dev}")
+    return RetrievalRun(summary=out, items=items, queries=queries, exact=exact, graph=gd,
+                        ann=res)
+
+
 def _arch(name: str) -> str:
     if name == "ann" or name in configs.list_archs():
         return name
     raise argparse.ArgumentTypeError(
-        f"{name!r} is not served by the port (graph ANN and "
-        f"{', '.join(configs.list_archs())}); the other archs (recsys, GNN) are "
-        "ROADMAP queue A item 14")
+        f"{name!r} is not an arch of the port: ann or one of "
+        f"{', '.join(configs.list_archs())}")
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, type=_arch,
-                    help=f"ann or an LM: {', '.join(configs.list_archs())}")
+                    help=f"ann; an LM: {', '.join(configs.list_archs('lm'))}; or a "
+                         f"recsys / GNN arch (item retrieval under ip): "
+                         f"{', '.join(configs.list_archs('recsys') + configs.list_archs('gnn'))}")
     ap.add_argument("--smoke", action="store_true",
-                    help="[ann] n=20_000, d=32 world instead of n=1_000_000, "
-                         "d=64; [lm] the arch's reduced config (deepseek-v3-671b "
-                         "needs it on one card: its full config is 671.7e9 "
-                         "parameters, ~1.25 TiB in bf16)")
+                    help="[ann, retrieval] n=20_000, d=32 world instead of "
+                         "n=1_000_000, d=64; [lm] the arch's reduced config "
+                         "(deepseek-v3-671b needs it on one card: its full config "
+                         "is 671.7e9 parameters, ~1.25 TiB in bf16)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the world, the build and the random entries "
-                         "[ann], the weights [lm]")
+                         "[ann, retrieval], the weights [lm]")
     ap.add_argument("--batch", type=int, default=None,
                     help="queries per batch [ann, default 64], sequences [lm, "
-                         "default 2]")
+                         "default 2], queries [retrieval, default 2]")
     ap.add_argument("--tokens", type=int, default=32, help="[lm] decode steps")
     ap.add_argument("--max-len", type=int, default=128, help="[lm] cache length")
     ap.add_argument("--ef", type=int, default=64, help="beam width")
@@ -615,7 +685,9 @@ def main(argv=None):
         raise SystemExit("--serve buckets requests itself; drop --stream-tile")
     if args.arch == "ann":
         return serve_ann(args)
-    return serve_lm_arch(args)
+    if configs.get_arch(args.arch).family == "lm":
+        return serve_lm_arch(args)
+    return serve_retrieval(args)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,9 @@ of the step. It prints ``[train] step N loss=...`` every 10 steps and at the
 last; with ``--ckpt-dir`` it resumes from the newest checkpoint there,
 saves every ``--ckpt-every`` steps and at the end. The reference's
 production meshes (``--multi-pod``) are refused: the port trains on one
-device, and the LM meshes are ROADMAP queue A item 14.5.
+device, and the LM meshes are not ported yet. As the reference's, this CLI
+drives the LM archs only; the recsys and GNN archs are served
+(``launch/serve.py``), and their training is not ported yet.
 """
 from __future__ import annotations
 
@@ -31,24 +33,25 @@ LOG_EVERY = 10
 
 
 def _arch(name: str) -> str:
-    if name in configs.list_archs():
+    if name in configs.list_archs("lm"):
         return name
     raise argparse.ArgumentTypeError(
-        f"{name!r} is not trained by the port (the LM archs: "
-        f"{', '.join(configs.list_archs())}); the other archs (recsys, GNN) are "
-        "ROADMAP queue A item 14.5")
+        f"{name!r}: train.py drives the LM archs ({', '.join(configs.list_archs('lm'))}); "
+        "the recsys and GNN archs are served by launch/serve.py, their training is "
+        "not ported yet")
 
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True, type=_arch,
-                    help=f"an LM: {', '.join(configs.list_archs())}")
+                    help=f"an LM: {', '.join(configs.list_archs('lm'))}")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true", help="the arch's reduced config")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: the port trains on one device (ROADMAP queue A item 14.5)")
+                    help="refused: the port trains on one device (the LM meshes are not "
+                         "ported yet)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0, help="seeds the weights and the data")
@@ -75,7 +78,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.multi_pod:
         ap.error("--multi-pod: the port trains on one device; the reference's LM meshes "
-                 "are ROADMAP queue A item 14.5")
+                 "are not ported yet")
     return train_lm(args)
 
 

@@ -1,4 +1,7 @@
-"""Carry the reference's LM parameters into the port's model.
+"""Carry the reference's parameters into the port's models: the LMs
+(``lm_params_from_numpy``), the recsys models (``recsys_params_from_numpy``)
+and GraphSAGE (``sage_params_from_numpy``), each a tree of numpy leaves
+matched to the model's parameters by dotted name.
 
 ``lm_params_from_numpy`` takes the tree of ``repro.models.transformer.
 init_params`` with its leaves as numpy arrays (``np.asarray`` of each), so
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import gnn, recsys
 from .transformer import LMConfig, Transformer
 
 
@@ -47,7 +51,6 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cuda") -> Transforme
     or a dtype other than the port's parameter's (``cfg.dtype``; fp32 for a
     router)."""
     model = Transformer(cfg, device)
-    want = dict(model.named_parameters())
     got = {}
     n = cfg.n_scan_layers
     for name, a in _flatten(tree).items():
@@ -59,14 +62,40 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device="cuda") -> Transforme
             got.update({f"{head}.{i}.{rest}": a[i] for i in range(n)})
         else:
             got[name] = a
+    return _copy_into(model, got, cfg.name)
+
+
+def _copy_into(model, got: dict, name: str):
+    """Copy the numpy leaves ``got`` (dotted names) into ``model``'s
+    parameters of the same names. Raises on a missing or extra leaf, or a
+    shape or dtype other than the parameter's."""
+    want = dict(model.named_parameters())
     missing, extra = sorted(want.keys() - got.keys()), sorted(got.keys() - want.keys())
     if missing or extra:
-        raise ValueError(f"parameter tree does not match {cfg.name!r}: missing "
+        raise ValueError(f"parameter tree does not match {name!r}: missing "
                          f"{missing}, extra {extra}")
-    for name, p in want.items():
-        t = tensor_from_numpy(got[name], p.device)
+    for key, p in want.items():
+        t = tensor_from_numpy(got[key], p.device)
         if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
-            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, want "
+            raise ValueError(f"{key}: got {tuple(t.shape)} {t.dtype}, want "
                              f"{tuple(p.shape)} {p.dtype}")
         p.copy_(t)
     return model
+
+
+@torch.no_grad()
+def recsys_params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The reference's tree of a recsys model (``dlrm_init``,
+    ``deepfm_init``, ``autoint_init`` or ``bert4rec_init``, numpy leaves:
+    ``tables`` / ``first`` / ``bot`` / ``top`` / ``mlp`` / ``bias`` /
+    ``layers`` / ``head`` / ``item_emb`` / ``pos_emb`` / ``blocks`` /
+    ``final_ln``) -> the port's model of ``cfg`` (``models.recsys``).
+    Raises as :func:`lm_params_from_numpy`, naming the leaves."""
+    return _copy_into(recsys.build(cfg, device), _flatten(tree), cfg.name)
+
+
+@torch.no_grad()
+def sage_params_from_numpy(tree: dict, cfg: gnn.SAGEConfig, device="cuda") -> gnn.SAGE:
+    """The reference's GraphSAGE tree (``layers`` of ``w_self`` /
+    ``w_nbr``, ``head``; numpy leaves) -> ``models.gnn.SAGE``."""
+    return _copy_into(gnn.SAGE(cfg, device), _flatten(tree), cfg.name)

@@ -6,6 +6,8 @@ installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1419,3 +1421,60 @@ def test_cuda_train_step_matches_cpu(cuda, arch_id):
     assert abs(losses[3] - losses[1]) <= 1e-5 * abs(losses[1])
     for (n, _), a, c in zip(cpu_model.named_parameters(), *grads):
         assert float((c - a).abs().max()) <= 1e-4 * max(float(a.abs().max()), 1e-30), n
+
+
+# -- recsys and GNN (models/recsys.py, models/gnn.py) on the card -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["dlrm-mlperf", "deepfm", "autoint", "bert4rec",
+                                     "graphsage-reddit"])
+def test_cuda_recsys_gnn_smoke_matches_cpu(cuda, arch_id):
+    """A recsys or GNN smoke model from the same weights and inputs on the
+    card and on the CPU, fp32 with TF32 off: every output within rtol 1e-4,
+    atol 1e-5 (sums in another order; GraphSAGE's full-graph aggregate also
+    sums through index_add_'s float atomics on the card). GraphSAGE: the
+    full-graph, minibatch (the same draws) and dense forwards."""
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.models import gnn, recsys
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_arch(arch_id).smoke_cfg
+    gen = torch.Generator().manual_seed(3)
+    if arch_id == "graphsage-reddit":
+        cpu_model = gnn.init_params(cfg, 0, "cpu")
+        g = synthetic.sbm_graph(gen, 500, cfg.n_classes, cfg.d_in, avg_deg=6)
+        indptr, indices = synthetic.edges_to_csr(g["edges"], 500)
+        nodes = torch.randint(0, 500, (64,), generator=gen)
+        draws = [gnn.neighbor_draws(gen, 64, cfg.fanouts[0]),
+                 gnn.neighbor_draws(gen, 64 * cfg.fanouts[0], cfg.fanouts[1])]
+        feats = torch.randn((16, 30, cfg.d_in), generator=gen)
+        adj = (torch.rand((16, 30, 30), generator=gen) < 0.2).float()
+
+        def run(m, dev):
+            return [gnn.forward_full(m, g["feats"].to(dev), g["edges"].to(dev)),
+                    gnn.forward_minibatch(m, g["feats"].to(dev), indptr.to(dev),
+                                          indices.to(dev), nodes.to(dev),
+                                          draws=[d.to(dev) for d in draws]),
+                    gnn.forward_dense(m, feats.to(dev), adj.to(dev))]
+    elif arch_id == "bert4rec":
+        cpu_model = recsys.init_params(cfg, 0, "cpu")
+        items = synthetic.bert4rec_batch(gen, 32, cfg.seq_len, cfg.n_items,
+                                         cfg.mask_token)["items"]
+        items[0, -4:] = cfg.pad_token
+
+        def run(m, dev):
+            return [m(items.to(dev)), recsys.next_item_scores(m, items.to(dev))]
+    else:
+        cpu_model = recsys.init_params(cfg, 0, "cpu")
+        b = synthetic.recsys_batch(gen, 256, cfg.vocab_sizes, getattr(cfg, "n_dense", 0))
+
+        def run(m, dev):
+            args = ([b["dense"].to(dev)] if "dense" in b else []) + [b["sparse"].to(dev)]
+            return [m(*args)]
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    with torch.inference_mode():
+        want, got = run(cpu_model, "cpu"), run(card_model, cuda)
+    for w, c in zip(want, got):
+        torch.testing.assert_close(c.cpu(), w, rtol=1e-4, atol=1e-5)

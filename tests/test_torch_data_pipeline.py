@@ -117,5 +117,23 @@ def test_bert4rec_cloze_on_the_reference_draws_is_the_reference_batch():
 
 @pytest.mark.parametrize("kind", ["recsys", "gnn-minibatch"])
 def test_unported_kinds_name_the_queue_item(kind):
-    with pytest.raises(ValueError, match="queue A item 14.5"):
-        global_batch(PipelineSpec(kind=kind, vocab_sizes=(8, 8)), 0)
+    """``recsys`` gives the reference's batch contract (keys, shapes,
+    dtypes; a pure function of the step); ``gnn-minibatch`` has no batch in
+    either package: a ValueError naming the kind."""
+    fields = dict(kind=kind, batch=8, vocab_sizes=(8, 5, 300), n_dense=4)
+    if kind == "gnn-minibatch":
+        for spec, fn in ((PipelineSpec(**fields), global_batch),
+                         (jpipe.PipelineSpec(**fields), jpipe.global_batch)):
+            with pytest.raises(ValueError, match="gnn-minibatch"):
+                fn(spec, 0)
+        return
+    got = global_batch(PipelineSpec(**fields), 3)
+    want = jpipe.global_batch(jpipe.PipelineSpec(**fields), 3)
+    assert list(got) == list(want) == ["sparse", "dense", "label"]
+    for name in want:
+        assert got[name].shape == want[name].shape
+        assert got[name].numpy().dtype == np.asarray(want[name]).dtype
+    assert bool((got["sparse"] < torch.tensor([8, 5, 300])).all())
+    assert set(got["label"].tolist()) <= {0.0, 1.0}
+    again = global_batch(PipelineSpec(**fields), 3)
+    assert all(torch.equal(got[k], again[k]) for k in got)

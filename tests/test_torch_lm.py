@@ -244,7 +244,7 @@ def test_port_configs_copy_the_reference():
         arch = configs.get_arch(arch_id)
         for mine, theirs in ((arch.model_cfg, jmod.CONFIG), (arch.smoke_cfg, jmod.SMOKE)):
             assert mine == _port_cfg(theirs), arch_id
-    assert configs.list_archs() == list(JMODS)
+    assert configs.list_archs("lm") == list(JMODS)
 
 
 @pytest.mark.parametrize("arch_id", list(SMOKES))
@@ -428,7 +428,7 @@ def test_mla_prefix_and_mtp_variants_build():
         caches = T.init_cache(cfg, 2, 6, "cpu")
         step = T.decode_step(model, toks[:, 0], torch.zeros(2, dtype=torch.int32), caches)
         assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(step).all())
-    for arch_id in configs.list_archs():
+    for arch_id in configs.list_archs("lm"):
         T.Transformer(configs.get_arch(arch_id).smoke_cfg, device="cpu")
 
 

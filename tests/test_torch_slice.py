@@ -145,6 +145,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 
 
 def test_serve_cli_rejects_other_archs(capsys):
+    # a recsys arch is served now (item retrieval under ip); an unknown one is refused
+    assert serve.parser().parse_args(["--arch", "dlrm-mlperf"]).arch == "dlrm-mlperf"
     with pytest.raises(SystemExit):
-        serve.parser().parse_args(["--arch", "dlrm-mlperf"])
-    assert "ROADMAP queue A item 14" in capsys.readouterr().err
+        serve.parser().parse_args(["--arch", "dlrm-v2"])
+    err = capsys.readouterr().err
+    assert "'dlrm-v2' is not an arch of the port" in err and "dlrm-mlperf" in err
