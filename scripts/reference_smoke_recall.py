@@ -46,6 +46,10 @@ from repro.core.topk import recall_at_k
 from repro_torch.launch.serve import SMOKE_WORLD, numpy_queries, numpy_world
 
 EF, K, BATCH, BATCHES = 64, 10, 64, 8
+# the reference's own retrieval settings (repro/launch/serve.py, its non-LM
+# branch: NN-Descent k=16, 8 rounds; the beam at ef=96, k=10), kept apart
+# from the port's so that a drift in the port's shows against them
+RETRIEVAL_KNN_K, RETRIEVAL_ROUNDS, RETRIEVAL_EF, RETRIEVAL_K = 16, 8, 96, 10
 
 
 def reference(seed: int, n: int, d: int, scorer: str = "exact",
@@ -91,14 +95,13 @@ def reference_retrieval(seed: int, n: int, d: int, batch: int) -> dict:
     from repro.core.diversify import build_gd_graph
     from repro.core.nndescent import NNDescentConfig, build_knn_graph
     from repro.models.recsys import retrieval_score_exact
-    from repro_torch.launch.serve import RETRIEVAL_EF, RETRIEVAL_K, RETRIEVAL_KNN
 
     items = jnp.asarray(numpy_world(n, d, seed))
     queries = jnp.asarray(numpy_queries(d, batch, 1, seed)[0])
     key = jax.random.PRNGKey(seed)
     _, exact = retrieval_score_exact(queries, items, k=RETRIEVAL_K)
     t0 = time.perf_counter()
-    knn = build_knn_graph(items, NNDescentConfig(k=RETRIEVAL_KNN.k, rounds=RETRIEVAL_KNN.rounds),
+    knn = build_knn_graph(items, NNDescentConfig(k=RETRIEVAL_KNN_K, rounds=RETRIEVAL_ROUNDS),
                           metric="ip", key=key)
     gd = build_gd_graph(items, knn, metric="ip")
     jax.block_until_ready(gd.neighbors)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from . import (autoint, bert4rec, deepfm, deepseek_v3_671b, dlrm_mlperf, gemma3_12b,
                graphsage_reddit, h2o_danube_1_8b, qwen3_moe_30b_a3b, tinyllama_1_1b)
-from .common import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, ArchDef, Cell, cell_config  # noqa: F401
+from .common import GNN_SHAPES, RECSYS_SHAPES, ArchDef, cell_config  # noqa: F401
 
 _ARCHS = {m.ARCH_ID: ArchDef(m.ARCH_ID, m.FAMILY, m.CONFIG, m.SMOKE, m.OPTIMIZER)
           for m in (tinyllama_1_1b, h2o_danube_1_8b, qwen3_moe_30b_a3b, gemma3_12b,
@@ -22,6 +22,3 @@ def list_archs(family: str | None = None) -> list[str]:
     """Every arch id, or those of one family (lm | recsys | gnn)."""
     return [a for a, ad in _ARCHS.items() if family in (None, ad.family)]
 
-
-def all_cells() -> list[Cell]:
-    return [c for ad in _ARCHS.values() for c in ad.cells()]

@@ -1,6 +1,6 @@
 """The registry's shared parts, as ``repro/configs/common.py``: ``ArchDef``,
-its benchmark cells (``cells``), the shape tables of each family's cells,
-and the per-cell config rule (:func:`cell_config`). The reference's
+its benchmark cells (``cells``), the shape tables of the recsys and GNN
+cells, and the per-cell config rule (:func:`cell_config`). The reference's
 lowerables (XLA HLO per mesh cell) have no counterpart here."""
 from __future__ import annotations
 
@@ -47,12 +47,6 @@ class ArchDef:
         ]
 
 
-LM_SHAPES = {
-    "train_4k": dict(seq=4096, batch=256),
-    "prefill_32k": dict(seq=32768, batch=32),
-    "decode_32k": dict(seq=32768, batch=128),
-    "long_500k": dict(seq=524288, batch=1),
-}
 GNN_SHAPES = {
     "full_graph_sm": dict(n_nodes=2708, n_edges=10556, d_feat=1433),
     "minibatch_lg": dict(n_nodes=232965, n_edges=114_615_892, batch_nodes=1024,

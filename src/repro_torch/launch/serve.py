@@ -531,6 +531,7 @@ class RetrievalRun(NamedTuple):
     items: torch.Tensor
     queries: torch.Tensor
     exact: tuple              # (dists, ids) of the exact top RETRIEVAL_K
+    knn: object               # NN-Descent's k-NN graph, before GD
     graph: object             # the GD graph (core.graph_index.KnnGraph)
     ann: object               # the beam's SearchResult
 
@@ -566,8 +567,8 @@ def serve_retrieval(args) -> RetrievalRun:
     print(f"[serve] ANN retrieval: {ann_ms:.1f} ms recall@1={out['recall@1']:.3f} "
           f"(recall@{RETRIEVAL_K}={out[f'recall@{RETRIEVAL_K}']:.3f}, comps/query="
           f"{out['comps_per_query']:.1f}; NN-Descent + GD under ip {build_s:.2f} s) on {dev}")
-    return RetrievalRun(summary=out, items=items, queries=queries, exact=exact, graph=gd,
-                        ann=res)
+    return RetrievalRun(summary=out, items=items, queries=queries, exact=exact, knn=knn,
+                        graph=gd, ann=res)
 
 
 def _arch(name: str) -> str:

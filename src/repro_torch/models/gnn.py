@@ -211,18 +211,25 @@ def forward_dense(model: SAGE, feats: torch.Tensor, adj: torch.Tensor) -> torch.
     return h.mean(dim=1) @ model.head
 
 
-def edges_from_knn(points: torch.Tensor, k: int = 8, metric: str = "l2",
-                   seed: int = 0) -> torch.Tensor:
-    """The paper's technique as a GNN input: the (n k, 2) int32 edges
-    v -> each of v's k NN-Descent neighbors (k, 8 rounds, on the points'
-    device); a missing neighbor gives the edge (0, 0), as the reference's.
-    The local join samples min(12, k) of a vertex's neighbors: the
-    reference's config samples 12 and fails for k < 12 (its default 8)."""
-    from ..core.nndescent import NNDescentConfig, build_knn_graph
+def knn_config(k: int = 8):
+    """The NN-Descent config of :func:`edges_from_knn`: k neighbors, 8
+    rounds, and a local join that samples min(12, k) of a vertex's
+    neighbors (the reference's config samples 12 and fails for k < 12, its
+    default 8)."""
+    from ..core.nndescent import NNDescentConfig
 
     cfg = NNDescentConfig(k=k, rounds=8)
-    g = build_knn_graph(points, cfg._replace(sample=min(cfg.sample, k)), metric=metric,
-                        seed=seed)
+    return cfg._replace(sample=min(cfg.sample, k))
+
+
+def edges_from_knn(points: torch.Tensor, k: int = 8, metric: str = "l2") -> torch.Tensor:
+    """The paper's technique as a GNN input: the (n k, 2) int32 edges
+    v -> each of v's k NN-Descent neighbors (:func:`knn_config`, on the
+    points' device); a missing neighbor gives the edge (0, 0), as the
+    reference's."""
+    from ..core.nndescent import build_knn_graph
+
+    g = build_knn_graph(points, knn_config(k), metric=metric)
     n = points.shape[0]
     src = torch.arange(n, dtype=torch.int32, device=points.device).repeat_interleave(k)
     dst = g.neighbors.reshape(-1)

@@ -92,7 +92,6 @@ def test_port_configs_copy_the_reference(arch_id):
 
 
 def test_registry_families_and_shapes_are_the_reference():
-    from repro.configs import all_cells as j_all_cells
     from repro.configs import common as jcommon
     from repro.configs import list_archs as j_list
 
@@ -102,11 +101,10 @@ def test_registry_families_and_shapes_are_the_reference():
             a for a in j_list() if j_get_arch(a).family == fam)
     assert configs.RECSYS_SHAPES == jcommon.RECSYS_SHAPES
     assert configs.GNN_SHAPES == jcommon.GNN_SHAPES
-    assert configs.LM_SHAPES == jcommon.LM_SHAPES
-    # the same cells, arch by arch in the port's registry order
-    assert [dataclasses.astuple(c) for c in configs.all_cells()] == sorted(
-        (dataclasses.astuple(c) for c in j_all_cells()),
-        key=lambda c: configs.list_archs().index(c[0]))
+    # the same cells, arch by arch
+    for a in configs.list_archs():
+        assert [dataclasses.astuple(c) for c in configs.get_arch(a).cells()] == \
+            [dataclasses.astuple(c) for c in j_get_arch(a).cells()]
 
 
 # -- embedding_bag ----------------------------------------------------------------
