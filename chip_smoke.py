@@ -271,6 +271,36 @@ Phases (each prints its seconds):
    fits. The launches over (b) and (c) go into the kernels line
    (``phase14_launches``); every kernel of the ip path must have launched.
 
+15. Recsys and GNN training and the retrieval example (after phase 14,
+   before phase 7, nothing else resident). (a) Each train cell's step
+   (``configs.common.cell_train_step``) at published widths on its
+   ``RECSYS_SHAPES`` / ``GNN_SHAPES`` batch, PHASE15_STEPS steps on one
+   fixed batch: DLRM's sparse-embedding step (B=65,536; its five tables
+   past ONE_CARD_ROW_CAP cut to it, ids modulo the cap; no table gets a
+   ``.grad``; a sample of untouched rows bit-identical), DLRM's dense step
+   (tables cut to PHASE15_DENSE_ROW_CAP rows: their gradient and AdamW's m
+   and v as well fit one card), DeepFM and AutoInt (B=65,536), BERT4Rec
+   (B=65,536 through ``grad_accum`` of PHASE15_BERT4REC_MICRO
+   microbatches; the pipeline's fixed-count cloze batch, 40 positions a
+   row), GraphSAGE's full_graph_sm and ogb_products (phase 14's SBM
+   graphs), minibatch_lg (1,024 nodes at the config's fanouts 25-10, one
+   set of draws) and molecule (128 graphs of 30 nodes): ms a step (CUDA
+   events; the first apart), rows/s, peak GiB, the loss at the first and
+   last step (finite, and it must fall), every parameter finite; one
+   BERT4Rec microbatch's loss and gradients under the profiler. (b) The
+   nine steps at the smoke configs on the card against the CPU from the
+   same weights and batches, 3 steps: losses within TRAIN_LOSS_RTOL
+   relative, every parameter within TRAIN_PARAM_TOL (5e-5) of its max-abs (the
+   sparse update's ``index_add_`` and the full-graph aggregate sum through
+   float atomics on the card: held to tolerance, not to bits). (c)
+   ``examples/recsys_retrieval_torch.py`` through its ``main`` at n=20,000
+   and n=1,000,000 (d=32): build seconds, each request's ms (its direct
+   search, device synchronised; and enqueue to completion through the
+   server) and path,
+   filtered recall@10 after rerank, its assertions. The launches over (c)
+   go into the kernels line (``phase15_launches``); every kernel of the
+   path (PHASE15_KERNELS) must have launched.
+
 7. The paper's experiment through ``repro_torch.paper`` (the counterpart
    of the reference's ``benchmarks/run.py``), 1,000 queries a world, at the
    datasets' full sizes: the SIFT1M stand-in (n=1M, d=128: tab1's LID,
@@ -326,8 +356,8 @@ Phases (each prints its seconds):
 9. Streaming mutation on phase 4's world and searcher (after phase 8,
    before phase 6 frees them); each step's seconds from CUDA events. (a)
    ``MutableIndex.from_build`` over the NN-Descent + GD graph, its edge
-   distances through the pair kernel (held to the plain gather). (b) 150
-   inserts (cut from 1,000: host-bound) drawn from the seed at
+   distances through the pair kernel (held to the plain gather). (b) 100
+   inserts (cut from 1,000, then 150: host-bound) drawn from the seed at
    insert_ef=32 with GD inline (the reference's ``--serve-mutate``
    settings); the first doubles the
    capacity to 2M (its seconds and the bytes of each device mirror);
@@ -476,7 +506,7 @@ PHASE8_KERNELS = ("gather_distance", "gather_distance_masked", "gather_adc_maske
 # in its tests) and the incremental construct's cuts. Inserts and the
 # incremental construct are host-bound (a Q=1 beam each); their counts are
 # cut to keep the script within half its time limit.
-PHASE9_INSERTS = 150   # cut from 1,000
+PHASE9_INSERTS = 100   # cut from 1,000, then 150
 PHASE9_PROFILED_INSERTS = 5
 PHASE9_INSERT_EF = 32
 PHASE9_DELETE_SHARE = 0.2
@@ -535,6 +565,35 @@ FULL_KNN_SAMPLE = 4_096
 FULL_KNN_SEED = 16
 FULL_KNN_PLAIN_SLACK = 0.003
 SAGE_KNN_PLAIN_SLACK = 0.003
+# phase 15: recsys and GNN training at published widths, the retrieval example
+PHASE15_STEPS = 5
+PHASE15_DENSE_ROW_CAP = 1 << 22   # DLRM's dense step: a cut (PERF.md section 4)
+PHASE15_BERT4REC_MICRO = 64       # 64 microbatches of 1,024 rows
+PHASE15_UNTOUCHED = 4096          # sampled rows of the sparse step's first table
+PHASE15_CARD_CPU_STEPS = 3
+# the card's fp32 steps (TF32 off) against the CPU's: the same sums in
+# another order (and index_add_'s float atomics on the card). Losses within
+# 1e-5 relative; parameters within TRAIN_PARAM_TOL of their max-abs, wider
+# than 1e-5 because AdamW's step is about lr whatever the gradient's size:
+# where a gradient element cancels (full_graph_sm's layers.0.w_self: 5e-7,
+# 6e5 below the largest, 5% apart between fp32 and fp64) its rounding
+# becomes a step's. Measured after 3 steps: 1.6e-5 card vs CPU, 1.21e-5
+# fp32 vs fp64 on the CPU; 5e-5 is 3x the card's figure
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_PARAM_TOL = 5e-5
+PHASE15_EXAMPLE_N = (20_000, 1_000_000)
+PHASE15_KERNELS = ("gather_distance_pool", "distance_matrix_small", "gather_distance_masked",
+                   "gather_distance", "distance_matrix")
+# (label, arch, cell, sparse-embedding update)
+PHASE15_CASES = (("dlrm-sparse", "dlrm-mlperf", "train_batch", True),
+                 ("dlrm-dense", "dlrm-mlperf", "train_batch", False),
+                 ("deepfm", "deepfm", "train_batch", False),
+                 ("autoint", "autoint", "train_batch", False),
+                 ("bert4rec", "bert4rec", "train_batch", False),
+                 ("full_graph_sm", "graphsage-reddit", "full_graph_sm", False),
+                 ("minibatch_lg", "graphsage-reddit", "minibatch_lg", False),
+                 ("ogb_products", "graphsage-reddit", "ogb_products", False),
+                 ("molecule", "graphsage-reddit", "molecule", False))
 # phase 7: the paper's worlds (repro_torch.data.synthetic) and the figures
 # each runs; PAPER_SCALE lists a cut of n where the run needs one (none)
 PAPER_WORLDS = (("SIFT1M", ("fig3", "fig4", "fig5", "fig6")),
@@ -3362,6 +3421,13 @@ def train_step_profile(step_fn, flag, label: str) -> None:
         print(f"    {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.1f} ms x{e.count}")
 
 
+def _cloned(tree):
+    """A copy of a dict tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def _state_equal(a: dict, b: dict) -> list[str]:
     """Keys of two checkpoint trees whose tensors differ in any bit."""
     from repro_torch.train import checkpoint as ckpt
@@ -3464,8 +3530,10 @@ def lm_training() -> dict[str, int]:
 
         def one_step():
             probe["state"] = labelled(model, probe["state"], b0)[1]
-        # on copies: the profiled steps must not move (a)'s end state
-        final = {"params": {n: p.detach().clone() for n, p in named.items()}, "opt": state}
+        # on copies: the profiled steps must not move (a)'s end state (AdamW
+        # writes the parameters and its m and v in place)
+        final = {"params": {n: p.detach().clone() for n, p in named.items()},
+                 "opt": _cloned(state)}
         train_step_profile(one_step, flag, "(a) one TinyLlama training step")
         with torch.no_grad():
             for n, p in named.items():
@@ -5593,6 +5661,248 @@ def recsys_gnn_phase(dev) -> dict:
     return launches14
 
 
+# -- phase 15: recsys and GNN training, the retrieval example ----------------------
+
+
+def train_arch(arch_id: str, sparse: bool, smoke: bool):
+    """The ArchDef a phase-15 step trains: the smoke config, or the
+    published one (DLRM's tables capped: ONE_CARD_ROW_CAP for the sparse
+    step, PHASE15_DENSE_ROW_CAP for the dense one), with the sparse switch."""
+    from repro_torch import configs
+    from repro_torch.configs import dlrm_mlperf
+
+    ad = configs.get_arch(arch_id)
+    cfg = ad.smoke_cfg if smoke else ad.model_cfg
+    if arch_id == "dlrm-mlperf" and not smoke:
+        cap = dlrm_mlperf.ONE_CARD_ROW_CAP if sparse else PHASE15_DENSE_ROW_CAP
+        cfg = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, cap) for v in cfg.vocab_sizes))
+    return dataclasses.replace(ad, model_cfg=cfg,
+                               extra={"sparse_emb_update": True} if sparse else {})
+
+
+def train_batch(ad, shape: str, gen, smoke: bool) -> tuple[dict, int]:
+    """(batch, rows) of a train cell on the generator's device: recsys
+    ``recsys_batch`` rows (the published vocab, ids modulo the cut one) or
+    the pipeline's BERT4Rec cloze (``bert4rec_cloze``, 40 distinct
+    positions a row, from draws on the device; the smoke config 4 of 16),
+    B = 65,536 (smoke 256 / 32); GraphSAGE phase 14's SBM graphs (smoke:
+    300 nodes at the cell's d_feat, avg_deg 6) with a half-node mask, the
+    minibatch cell's CSR, 1,024 nodes (smoke 32) and one set of draws at
+    the config's fanouts, molecule's 128 graphs (smoke 8). ``rows`` is
+    what rows/s counts: batch rows, graph nodes, or graphs."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline, synthetic
+    from repro_torch.models import gnn
+
+    dev = gen.device
+    cfg = ad.model_cfg
+    if ad.family == "recsys":
+        B = (32 if ad.arch_id == "bert4rec" else 256) if smoke else \
+            configs.RECSYS_SHAPES[shape]["batch"]
+        if ad.arch_id == "bert4rec":
+            M = 4 if smoke else 40
+            step_sz = torch.randint(1, 7, (B, 1), generator=gen, device=dev)
+            start = torch.randint(0, cfg.n_items, (B, 1), generator=gen, device=dev)
+            pos = torch.rand((B, cfg.seq_len), generator=gen, device=dev).argsort(dim=1)[:, :M]
+            return pipeline.bert4rec_cloze(step_sz, start, pos, cfg.n_items, cfg.seq_len,
+                                           cfg.mask_token), B
+        vocab = configs.get_arch(ad.arch_id).model_cfg.vocab_sizes
+        b = synthetic.recsys_batch(gen, B, cfg.vocab_sizes if smoke else vocab,
+                                   getattr(cfg, "n_dense", 0))
+        b["sparse"] = (b["sparse"] % torch.tensor(cfg.vocab_sizes, device=dev)).to(torch.int32)
+        return b, B
+    sh = configs.GNN_SHAPES[shape]
+    n_cls = cfg.n_classes
+    if shape == "molecule":
+        B, N = (8 if smoke else sh["batch"]), sh["n_nodes"]
+        return {"feats": torch.randn((B, N, sh["d_feat"]), generator=gen, device=dev),
+                "adj": (torch.rand((B, N, N), generator=gen, device=dev)
+                        < sh["n_edges"] / N**2).float(),
+                "labels": torch.randint(0, n_cls, (B,), generator=gen, device=dev)}, B
+    n = 300 if smoke else sh["n_nodes"]
+    deg = 6 if smoke else {"full_graph_sm": 4, "ogb_products": 25, "minibatch_lg": 492}[shape]
+    g = synthetic.sbm_graph(gen, n, n_cls, sh["d_feat"], avg_deg=deg)
+    if shape != "minibatch_lg":
+        mask = (torch.rand((n,), generator=gen, device=dev) < 0.5).float()
+        return {"feats": g["feats"], "edges": g["edges"], "labels": g["labels"],
+                "mask": mask}, n
+    indptr, indices = synthetic.edges_to_csr(g["edges"], n)
+    del g["edges"]
+    B = 32 if smoke else sh["batch_nodes"]
+    nodes = torch.randint(0, n, (B,), generator=gen, device=dev, dtype=torch.int32)
+    fanouts = configs.cell_config(ad, shape).fanouts
+    draws, size = [], B
+    for fan in fanouts:
+        draws.append(gnn.neighbor_draws(gen, size, fan))
+        size *= fan
+    return {"feats": g["feats"], "indptr": indptr, "indices": indices, "nodes": nodes,
+            "labels": g["labels"][nodes.long()], "draws": draws}, B
+
+
+def to_device(batch: dict, dev) -> dict:
+    return {k: [x.to(dev) for x in v] if isinstance(v, list) else v.to(dev)
+            for k, v in batch.items()}
+
+
+def train_cell(label: str, arch_id: str, shape: str, sparse: bool, dev, smi: str) -> dict:
+    """(a) for one cell: PHASE15_STEPS steps on one fixed batch; prints and
+    returns {ms_first, ms, rows_per_s, peak_gib, losses}."""
+    from repro_torch import configs
+
+    ad = train_arch(arch_id, sparse, smoke=False)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    batch, rows = train_batch(ad, shape, gen, smoke=False)
+    accum = PHASE15_BERT4REC_MICRO if arch_id == "bert4rec" else 1
+    model, state, step = configs.cell_train_step(ad, shape, dev, seed=15, grad_accum=accum)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    resident = torch.cuda.memory_allocated() / 2**30
+    probe = None
+    if sparse:
+        ids0 = batch["sparse"][:, 0].long()
+        free = torch.ones(model.tables[0].shape[0], dtype=torch.bool, device=dev)
+        free[ids0] = False
+        probe = torch.nonzero(free)[:, 0]
+        probe = probe[torch.randperm(probe.numel(), generator=gen, device=dev)
+                      [:PHASE15_UNTOUCHED]]
+        before = model.tables[0][probe].clone()
+        touched_before = model.tables[0][ids0[:64]].clone()
+        del free
+    losses, secs = [], []
+    for _ in range(PHASE15_STEPS):
+        (state, loss), s = event_s(lambda: step(model, state, batch))
+        losses.append(float(loss))
+        secs.append(s)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+    ms = 1e3 * sum(secs[1:]) / (len(secs) - 1)
+    if accum > 1:   # where a microbatch's time goes (PERF.md section 5)
+        micro = {k: v[:rows // accum] for k, v in batch.items()}
+        params = list(model.parameters())
+        loss_fn = configs.common.cell_loss(ad, shape)
+        device_profile(lambda: torch.autograd.grad(loss_fn(model, micro)[0], params),
+                       f"{label}: one microbatch of {rows // accum:,} rows (loss and "
+                       f"gradients)", top=8)
+        del micro, params
+    n_params = sum(p.numel() for p in model.parameters())
+    extra = ""
+    if accum > 1:
+        extra = f"; {accum} microbatches of {rows // accum:,}"
+    if sparse:
+        same = torch.equal(model.tables[0][probe], before)
+        moved = not torch.equal(model.tables[0][ids0[:64]], touched_before)
+        grads = [t.grad for t in model.tables]
+        extra += (f"; {probe.numel()} untouched rows of table 0 bit-identical: {same}, touched "
+                  f"rows moved: {moved}, table .grad all None: {all(g is None for g in grads)}")
+        check(same and moved and all(g is None for g in grads),
+              f"{label}: the sparse update touched rows it should not, or made a table gradient")
+    print(f"  {label} ({shape}): {n_params:,} parameters, {resident:.2f} GiB resident after "
+          f"set-up ({setup_s:.2f} s); {PHASE15_STEPS} steps of {rows:,} rows: first "
+          f"{1e3 * secs[0]:.3f} ms, then {ms:.3f} ms a step, {rows / ms * 1e3:,.0f} rows/s; peak "
+          f"{peak:.2f} GiB; loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+          f"{[round(x, 6) for x in losses]}{extra} ({smi})", flush=True)
+    check(all(np.isfinite(losses)), f"{label}: a non-finite loss")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall over {PHASE15_STEPS} steps")
+    check(finite, f"{label}: a non-finite parameter after {PHASE15_STEPS} steps")
+    del model, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms_first": 1e3 * secs[0], "ms": ms, "rows_per_s": rows / ms * 1e3,
+            "peak_gib": peak, "losses": losses}
+
+
+def train_card_vs_cpu(label: str, arch_id: str, shape: str, sparse: bool, dev) -> tuple:
+    """(b) for one step at its smoke config: the same weights and batch on
+    the CPU and on the card, PHASE15_CARD_CPU_STEPS steps each -> (largest
+    relative loss difference, largest parameter difference over its
+    max-abs); fails past TRAIN_LOSS_RTOL / TRAIN_PARAM_TOL."""
+    import copy
+
+    from repro_torch import configs
+
+    ad = train_arch(arch_id, sparse, smoke=True)
+    batch, _ = train_batch(ad, shape, torch.Generator().manual_seed(15), smoke=True)
+    cpu_model, cpu_state, cpu_step = configs.cell_train_step(ad, shape, "cpu", seed=0)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    _, card_state, card_step = configs.cell_train_step(ad, shape, dev, model=card_model)
+    card_batch = to_device(batch, dev)
+    losses = [[], []]
+    for _ in range(PHASE15_CARD_CPU_STEPS):
+        cpu_state, a = cpu_step(cpu_model, cpu_state, batch)
+        card_state, c = card_step(card_model, card_state, card_batch)
+        losses[0].append(float(a))
+        losses[1].append(float(c))
+    rel = max(abs(a - c) / abs(a) for a, c in zip(*losses))
+    worst, worst_name = 0.0, ""
+    for (name, a), (_, c) in zip(cpu_model.named_parameters(), card_model.named_parameters()):
+        err = float((c.detach().cpu() - a.detach()).abs().max()) / max(
+            float(a.detach().abs().max()), 1e-30)
+        if err >= worst:
+            worst, worst_name = err, name
+    print(f"  {label} smoke, {PHASE15_CARD_CPU_STEPS} steps card vs CPU: losses "
+          f"{[round(x, 6) for x in losses[1]]}, largest relative difference {rel:.3g} "
+          f"(rtol {TRAIN_LOSS_RTOL}); parameters within {worst:.3g} of their max-abs "
+          f"({worst_name}; tol {TRAIN_PARAM_TOL})")
+    check(rel <= TRAIN_LOSS_RTOL, f"(b) {label}: the card's losses differ from the CPU's")
+    check(worst <= TRAIN_PARAM_TOL, f"(b) {label}: a parameter differs from the CPU's")
+    return rel, worst
+
+
+def retrieval_example():
+    """``examples/recsys_retrieval_torch.py`` as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / "recsys_retrieval_torch.py"
+    spec = importlib.util.spec_from_file_location("recsys_retrieval_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_runs(launches15: dict, smi: str, dev) -> None:
+    """(c): the example at each PHASE15_EXAMPLE_N, its launches counted."""
+    ex = retrieval_example()
+    for n in PHASE15_EXAMPLE_N:
+        before = dict(launches15)
+        out, s = event_s(lambda: counted(launches15, lambda: ex.main(
+            ["--device", str(dev), "--n", str(n)])))
+        used = {k: v - before.get(k, 0) for k, v in launches15.items() if v > before.get(k, 0)}
+        reqs = "; ".join(f"{r['label']} {r['ms']:.2f} ms (served {r['latency_ms']:.2f} ms) "
+                         f"[{r['path']}, {r['servable']:,} items, {r['mean_comps']:.0f} comps]"
+                         for r in out["requests"])
+        print(f"  example n={n:,}: {s:.2f} s in all, build {out['build_s']:.3f} s; requests: "
+              f"{reqs}; filtered recall@10 after rerank {out['recall']:.4f}; launches {used} "
+              f"({smi})", flush=True)
+        check(out["stats"]["completed"] == len(out["requests"]),
+              f"example n={n}: a request did not complete")
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(all(launches15.get(k, 0) > 0 for k in PHASE15_KERNELS),
+          f"a kernel of the example's path never launched: {launches15}")
+
+
+def recsys_gnn_training(dev, smi: str) -> dict:
+    """Phase 15 (module docstring). Returns the launches over (c)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  resident at the start: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    print("(a) the train cells at published widths")
+    for case in PHASE15_CASES:
+        train_cell(*case, dev, smi)
+    print("(b) the smoke configs, card vs CPU")
+    for case in PHASE15_CASES:
+        train_card_vs_cpu(*case, dev)
+    print("(c) examples/recsys_retrieval_torch.py")
+    launches15: dict = {}
+    example_runs(launches15, smi, dev)
+    print(f"launches over phase 15 (c): { {k: v for k, v in launches15.items() if v} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches15
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -5833,6 +6143,11 @@ def main(argv=None) -> int:
     launches14 = recsys_gnn_phase(dev)
     done(t0, "phase 14")
 
+    t0 = phase("phase 15: recsys and GNN training at published widths (nine train steps; "
+               "the smoke steps card vs CPU) and the recsys retrieval example")
+    launches15 = recsys_gnn_training(dev, smi)
+    done(t0, "phase 15")
+
     t0 = phase("phase 7: the paper's experiment (SIFT1M, GIST1M, RAND10M4D stand-ins)")
     paper_phase(dev, errs, rows)
     done(t0, "phase 7")
@@ -5844,6 +6159,7 @@ def main(argv=None) -> int:
         r["phase12_launches"] = launches12 if r["name"] == "flash_attention" else 0
         r["phase13_launches"] = launches13.get(r["name"], 0)
         r["phase14_launches"] = launches14.get(r["name"], 0)
+        r["phase15_launches"] = launches15.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -16,8 +16,10 @@ last; with ``--ckpt-dir`` it resumes from the newest checkpoint there,
 saves every ``--ckpt-every`` steps and at the end. The reference's
 production meshes (``--multi-pod``) are refused: the port trains on one
 device, and the LM meshes are not ported yet. As the reference's, this CLI
-drives the LM archs only; the recsys and GNN archs are served
-(``launch/serve.py``), and their training is not ported yet.
+drives the LM archs only; the recsys and GNN archs are served by
+``launch/serve.py`` and trained by ``configs.common``'s train steps
+(``cell_train_step``, one per train cell; ``chip_smoke.py`` phase 15 runs
+them on the card).
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ def _arch(name: str) -> str:
         return name
     raise argparse.ArgumentTypeError(
         f"{name!r}: train.py drives the LM archs ({', '.join(configs.list_archs('lm'))}); "
-        "the recsys and GNN archs are served by launch/serve.py, their training is "
-        "not ported yet")
+        "the recsys and GNN archs are served by launch/serve.py and trained by "
+        "configs.common's train steps (cell_train_step; chip_smoke.py phase 15)")
 
 
 def parser() -> argparse.ArgumentParser:

@@ -6,7 +6,7 @@ a tree of tensors a checkpoint writes as it is. Every update is computed in
 fp32 and cast back to the parameter's dtype, then written into the
 parameter in place (the reference returns new arrays; writing in place
 keeps the ``nn.Module`` and frees the old weights). AdamW keeps fp32 m and
-v per parameter; Adafactor keeps, per leaf of the reference's tree
+v per parameter and writes them in place too; Adafactor keeps, per leaf of the reference's tree
 (:func:`leaves`: the stacked layers' parameters are one leaf, as the
 reference stacks them), factored second moments where the leaf has two or
 more dimensions (row and column statistics over the last two axes, so an
@@ -61,22 +61,27 @@ def adamw_update(grads: dict, state: dict, params: dict, lr: float = 3e-4,
                  weight_decay: float = 0.1, max_grad_norm: float = 1.0):
     """-> (params, state, grad_norm): gradients clipped to ``max_grad_norm``
     by their global norm; bias-corrected Adam with decoupled weight decay.
-    The parameters are written in place; the state is new."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    The parameters and the state's m and v are written in place, one
+    parameter at a time (each gradient scaled as it is used), so a step
+    holds one copy of the state and of the gradients: the temporaries are
+    those of the largest parameter (a DLRM table). The returned state
+    holds the same m and v tensors and a new step."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_grad_norm / torch.clamp_min(norm, 1e-9), max=1.0)
     step = state["step"] + 1
     t = step.float()
     bc1 = 1 - b1 ** t
     bc2 = 1 - b2 ** t
-    new_m, new_v = {}, {}
     for n, p in params.items():
-        g32 = grads.pop(n)
-        m = b1 * state["m"][n] + (1 - b1) * g32
-        v = b2 * state["v"][n] + (1 - b2) * torch.square(g32)
+        g32 = grads[n].float() * scale
+        m, v = state["m"][n], state["v"][n]
+        m.copy_(b1 * m + (1 - b1) * g32)
+        v.copy_(b2 * v + (1 - b2) * torch.square(g32))
+        del g32
         u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
         p32 = p.float()
         p.copy_((p32 - lr * (u + weight_decay * p32)).to(p.dtype))
-        new_m[n], new_v[n] = m, v
-    return params, {"step": step, "m": new_m, "v": new_v}, gnorm
+    return params, {"step": step, "m": state["m"], "v": state["v"]}, norm
 
 
 # -- Adafactor -----------------------------------------------------------------

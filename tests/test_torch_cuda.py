@@ -1478,3 +1478,60 @@ def test_cuda_recsys_gnn_smoke_matches_cpu(cuda, arch_id):
         want, got = run(cpu_model, "cpu"), run(card_model, cuda)
     for w, c in zip(want, got):
         torch.testing.assert_close(c.cpu(), w, rtol=1e-4, atol=1e-5)
+
+
+# -- recsys and GNN training, the retrieval example (chip_smoke.py phase 15) -------
+
+
+def _repo_module(name: str, rel: str):
+    """A script of the repository (``chip_smoke.py``, an example) as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent.parent / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PHASE15_CASES = (("dlrm-sparse", "dlrm-mlperf", "train_batch", True),
+                 ("dlrm-dense", "dlrm-mlperf", "train_batch", False),
+                 ("deepfm", "deepfm", "train_batch", False),
+                 ("autoint", "autoint", "train_batch", False),
+                 ("bert4rec", "bert4rec", "train_batch", False),
+                 ("full_graph_sm", "graphsage-reddit", "full_graph_sm", False),
+                 ("minibatch_lg", "graphsage-reddit", "minibatch_lg", False),
+                 ("ogb_products", "graphsage-reddit", "ogb_products", False),
+                 ("molecule", "graphsage-reddit", "molecule", False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PHASE15_CASES, ids=[c[0] for c in PHASE15_CASES])
+def test_cuda_train_step_smoke_matches_cpu(cuda, case):
+    """chip_smoke.py phase 15 (b): a recsys or GNN train step at its smoke
+    config (``configs.common.cell_train_step``), 3 steps from the same
+    weights and batch on the card and on the CPU, fp32 with TF32 off:
+    losses within 1e-5 relative, every parameter within 5e-5 of its
+    max-abs (sums in another order; the sparse update's ``index_add_`` and
+    the full-graph aggregate through float atomics on the card; AdamW
+    carries a cancelling gradient's rounding into a whole step:
+    chip_smoke.py's TRAIN_PARAM_TOL)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = _repo_module("chip_smoke", "chip_smoke.py")
+    assert case in smoke.PHASE15_CASES
+    rel, worst = smoke.train_card_vs_cpu(*case, cuda)
+    assert rel <= 1e-5 and worst <= 5e-5
+
+
+@pytest.mark.cuda
+def test_cuda_recsys_retrieval_example(cuda):
+    """examples/recsys_retrieval_torch.py at its defaults (n=20,000, d=32)
+    on the card: its own assertions (served == direct bit for bit, no
+    filter leak, the cold-start tenant empty), the narrow tenants scanned
+    exactly and the recency filter on the graph, recall after rerank."""
+    ex = _repo_module("recsys_retrieval_torch", "examples/recsys_retrieval_torch.py")
+    out = ex.main(["--device", "cuda"])
+    paths = {r["label"]: r["path"] for r in out["requests"]}
+    assert paths.pop("recency") == "graph" and set(paths.values()) == {"exact-scan"}
+    assert out["stats"]["completed"] == 9 and out["recall"] >= 0.95
