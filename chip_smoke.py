@@ -301,6 +301,28 @@ Phases (each prints its seconds):
    go into the kernels line (``phase15_launches``); every kernel of the
    path (PHASE15_KERNELS) must have launched.
 
+16. The LM mesh, the two examples (after phase 15, before phase 7). (a)
+   ``examples/quickstart_torch.py`` through its ``main`` at its default
+   scale (0.02 of SIFT1M: n = 20,000, d = 128) in its three modes (default,
+   ``--serve``, ``--ladder``), its asserts held (the artifact round trip,
+   served == direct, disk == host rerank, bit for bit); each mode's
+   seconds and launches, its recall@1 and comps/query lines as the example
+   prints them. (b) TinyLlama-1.1B at published widths on a (1, 1) mesh
+   over nccl (``launch.mesh.make_test_mesh``): PHASE16_STEPS steps of phase
+   13's 8 x 2048 batches through ``configs.common.cell_program``'s train
+   step, the parameters, AdamW state and batches DTensors, the bf16 flash
+   pair under ``local_map``, against the same steps of phase 13's plain
+   step from the same weights: the losses and every parameter bit for bit,
+   or, for a parameter that differs, its change over the steps held to
+   the plain step's within LM_GRAD_TOL[bf16] of that change's max-abs, the
+   largest difference printed; ms a step of each. (c)
+   ``examples/train_lm_torch.py`` at its 4M default (200 steps) and
+   ``--params-100m`` (cut to PHASE16_100M_STEPS steps): seconds, first and
+   last loss (the example asserts that it falls), launches of the fp32
+   flash pair. Every kernel of the path (PHASE16_KERNELS) must have
+   launched over the phase; its launches go into the kernels line
+   (``phase16_launches``).
+
 7. The paper's experiment through ``repro_torch.paper`` (the counterpart
    of the reference's ``benchmarks/run.py``), 1,000 queries a world, at the
    datasets' full sizes: the SIFT1M stand-in (n=1M, d=128: tab1's LID,
@@ -356,8 +378,8 @@ Phases (each prints its seconds):
 9. Streaming mutation on phase 4's world and searcher (after phase 8,
    before phase 6 frees them); each step's seconds from CUDA events. (a)
    ``MutableIndex.from_build`` over the NN-Descent + GD graph, its edge
-   distances through the pair kernel (held to the plain gather). (b) 100
-   inserts (cut from 1,000, then 150: host-bound) drawn from the seed at
+   distances through the pair kernel (held to the plain gather). (b) 60
+   inserts (cut from 1,000, then 150, then 100: host-bound) drawn from the seed at
    insert_ef=32 with GD inline (the reference's ``--serve-mutate``
    settings); the first doubles the
    capacity to 2M (its seconds and the bytes of each device mirror);
@@ -379,7 +401,8 @@ Phases (each prints its seconds):
    directory (removed), ``load_index`` and ``from_artifact``: arrays and a
    batch from the same entries bit-identical. (f) ``construct=
    "incremental"``: exact mode (insert_ef=0, graph_k=20) on the smoke
-   world's first 5,000 points bit-identical to ``construct="exact"``; beam
+   world's first 2,500 points (cut from 5,000) bit-identical to
+   ``construct="exact"``; beam
    mode (insert_ef=64, GD inline) through ``serve.build_searcher`` on the
    smoke world's first 100 points (cut: an insert's Q=1 beam is
    host-bound; cut from 2,000, then 500), recall@10 of
@@ -401,14 +424,15 @@ Phases (each prints its seconds):
    (the reference's 0.05x point is cut: ~5 minutes of arrivals alone):
    p50/p90/p99, queue and service ms, sustained qps, shed, fill, buckets,
    the largest live window; parity 1.0, completed + shed = 48,
-   timestamps in order, shed > 0 at 3x. (c) closed loops of 9 requests
+   timestamps in order, shed > 0 at 3x. (c) closed loops of 5 requests
+   (cut from 32, then 9)
    under pq (device, host) and sq8, and exact with phase 8's tenant=3
    filter on every third request: each bit-identical to its direct search.
    (d) a ``MutableIndex`` of phase 4's graph (the first insert doubles the
-   capacity to 2M), a snapshot Searcher serving 16 requests, 99 more
+   capacity to 2M), a snapshot Searcher serving 8 requests, 49 more
    inserts (insert_ef=32, GD inline) and 250 deletes, a hot swap with 8
-   requests queued at the flip, 24 more requests (counts cut from 40,
-   499 and 120: host-bound): the snapshot answers
+   requests queued at the flip, 12 more requests (counts cut from 40,
+   499 and 120, then 16, 99 and 24: host-bound): the snapshot answers
    as before the inserts, each mirror cloned once (its ms by CUDA events
    and bytes printed), each side bit-identical to direct search on its
    version, 0 dead or unallocated ids, nothing loaded or built after the
@@ -506,13 +530,13 @@ PHASE8_KERNELS = ("gather_distance", "gather_distance_masked", "gather_adc_maske
 # in its tests) and the incremental construct's cuts. Inserts and the
 # incremental construct are host-bound (a Q=1 beam each); their counts are
 # cut to keep the script within half its time limit.
-PHASE9_INSERTS = 100   # cut from 1,000, then 150
+PHASE9_INSERTS = 40   # cut from 1,000, then 150, then 100, then 60
 PHASE9_PROFILED_INSERTS = 5
 PHASE9_INSERT_EF = 32
 PHASE9_DELETE_SHARE = 0.2
 PHASE9_SELF_QUERIES = 64
 PHASE9_CHECK_ROWS = 65_536
-PHASE9_EXACT_POINTS = 5_000   # of the smoke world's 20,000
+PHASE9_EXACT_POINTS = 1_500   # of the smoke world's 20,000 (cut from 5,000, then 2,500)
 PHASE9_BEAM_POINTS = 100   # cut from 2,000, then 500
 PHASE9_RUNS = (("exact", "device"), ("pq", "device"), ("pq", "disk"), ("sq8", "disk"))
 PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
@@ -526,12 +550,12 @@ PHASE9_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_ma
 PHASE10_LOAD_FACTORS = (0.5, 3.0)
 PHASE10_SWEEP_REQUESTS = 48   # cut from 120, then 80
 PHASE10_POOL = 256
-PHASE10_PARITY_REQUESTS = 9   # cut from 32
-PHASE10_INSERTS = 100   # cut from 500
+PHASE10_PARITY_REQUESTS = 5   # cut from 32, then 9
+PHASE10_INSERTS = 50   # cut from 500, then 100
 PHASE10_DELETES = 250
-PHASE10_PRE_SWAP_REQUESTS = 16   # cut from 40
+PHASE10_PRE_SWAP_REQUESTS = 8   # cut from 40, then 16
 PHASE10_QUEUED_AT_FLIP = 8
-PHASE10_POST_SWAP_REQUESTS = 24   # cut from 120
+PHASE10_POST_SWAP_REQUESTS = 12   # cut from 120, then 24
 PHASE10_KERNELS = ("gather_distance", "gather_distance_pool", "gather_distance_masked",
                    "gather_adc_masked", "gather_sq8_masked", "distance_matrix",
                    "distance_matrix_small")
@@ -566,7 +590,7 @@ FULL_KNN_SEED = 16
 FULL_KNN_PLAIN_SLACK = 0.003
 SAGE_KNN_PLAIN_SLACK = 0.003
 # phase 15: recsys and GNN training at published widths, the retrieval example
-PHASE15_STEPS = 5
+PHASE15_STEPS = 3   # cut from 5, then 4
 PHASE15_DENSE_ROW_CAP = 1 << 22   # DLRM's dense step: a cut (PERF.md section 4)
 PHASE15_BERT4REC_MICRO = 64       # 64 microbatches of 1,024 rows
 PHASE15_UNTOUCHED = 4096          # sampled rows of the sparse step's first table
@@ -606,6 +630,14 @@ PAPER_KERNELS = ("gather_distance_pool", "distance_matrix", "distance_matrix_sma
 DPG_SAMPLE = 10_000
 FOREST_R = 12 * 152   # the forest rerank's R on SIFT1M: 12 trees x leaf_cap 152
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+# phase 16: the LM mesh and the two examples
+PHASE16_STEPS = 2
+PHASE16_100M_STEPS = 25   # the example's default is 200 (a cut: PERF.md section 4)
+PHASE16_KERNELS = ("gather_distance_pool", "gather_distance", "gather_distance_masked",
+                   "distance_matrix", "distance_matrix_small", "gather_adc_masked",
+                   "gather_sq8_masked", "flash_attention", "flash_attention_bwd")
 
 
 def gather_tol(d: int) -> dict:
@@ -5903,6 +5935,143 @@ def recsys_gnn_training(dev, smi: str) -> dict:
     return launches15
 
 
+def example_module(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sharded_tinyllama(dev, smi: str, launches16: dict) -> None:
+    """(b): phase 13's plain step, then ``cell_program``'s on a (1, 1) nccl
+    mesh, from the same weights and batches."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs import common
+    from repro_torch.data.synthetic import lm_batch_for_step
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_loop import make_train_step, trainable
+
+    ad = configs.get_arch("tinyllama-1.1b")
+    cfg = ad.model_cfg
+    B, S = PHASE13_BATCH, PHASE13_SEQ
+    opt_init, opt_update = make_optimizer(ad.optimizer)
+
+    def batch(step):
+        return lm_batch_for_step(0, step, B, S, cfg.vocab, dev)
+
+    model = T.init_params(cfg, 0, dev)
+    start = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    state = opt_init(trainable(model))
+    step_fn = make_train_step(T.loss_fn, opt_update)
+    plain_losses, plain_s = [], []
+    for step in range(PHASE16_STEPS):
+        (_, state, metrics), sec = event_s(lambda: step_fn(model, state, batch(step)))
+        plain_losses.append(float(metrics["loss"]))
+        plain_s.append(sec)
+    want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    try:
+        prog = common.cell_program(ad, "train_4k", mesh)
+        model = T.init_params(prog.args[0].cfg, 0, dev)
+        state = opt_init(trainable(model))
+        model, state, _ = common.shard_args(prog, (model, state, prog.args[2]), mesh)
+        losses, secs = [], []
+        for step in range(PHASE16_STEPS):
+            b = sharding.shard_tree(batch(step), prog.specs[2], mesh)
+            (state, loss), sec = event_s(lambda: counted(
+                launches16, lambda: prog.step(model, state, b)))
+            losses.append(float(loss.full_tensor()))
+            secs.append(sec)
+        # a parameter that is not bit for bit the plain step's is held by its
+        # change over the steps: the two updates within the tolerance of the
+        # plain update's max-abs (a parameter's own max-abs would hide a
+        # wrong or missing update, which moves it by well under 1%)
+        worst, where, differ = 0.0, "", 0
+        for n, p in model.named_parameters():
+            got = p.detach().full_tensor().cpu()
+            if not torch.equal(got, want[n]):
+                differ += 1
+                moved = want[n].float() - start[n].float()
+                rel = (float((got.float() - want[n].float()).abs().max())
+                       / max(float(moved.abs().max()), 1e-30))
+                if rel >= worst:
+                    worst, where = rel, n
+        print(f"(b) TinyLlama-1.1B, {PHASE16_STEPS} steps of {B} x {S} on a (1, 1) nccl mesh "
+              f"(cell_program, DTensors, flash under local_map): losses {losses} against the "
+              f"plain step's {plain_losses}; {differ} of {len(want)} parameters differ in any "
+              f"bit (the largest difference {worst:.3g} of the plain update's max-abs, "
+              f"{where or 'none'}); "
+              f"ms a step {[round(1e3 * x, 1) for x in secs]} (plain "
+              f"{[round(1e3 * x, 1) for x in plain_s]}) ({smi})", flush=True)
+        check(losses == plain_losses or all(abs(a - b) <= 1e-5 * abs(b)
+                                            for a, b in zip(losses, plain_losses)),
+              "(b) the mesh step's losses are not the plain step's")
+        check(worst <= LM_GRAD_TOL[torch.bfloat16],
+              f"(b) the mesh step's update differs from the plain step's at {where}: "
+              f"{worst:.3g} of its max-abs")
+        check(launches16.get("flash_attention_bwd", 0) == cfg.n_layers * PHASE16_STEPS,
+              f"(b) flash launches over the mesh steps: {launches16}")
+        del model, state, prog, b, start
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_and_examples(dev, smi: str) -> dict:
+    """Phase 16 (module docstring). Returns the launches over it."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches16: dict = {}
+    print("(a) examples/quickstart_torch.py at its default scale")
+    qs = example_module("quickstart_torch")
+    for mode in ((), ("--serve",), ("--ladder",)):
+        before = dict(launches16)
+        _, sec = event_s(lambda: counted(launches16, lambda: qs.main(["--device", "cuda",
+                                                                      *mode])))
+        used = {k: v - before.get(k, 0) for k, v in launches16.items() if v > before.get(k, 0)}
+        print(f"  quickstart {' '.join(mode) or 'default'}: {sec:.2f} s in all; launches "
+              f"{used} ({smi})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("(b) the sharded train step")
+    sharded_tinyllama(dev, smi, launches16)
+    print("(c) examples/train_lm_torch.py")
+    tl = example_module("train_lm_torch")
+    for flags in ((), ("--params-100m", "--steps", str(PHASE16_100M_STEPS))):
+        before = dict(launches16)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as td:
+            out, sec = event_s(lambda: counted(launches16, lambda: tl.main(
+                ["--device", "cuda", "--ckpt-dir", td, *flags])))
+        used = {k: v - before.get(k, 0) for k, v in launches16.items() if v > before.get(k, 0)}
+        hist = out["history"]
+        print(f"  train_lm {' '.join(flags) or '(4M, 200 steps)'}: {sec:.2f} s, loss "
+              f"{hist[0][1]:.4f} -> {hist[-1][1]:.4f}; launches {used} ({smi})", flush=True)
+        check(used.get("flash_attention", 0) > 0 and used.get("flash_attention_bwd", 0) > 0,
+              "train_lm: the fp32 flash pair never launched")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"launches over phase 16: { {k: v for k, v in launches16.items() if v} }")
+    check(all(launches16.get(k, 0) > 0 for k in PHASE16_KERNELS),
+          f"a kernel of phase 16's path never launched: {launches16}")
+    return launches16
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -6148,6 +6317,11 @@ def main(argv=None) -> int:
     launches15 = recsys_gnn_training(dev, smi)
     done(t0, "phase 15")
 
+    t0 = phase("phase 16: the LM mesh and the examples (quickstart in three modes; "
+               "TinyLlama-1.1B through cell_program on a (1, 1) mesh; train_lm 4M and 100M)")
+    launches16 = mesh_and_examples(dev, smi)
+    done(t0, "phase 16")
+
     t0 = phase("phase 7: the paper's experiment (SIFT1M, GIST1M, RAND10M4D stand-ins)")
     paper_phase(dev, errs, rows)
     done(t0, "phase 7")
@@ -6160,6 +6334,7 @@ def main(argv=None) -> int:
         r["phase13_launches"] = launches13.get(r["name"], 0)
         r["phase14_launches"] = launches14.get(r["name"], 0)
         r["phase15_launches"] = launches15.get(r["name"], 0)
+        r["phase16_launches"] = launches16.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

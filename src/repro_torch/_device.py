@@ -22,3 +22,12 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
             "pass device='cpu' (--device cpu) to run on the CPU"
         )
     return dev
+
+
+def model_device(device: str | torch.device | None = "cuda") -> torch.device:
+    """:func:`resolve_device`, or ``meta``: a model or cache built on the
+    meta device holds shapes and dtypes only (the dry run's arguments,
+    ``configs.common.cell_program``); no entry point takes it."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

@@ -11,6 +11,7 @@ from ..models.transformer import LMConfig
 
 ARCH_ID = "deepseek-v3-671b"
 FAMILY = "lm"
+FSDP = True            # the reference shards the big weights over "data" too
 OPTIMIZER = "adafactor"
 
 CONFIG = LMConfig(

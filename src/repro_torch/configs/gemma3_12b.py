@@ -7,6 +7,7 @@ from ..models.transformer import LMConfig
 
 ARCH_ID = "gemma3-12b"
 FAMILY = "lm"
+FSDP = True            # the reference shards the big weights over "data" too
 OPTIMIZER = "adamw"
 
 CONFIG = LMConfig(

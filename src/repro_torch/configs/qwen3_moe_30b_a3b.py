@@ -8,6 +8,7 @@ from ..models.transformer import LMConfig
 
 ARCH_ID = "qwen3-moe-30b-a3b"
 FAMILY = "lm"
+FSDP = True            # the reference shards the big weights over "data" too
 OPTIMIZER = "adafactor"
 
 CONFIG = LMConfig(

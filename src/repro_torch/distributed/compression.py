@@ -10,7 +10,7 @@
 
 The reference writes the collectives inside ``shard_map`` over a mesh's
 data axis; here they are ``all_reduce`` calls on a process group (``None``
-is the default group). Stochastic rounding's noise, uniform in [-0.5, 0.5),
+is the default group), or on a ``DeviceMesh``'s first data axis. Stochastic rounding's noise, uniform in [-0.5, 0.5),
 is an input of the functions that use it, drawn by :func:`int8_noise` from a
 ``torch.Generator``: the draws differ from ``jax.random``'s, so the tests
 feed both packages the same noise.
@@ -21,6 +21,9 @@ from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..launch.mesh import data_axes
 
 
 def int8_noise(generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
@@ -104,11 +107,17 @@ def compressed_psum_topk(x: torch.Tensor, ef: EFState, k: int,
 
 def make_compressed_allreduce(group=None, scheme: str = "int8", k_frac: float = 0.01):
     """-> fn(grads, generator) -> grads averaged over the group, each in its
-    own dtype: ``scheme="int8"`` through :func:`compressed_psum_int8` with
+    own dtype. ``group`` is a process group (``None``: the default one) or
+    a ``DeviceMesh``, whose first data axis's group is taken (the
+    reference's rule: ``data_axes(mesh)[0]``, "pod" on the 2 x 16 x 16
+    mesh). ``scheme="int8"`` goes through :func:`compressed_psum_int8` with
     noise drawn leaf by leaf (in the dict's order) from the generator, any
     other scheme a plain fp32 mean. As in the reference, the top-k scheme
     (whose error feedback is state the caller keeps) is not wired here:
     call :func:`compressed_psum_topk`; ``k_frac`` keeps its signature."""
+    if isinstance(group, DeviceMesh):
+        group = group.get_group(data_axes(group)[0])
+
     def allreduce(grads: dict, generator: torch.Generator) -> dict:
         out = {}
         for name, g in grads.items():

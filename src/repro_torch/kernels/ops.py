@@ -92,7 +92,44 @@ def pq_adc(codes, luts):
     return _pa.pq_adc(codes, luts)
 
 
+# The flash-attention kernels on ``meta`` tensors (the dry run: shapes, no
+# data): one op each, whose outputs have the kernel's shapes and dtypes, so a
+# dispatch-mode counter sees the kernel as one call (``launch/dryrun.py``
+# costs it) instead of the plain version's ops. Nothing runs; no launch is
+# counted.
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                             window: int | None, softmax_scale: float | None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    raise ValueError("flash_attention_fwd_meta takes meta tensors only")
+
+
+@flash_attention_fwd_meta.register_fake
+def _(q, k, v, causal, window, softmax_scale):
+    B, S, H, _ = q.shape
+    return (q.new_empty((B, S, H, v.shape[-1])),
+            q.new_empty((B, H, S), dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, dout: torch.Tensor, causal: bool,
+                             window: int | None, softmax_scale: float | None
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    raise ValueError("flash_attention_bwd_meta takes meta tensors only")
+
+
+@flash_attention_bwd_meta.register_fake
+def _(q, k, v, out, dout, causal, window, softmax_scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _flash_forward(q, k, v, causal, window, softmax_scale, return_lse=False):
+    if q.device.type == "meta":
+        out, lse = flash_attention_fwd_meta(q, k, v, causal, window, softmax_scale)
+        return (out, lse) if return_lse else out
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal, window, softmax_scale, return_lse)
     return _fa.flash_attention(q, k, v, causal, window, softmax_scale, return_lse)
@@ -106,6 +143,8 @@ def flash_attention_bwd(q, k, v, out, dout, causal: bool = True,
     log-sum-exp ``lse`` (fp32 (B, Hq, S), log2 unit) -> (dq, dk, dv) in the
     inputs' dtypes. The card's bf16 route needs ``lse``; the plain version
     recomputes it where none is given."""
+    if q.device.type == "meta":
+        return flash_attention_bwd_meta(q, k, v, out, dout, causal, window, softmax_scale)
     if lse is not None:
         _fa.check_lse(lse, q)
     if _on_cpu(q):
@@ -118,7 +157,7 @@ def _saves_lse(q) -> bool:
     """Whether the forward saves its log-sum-exp for the backward: on the
     CPU's plain path and the card's bf16 route (the fp32 card route
     recomputes it)."""
-    return q.device.type == "cpu" or q.dtype == torch.bfloat16
+    return q.device.type in ("cpu", "meta") or q.dtype == torch.bfloat16
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -32,7 +32,8 @@ from typing import Any
 import torch
 from torch import nn
 
-from .._device import resolve_device
+from .._device import model_device
+from ..distributed import sharding
 from .recsys import _Model, _param, draw_weights
 
 INT32_MAX = 2**31 - 1
@@ -64,7 +65,7 @@ class SAGE(_Model):
 
     def __init__(self, cfg: SAGEConfig, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = model_device(device)
         self.cfg = cfg
         dims = [cfg.d_in] + [cfg.d_hidden] * cfg.n_layers
         self.layers = nn.ModuleList(SAGELayer(dims[i], dims[i + 1], cfg.dtype, device)
@@ -127,17 +128,34 @@ def aggregate(h: torch.Tensor, edges: torch.Tensor, n: int, aggregator: str) -> 
     over chunks of EDGE_CHUNK edges in edge order (on the CPU the order of
     one ``index_add_``, the reference's ``segment_sum`` order), its
     gradient likewise: ogb_products' layer-2 messages are 31 GB at d=128."""
+    if sharding.is_dtensor(edges):
+        if aggregator == "max":
+            raise NotImplementedError("the max aggregate over sharded edges is not ported")
+        total, deg = sharding.edge_sums(
+            lambda hl, el: _edge_parts(hl, el, n, aggregator), h, edges)
+    else:
+        total, deg = _edge_parts(h, edges, n, aggregator)
+    if aggregator == "max":
+        return torch.where(torch.isfinite(total), total, 0.0)
+    if aggregator == "sum":
+        return total
+    return total / deg.clamp_min(1.0)[:, None]
+
+
+def _edge_parts(h: torch.Tensor, edges: torch.Tensor, n: int, aggregator: str):
+    """(each destination's sum of its messages (max, -inf where none, for
+    "max"), its in-degree in h's dtype (zeros unless "mean"))."""
     src, dst = edges[:, 0].long(), edges[:, 1].long()
     if aggregator == "max":
         msgs = h[src]
         out = torch.full((n, h.shape[1]), -math.inf, dtype=h.dtype, device=h.device)
         out.scatter_reduce_(0, dst[:, None].expand_as(msgs), msgs, reduce="amax")
-        return torch.where(torch.isfinite(out), out, 0.0)
+        return out, h.new_zeros((n,))
     summed = _EdgeSum.apply(h, src, dst, n)
     if aggregator == "sum":
-        return summed
-    deg = torch.bincount(dst, minlength=n).to(h.dtype)
-    return summed / deg.clamp_min(1.0)[:, None]
+        return summed, h.new_zeros((n,))
+    deg = torch.zeros((n,), dtype=torch.long, device=dst.device)   # bincount has no meta form
+    return summed, deg.scatter_add_(0, dst, torch.ones_like(dst)).to(h.dtype)
 
 
 def forward_full(model: SAGE, feats: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
@@ -161,11 +179,15 @@ def loss_full(model: SAGE, feats, edges, labels, mask) -> torch.Tensor:
 # -- neighbor sampling (minibatch) -------------------------------------------------
 
 
-def neighbor_draws(generator: torch.Generator, n_nodes: int, fanout: int) -> torch.Tensor:
+def neighbor_draws(generator: torch.Generator | None, n_nodes: int, fanout: int,
+                   device=None) -> torch.Tensor:
     """(n_nodes, fanout) uniform int32 draws in [0, 2**31 - 1), as the
-    reference's ``randint(key, ..., 0, iinfo(int32).max)``."""
+    reference's ``randint(key, ..., 0, iinfo(int32).max)``, from
+    ``generator`` (on its device), or unseeded on ``device`` where there is
+    none (``meta``: the dry run's shapes)."""
+    dev = generator.device if generator is not None else device
     return torch.randint(0, INT32_MAX, (n_nodes, fanout), generator=generator,
-                         device=generator.device, dtype=torch.int32)
+                         device=dev, dtype=torch.int32)
 
 
 def sample_neighbors(draws: torch.Tensor, indptr: torch.Tensor, indices: torch.Tensor,
@@ -194,7 +216,8 @@ def sample_blocks(indptr: torch.Tensor, indices: torch.Tensor, batch_nodes: torc
     frontiers = [batch_nodes]
     for l, fan in enumerate(fanouts):
         flat = frontiers[-1].reshape(-1)
-        r = draws[l] if draws is not None else neighbor_draws(generator, flat.shape[0], fan)
+        r = (draws[l] if draws is not None
+             else neighbor_draws(generator, flat.shape[0], fan, flat.device))
         nbr = sample_neighbors(r, indptr, indices, flat)
         frontiers.append(nbr.reshape(frontiers[-1].shape + (fan,)))
     return frontiers

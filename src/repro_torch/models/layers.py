@@ -33,6 +33,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding
 from ..kernels import ops
 
 
@@ -70,8 +71,23 @@ def attention_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     layer) turns the window off, as the reference ORs it into the mask."""
     if global_override is not None and bool(global_override):
         window = None
-    return ops.flash_attention(q, k, v, causal=causal, window=window,
-                               softmax_scale=softmax_scale)
+
+    def flash(q, k, v):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softmax_scale=softmax_scale)
+
+    if sharding.is_dtensor(q):
+        return sharding.attention(flash, q, k, v)
+    return flash(q, k, v)
+
+
+def write_rows(cache: torch.Tensor, slots: torch.Tensor, values: torch.Tensor) -> None:
+    """``cache[b, slots[b]] = values[b]`` for every row b, in place (on each
+    rank's shard where the cache is a DTensor)."""
+    if sharding.is_dtensor(cache):
+        sharding.write_rows(cache, slots, values)
+        return
+    cache.index_put_((torch.arange(cache.shape[0], device=cache.device), slots), values)
 
 
 def gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -110,9 +126,9 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, *, n_heads: i
     k/v are written into the caches in place at ``cache_len`` and attention
     runs over the cache."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, n_heads, d_head)
-    k = (x @ p["wk"]).reshape(B, S, n_kv, d_head)
-    v = (x @ p["wv"]).reshape(B, S, n_kv, d_head)
+    q = sharding.split_last(x @ p["wq"], n_heads, d_head)
+    k = sharding.split_last(x @ p["wk"], n_kv, d_head)
+    v = sharding.split_last(x @ p["wv"], n_kv, d_head)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
     if cache is None:
@@ -167,13 +183,13 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: MLAConfi
     H, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     scale = (dn + dr) ** -0.5
     q_lat = rms_norm(x @ p["w_dq"], p["q_norm"])
-    q = (q_lat @ p["w_uq"]).reshape(B, S, H, dn + dr)
+    q = sharding.split_last(q_lat @ p["w_uq"], H, dn + dr)
     q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, rope_theta)
     kv_c = rms_norm(x @ p["w_dkv"], p["kv_norm"])                        # (B, S, r)
     k_rope = rope((x @ p["w_kr"])[:, :, None, :], positions, rope_theta)[:, :, 0]
     if cache is None:
-        k_nope = (kv_c @ p["w_uk"]).reshape(B, S, H, dn)
-        v = (kv_c @ p["w_uv"]).reshape(B, S, H, dv)
+        k_nope = sharding.split_last(kv_c @ p["w_uk"], H, dn)
+        v = sharding.split_last(kv_c @ p["w_uv"], H, dv)
         # TMA cannot read a stride-0 head axis: the shared key is materialised
         k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, dr)], dim=-1)
         o = attention_full(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True,
@@ -183,9 +199,8 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: MLAConfi
     if S != 1:
         raise ValueError(f"the absorbed decode takes one token a row, got S={S}")
     kvc, krc = cache
-    rows = torch.arange(B, device=x.device)
-    kvc.index_put_((rows, cache_len), kv_c[:, 0])
-    krc.index_put_((rows, cache_len), k_rope[:, 0])
+    write_rows(kvc, cache_len, kv_c[:, 0])
+    write_rows(krc, cache_len, k_rope[:, 0])
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope, p["w_uk"].reshape(-1, H, dn))
     s_nope = torch.einsum("bshr,bkr->bhsk", q_abs.float(), kvc.float())
     s_rope = torch.einsum("bshd,bkd->bhsk", q_rope.float(), krc.float())
@@ -258,12 +273,14 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: MoEConfig) -> MoERoute
     return MoERoute(probs, gates * keep, experts, slots, keep, C, load)
 
 
-def moe_dispatch(x: torch.Tensor, route: MoERoute) -> torch.Tensor:
+def moe_dispatch(x: torch.Tensor, route: MoERoute, e0: int = 0,
+                 e1: int | None = None) -> torch.Tensor:
     """x (B, S, D) -> the slot buffer (E, B, C, D) in x's dtype: slot (e, b,
     c) holds the token routed there, or zeros. The buffer is built as row
     indices (E, B, C + 1) into x's rows with a zero row after each batch
     row's S tokens (dropped assignments all written to slot C), then one
-    ``index_select`` of whole rows."""
+    ``index_select`` of whole rows; only experts [e0, e1) are gathered
+    (all by default; a rank's own experts under a mesh)."""
     B, S, D = x.shape
     E, C = route.probs.shape[-1], route.capacity
     b = torch.arange(B, device=x.device)[:, None, None]
@@ -271,7 +288,8 @@ def moe_dispatch(x: torch.Tensor, route: MoERoute) -> torch.Tensor:
     s = torch.arange(S, device=x.device)[None, :, None] + b * (S + 1)
     tok[route.experts, b, torch.where(route.keep, route.slots, C)] = s.expand_as(route.experts)
     padded = torch.cat([x, x.new_zeros((B, 1, D))], dim=1).reshape(B * (S + 1), D)
-    return padded.index_select(0, tok[:, :, :C].reshape(-1)).reshape(E, B, C, D)
+    tok = tok[e0:e1, :, :C]
+    return padded.index_select(0, tok.reshape(-1)).reshape(tok.shape[0], B, C, D)
 
 
 def moe_experts(p: dict, xin: torch.Tensor) -> torch.Tensor:
@@ -303,16 +321,37 @@ def moe_combine(eout: torch.Tensor, route: MoERoute, dtype: torch.dtype,
     return out.to(dtype)
 
 
+def moe_combine_range(eout: torch.Tensor, route: MoERoute, e0: int, e1: int,
+                      dispatch_dtype=None) -> torch.Tensor:
+    """:func:`moe_combine` of the outputs of experts [e0, e1) only (eout
+    (e1 - e0, B, C, D)): an assignment to another expert has gate 0."""
+    if e0 or e1 != route.probs.shape[-1]:
+        inside = (route.experts >= e0) & (route.experts < e1)
+        route = route._replace(gates=route.gates * inside, keep=route.keep & inside,
+                               experts=(route.experts - e0).clamp(0, e1 - e0 - 1))
+    return moe_combine(eout, route, eout.dtype, dispatch_dtype)
+
+
 def moe_forward(p: dict, x: torch.Tensor, cfg: MoEConfig):
     """x (B, S, D) -> (out (B, S, D) in x's dtype, aux fp32 scalar): route,
     dispatch, the experts, combine, plus the shared experts where
     ``n_shared``; aux is the Switch load-balance loss ``router_aux_weight *
-    E * sum(load * mean prob)``."""
-    route = moe_route(p["router"], x, cfg)
-    eout = moe_experts(p, moe_dispatch(x, route))
-    out = moe_combine(eout, route, x.dtype, cfg.dispatch_dtype)
+    E * sum(load * mean prob)``. Where x is a DTensor the routed part runs
+    on each rank's batch rows and experts (``distributed.sharding.moe``)."""
+    if sharding.is_dtensor(x):
+        out, load, prob = sharding.moe(
+            lambda router, xl: moe_route(router, xl, cfg),
+            lambda w, xl, route, e0, e1: moe_experts(w, moe_dispatch(xl, route, e0, e1)),
+            lambda eout, route, e0, e1: moe_combine_range(eout, route, e0, e1,
+                                                          cfg.dispatch_dtype),
+            p, x)
+    else:
+        route = moe_route(p["router"], x, cfg)
+        eout = moe_experts(p, moe_dispatch(x, route))
+        out = moe_combine(eout, route, x.dtype, cfg.dispatch_dtype)
+        load, prob = route.load, route.probs.mean((0, 1))
     if cfg.n_shared:
         sp = p["shared"]
         out = out + swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
-    aux = cfg.router_aux_weight * cfg.n_experts * (route.load * route.probs.mean((0, 1))).sum()
+    aux = cfg.router_aux_weight * cfg.n_experts * (load * prob).sum()
     return out, aux

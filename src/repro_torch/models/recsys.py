@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .._device import resolve_device
+from .._device import model_device
+from ..distributed.sharding import take_rows
 from .layers import rms_norm
 
 
@@ -99,7 +100,7 @@ def _tables(vocab_sizes, dim, dtype, device) -> nn.ParameterList:
 
 def _lookup(tables, sparse_ids: torch.Tensor) -> list[torch.Tensor]:
     ids = sparse_ids.long()
-    return [t[ids[:, i]] for i, t in enumerate(tables)]
+    return [take_rows(t, ids[:, i]) for i, t in enumerate(tables)]
 
 
 class _Model(nn.Module):
@@ -133,7 +134,7 @@ class DLRMConfig:
 class DLRM(_Model):
     def __init__(self, cfg: DLRMConfig, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = model_device(device)
         self.cfg = cfg
         n_f = len(cfg.vocab_sizes) + 1
         self.tables = _tables(cfg.vocab_sizes, cfg.embed_dim, cfg.dtype, device)
@@ -171,7 +172,7 @@ class DeepFMConfig:
 class DeepFM(_Model):
     def __init__(self, cfg: DeepFMConfig, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = model_device(device)
         self.cfg = cfg
         F_ = len(cfg.vocab_sizes)
         self.tables = _tables(cfg.vocab_sizes, cfg.embed_dim, cfg.dtype, device)
@@ -215,7 +216,7 @@ class AutoIntLayer(nn.Module):
 class AutoInt(_Model):
     def __init__(self, cfg: AutoIntConfig, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = model_device(device)
         self.cfg = cfg
         d_out = cfg.n_heads * cfg.d_attn
         self.tables = _tables(cfg.vocab_sizes, cfg.embed_dim, cfg.dtype, device)
@@ -281,7 +282,7 @@ class Bert4RecBlock(nn.Module):
 class Bert4Rec(_Model):
     def __init__(self, cfg: Bert4RecConfig, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = model_device(device)
         self.cfg = cfg
         D = cfg.embed_dim
         self.item_emb = _param((cfg.vocab, D), cfg.dtype, device)
@@ -304,7 +305,7 @@ class Bert4Rec(_Model):
         B, S = item_seq.shape
         H = cfg.n_heads
         dh = cfg.embed_dim // H
-        h = self.item_emb[item_seq.long()] + self.pos_emb[None, :S]
+        h = take_rows(self.item_emb, item_seq.long()) + self.pos_emb[None, :S]
         pad = (item_seq == cfg.pad_token)[:, None, None, :]
         for bp in self.blocks:
             x = rms_norm(h, bp.ln1)

@@ -6,7 +6,10 @@ over with only the dtype changed; ``remat`` checkpoints each block in
 training, and the fields only the reference's XLA lowering or sharding
 reads (``scan_unroll``, ``attn_unroll``, the ``*_spec`` fields,
 ``xent_mode``, ``bf16_grad_sync``, ``remat_policy``) are kept and do not
-change the result. The model is ``nn.Module``s
+change the result, except ``act_spec`` and ``logit_spec``: where the
+activations are DTensors, the hidden states after the embedding and each
+block, and the logits, are laid out by them (specs of
+``configs.common``), as the reference pins them. The model is ``nn.Module``s
 (``Transformer`` > ``Block`` > ``GQAttention`` or ``MLAttention``, +
 ``SwiGLU`` or ``MoE``) whose parameter names follow the reference's tree
 (``layers.{i}.attn.wq``, ``layers.{i}.mlp.router``), with a Python loop over
@@ -51,7 +54,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .._device import resolve_device
+from .._device import model_device, resolve_device
+from ..distributed import sharding
+from ..distributed.sharding import split_last
 from . import layers as L
 
 
@@ -101,6 +106,14 @@ class LMConfig:
         return self.window
 
 
+def _pin(x: torch.Tensor, spec) -> torch.Tensor:
+    """``x`` laid out by ``spec`` where it is a DTensor and a spec is set
+    (the reference's ``with_sharding_constraint``); else ``x``."""
+    if spec is None or not sharding.is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, sharding.placements(x.device_mesh, spec))
+
+
 def _weight(shape, cfg, device, dtype=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype or cfg.dtype, device=device),
                         requires_grad=False)
@@ -141,16 +154,15 @@ class GQAttention(nn.Module):
         size = cache["k"].shape[1]
         slot = pos % size if w is not None and w <= size else pos
         positions = pos[:, None]
-        q = L.rope((h @ self.wq).reshape(B, 1, H, dh), positions, c.rope_theta)
-        k = L.rope((h @ self.wk).reshape(B, 1, Hkv, dh), positions, c.rope_theta)
-        v = (h @ self.wv).reshape(B, 1, Hkv, dh)
-        rows = torch.arange(B, device=h.device)
-        cache["k"].index_put_((rows, slot), k[:, 0])
-        cache["v"].index_put_((rows, slot), v[:, 0])
-        cache["pos"].index_put_((rows, slot), pos.to(cache["pos"].dtype))
+        q = L.rope(split_last(h @ self.wq, H, dh)[:, None], positions, c.rope_theta)
+        k = L.rope(split_last(h @ self.wk, Hkv, dh)[:, None], positions, c.rope_theta)
+        v = split_last(h @ self.wv, Hkv, dh)[:, None]
+        L.write_rows(cache["k"], slot, k[:, 0])
+        L.write_rows(cache["v"], slot, v[:, 0])
+        L.write_rows(cache["pos"], slot, pos.to(cache["pos"].dtype))
         pc = cache["pos"]
         # the mask straight from the stored absolute positions (ring-safe)
-        s = L.gqa_scores(q.reshape(B, 1, Hkv, H // Hkv, dh) * dh ** -0.5,
+        s = L.gqa_scores(sharding.split_dim(q, 2, Hkv, H // Hkv) * dh ** -0.5,
                           cache["k"])[..., 0, :]                  # (B, Hkv, G, size)
         valid = (pc >= 0) & (pc <= pos[:, None])
         if w is not None:
@@ -255,11 +267,13 @@ class Block(nn.Module):
         self.mlp_norm = _ones(cfg.d_model, cfg, device)
         self.mlp = (MoE(cfg, device) if cfg.moe is not None and not dense_mlp
                     else SwiGLU(cfg, cfg.d_ff, device))
+        self.act_spec = cfg.act_spec
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         """-> (x (B, S, D), aux): the MoE's load-balance loss, fp32 0 for a
-        dense MLP."""
-        x = x + self.attn(L.rms_norm(x, self.attn_norm), positions)
+        dense MLP. ``cfg.act_spec`` also lays out the residual stream
+        between attention and the MLP (:func:`_pin`)."""
+        x = _pin(x + self.attn(L.rms_norm(x, self.attn_norm), positions), self.act_spec)
         h = L.rms_norm(x, self.mlp_norm)
         if isinstance(self.mlp, MoE):
             m, aux = self.mlp(h)
@@ -293,7 +307,7 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: LMConfig, device="cuda"):
         super().__init__()
-        device = resolve_device(device)
+        device = model_device(device)
         self.cfg = cfg
         self.embed = _weight((cfg.vocab, cfg.d_model), cfg, device)
         self.final_norm = _ones(cfg.d_model, cfg, device)
@@ -323,7 +337,8 @@ class Transformer(nn.Module):
         records, each block is checkpointed (``torch.utils.checkpoint``,
         non-reentrant): its activations are recomputed in the backward."""
         B, S = tokens.shape
-        x = self.embed[tokens]
+        act = self.cfg.act_spec
+        x = _pin(sharding.take_rows(self.embed, tokens), act)
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat and torch.is_grad_enabled()
@@ -332,13 +347,14 @@ class Transformer(nn.Module):
                 x, a = checkpoint(block, x, positions, use_reentrant=False)
             else:
                 x, a = block(x, positions)
+            x = _pin(x, act)
             aux = aux + a
         return L.rms_norm(x, self.final_norm), aux
 
     def decode(self, token: torch.Tensor, pos: torch.Tensor, caches: list) -> torch.Tensor:
         """token (B,), pos (B,) -> logits (B, V) fp32; caches (one a block,
         in ``blocks()`` order) updated in place."""
-        x = self.embed[token]
+        x = sharding.take_rows(self.embed, token)
         for block, cache in zip(self.blocks(), caches, strict=True):
             x = block.decode(x, pos, cache)
         return (L.rms_norm(x, self.final_norm) @ self.lm_head).float()
@@ -352,23 +368,36 @@ def param_count(model: Transformer) -> int:
 
 
 @torch.no_grad()
-def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> Transformer:
+def init_params(cfg: LMConfig, seed: int = 0, device="cuda", shard=None) -> Transformer:
     """A ``Transformer`` with random weights drawn on ``device`` from a
     ``torch.Generator`` seeded with ``seed``: every matrix standard normal
     times ``d_model ** -0.5`` (drawn in fp32, then cast to the parameter's
     dtype: ``cfg.dtype``, fp32 for a router), every norm scale one. A
     parameter of more than ``DRAW_CHUNK`` elements (DeepSeek-V3's experts,
     3.8e9 each) is drawn in slices along its first axis, so the fp32 draw
-    never needs a second copy of it."""
-    model = Transformer(cfg, device)
-    g = torch.Generator(device=model.device).manual_seed(seed)
+    never needs a second copy of it.
+
+    With ``shard`` ((name, whole tensor) -> the tensor to keep), the model
+    is built on ``meta`` and each parameter is drawn whole in turn, the same
+    values, and replaced by ``shard``'s result: a rank that keeps its shards
+    holds one whole parameter at a time (``launch/train.py``)."""
+    device = resolve_device(device)
+    model = Transformer(cfg, "meta" if shard else device)
+    g = torch.Generator(device=device).manual_seed(seed)
     s = cfg.d_model ** -0.5
-    for name, p in model.named_parameters():
+    for name, p in list(model.named_parameters()):
+        w = torch.empty(p.shape, dtype=p.dtype, device=device) if shard else p
         if name.endswith("norm"):
-            continue
-        rows = max(1, DRAW_CHUNK // max(1, p[0].numel())) if p.numel() > DRAW_CHUNK else len(p)
-        for part in p.split(rows):
-            part.copy_(torch.randn(part.shape, generator=g, device=p.device).mul_(s))
+            w.fill_(1)
+        else:
+            rows = (max(1, DRAW_CHUNK // max(1, w[0].numel())) if w.numel() > DRAW_CHUNK
+                    else len(w))
+            for part in w.split(rows):
+                part.copy_(torch.randn(part.shape, generator=g, device=device).mul_(s))
+        if shard:
+            owner, _, leaf = name.rpartition(".")
+            model.get_submodule(owner)._parameters[leaf] = nn.Parameter(
+                shard(name, w), requires_grad=False)
     return model
 
 
@@ -378,7 +407,10 @@ def xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     none. Its ``xent_mode="onehot"`` gives identical values, so the port
     keeps one form."""
     valid = labels >= 0
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    if sharding.is_dtensor(logits):   # the vocab axis may be sharded
+        gold = sharding.gather_last(logits, labels)
+    else:
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = torch.where(valid, torch.logsumexp(logits, dim=-1) - gold, 0.0)
     return nll.sum() / valid.sum().clamp_min(1)
 
@@ -394,17 +426,18 @@ def loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
     cfg = model.cfg
     tokens, labels = batch["tokens"], batch["labels"]
     h, aux = model.hidden(tokens)
-    nll = xent((h @ model.lm_head).float(), labels)
+    nll = xent(_pin((h @ model.lm_head).float(), cfg.logit_spec), labels)
     loss = nll
     if cfg.mtp:
         mtp = model.mtp
         B, S = tokens.shape
-        emb_next = model.embed[torch.roll(tokens, -1, dims=1)]
+        emb_next = sharding.take_rows(model.embed, torch.roll(tokens, -1, dims=1))
         hm = torch.cat([L.rms_norm(h, mtp.norm), emb_next], dim=-1) @ mtp.proj
         hm, _ = mtp.layer(hm, torch.arange(S, device=tokens.device).expand(B, S))
-        labels_m = torch.roll(labels, -1, dims=1)
-        labels_m[:, -1] = -100
-        loss = loss + cfg.mtp_weight * xent((hm @ model.lm_head).float(), labels_m)
+        last = torch.arange(S, device=tokens.device) == S - 1
+        labels_m = torch.where(last, -100, torch.roll(labels, -1, dims=1))
+        loss = loss + cfg.mtp_weight * xent(_pin((hm @ model.lm_head).float(),
+                                                 cfg.logit_spec), labels_m)
     return loss + aux, {"nll": nll, "aux": aux}
 
 
@@ -426,7 +459,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> list[d
     """Per-layer caches, by absolute layer index: MLA {kv_c: (B, max_len,
     r), k_rope: (B, max_len, dr)}; GQA {k, v: (B, size, Hkv, dh), pos: (B,
     size) int32 of -1}, a windowed layer's size ``min(window, max_len)``."""
-    device = resolve_device(device)
+    device = model_device(device)
     caches = []
     for i in range(cfg.n_layers):
         w = cfg.layer_window(i)

@@ -139,3 +139,24 @@ def test_two_rank_int8_psum_is_the_mean_of_the_quantized_contributions(tmp_path)
     want = q.sum(0).astype(np.float32) * scale / np.float32(2.0)
     np.testing.assert_allclose(got[0], want, rtol=0, atol=1e-7)
     assert np.abs(got[0] - xs.mean(0)).max() <= float(scale)
+
+
+def test_allreduce_over_a_mesh_takes_its_first_data_axis(one_rank_group):
+    """On a DeviceMesh the reduction runs over ``data_axes(mesh)[0]``'s
+    group, the reference's rule; on make_test_mesh((1, 1)) against the
+    reference's call on its (1, 1) mesh, same gradients: the plain mean bit
+    for bit, int8 within one quantization step (each side draws its own
+    rounding noise)."""
+    from repro_torch.launch.mesh import make_test_mesh as port_test_mesh
+
+    mesh = port_test_mesh((1, 1), device_type="cpu")
+    x = jax.random.normal(jax.random.PRNGKey(5), (16, 8))
+    g = {"w": torch.from_numpy(np.asarray(x))}
+    jmesh = make_test_mesh((1, 1))
+    want = jc.make_compressed_allreduce(jmesh, scheme="none")({"w": x}, jax.random.PRNGKey(6))
+    got = pc.make_compressed_allreduce(mesh, scheme="none")(g, None)
+    np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
+    jint8 = jc.make_compressed_allreduce(jmesh, scheme="int8")({"w": x}, jax.random.PRNGKey(6))
+    int8 = pc.make_compressed_allreduce(mesh, scheme="int8")(g, torch.Generator().manual_seed(6))
+    step = float(np.abs(np.asarray(x)).max()) / 127.0
+    assert float(np.abs(int8["w"].numpy() - np.asarray(jint8["w"])).max()) <= step * 1.0001
