@@ -1,0 +1,7 @@
+"""device_idle_pct.search: share (%) of the traced search window with no
+kernel running on the device (the union of the profiler's device ops)."""
+from annbench.metrics._idle import idle_of
+
+
+def read(obs):
+    return idle_of(obs, "search")
