@@ -13,7 +13,11 @@ scatter-add on the CPU). Finished rows are masked, not exited.
 
 The reference's ``lax.while_loop`` is a host loop here: it reads
 ``done.all()`` once a step (one device sync a step) and stops when every row
-is done or ``max_steps`` is reached. Compressed scorers (``sq8``, ``pq``)
+is done or ``max_steps`` is reached. Under a torch profiler the loop records
+its phases (``repro_torch.tracing``): ``beam.seed``, then one ``beam.step``
+a step holding ``beam.select``, ``beam.expand``, ``beam.score``,
+``beam.visit``, ``beam.merge``, ``beam.freeze`` and, last, ``beam.done``
+(the step's one host read), then ``beam.finalize``. Compressed scorers (``sq8``, ``pq``)
 finish with an exact rerank of the best survivors (``_finalize``).
 
 Termination is per query, as the reference's. ``term="fixed"`` keeps the
@@ -36,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..tracing import span
 from .scorers import get_scorer
 from .topk import INF, INVALID, topk_smallest
 
@@ -254,70 +259,77 @@ def _step(state: _State, queries, base, neighbors, metric,
     Wd = expand_width
 
     # 1. best unexpanded candidate(s) per row; ties to the lowest slot
-    masked = state.cand_dists.masked_fill(state.expanded, INF)
-    best_d, j = topk_smallest(masked, Wd)                          # (Q, W)
-    worst = state.cand_dists[:, -1]
-    # termination: nothing expandable, or the best unexpanded is worse than
-    # the full list's worst (cannot improve the ef set)
-    newly_done = (best_d[:, 0] == INF) | (best_d[:, 0] > worst)
-    done = state.done | newly_done
-    active = ~done
+    with span("beam.select"):
+        masked = state.cand_dists.masked_fill(state.expanded, INF)
+        best_d, j = topk_smallest(masked, Wd)                      # (Q, W)
+        worst = state.cand_dists[:, -1]
+        # termination: nothing expandable, or the best unexpanded is worse
+        # than the full list's worst (cannot improve the ef set)
+        newly_done = (best_d[:, 0] == INF) | (best_d[:, 0] > worst)
+        done = state.done | newly_done
+        active = ~done
 
-    vtx = state.cand_ids.gather(1, j)                              # (Q, W)
-    expandable = (best_d < INF) & active[:, None]
-    expanded = state.expanded.scatter(
-        1, j, state.expanded.gather(1, j) | expandable)
+        vtx = state.cand_ids.gather(1, j)                          # (Q, W)
+        expandable = (best_d < INF) & active[:, None]
+        expanded = state.expanded.scatter(
+            1, j, state.expanded.gather(1, j) | expandable)
 
     # 2. gather neighbors; mask padding/inactive
-    nbrs = neighbors[vtx.clamp(min=0).long()].reshape(Q, Wd * R)  # (Q, W*R)
-    keep_nbr = (nbrs >= 0) & expandable.repeat_interleave(R, dim=1)
-    nbrs = torch.where(keep_nbr, nbrs, torch.full_like(nbrs, INVALID))
-    if Wd > 1:  # two expanded vertices may share a neighbor
-        nbrs = dedup_rows(nbrs)
+    with span("beam.expand"):
+        nbrs = neighbors[vtx.clamp(min=0).long()].reshape(Q, Wd * R)  # (Q, W*R)
+        keep_nbr = (nbrs >= 0) & expandable.repeat_interleave(R, dim=1)
+        nbrs = torch.where(keep_nbr, nbrs, torch.full_like(nbrs, INVALID))
+        if Wd > 1:  # two expanded vertices may share a neighbor
+            nbrs = dedup_rows(nbrs)
 
     # 3. score + mask + account + mark visited, through the scorer axis;
     # the kernel returns (+inf, INVALID) for padding/visited entries
-    nd, nbrs = get_scorer(scorer).score(
-        scorer_state, queries, base, nbrs.contiguous(), state.visited,
-        metric=metric, r_tile=r_tile,
-    )                                                              # (Q, W*R)
-    n_comps = state.n_comps + (nbrs >= 0).sum(dim=1, dtype=torch.int32)
-    visited = _mark_visited(state.visited, nbrs)
+    with span("beam.score"):
+        nd, nbrs = get_scorer(scorer).score(
+            scorer_state, queries, base, nbrs.contiguous(), state.visited,
+            metric=metric, r_tile=r_tile,
+        )                                                          # (Q, W*R)
+        n_comps = state.n_comps + (nbrs >= 0).sum(dim=1, dtype=torch.int32)
+    with span("beam.visit"):
+        visited = _mark_visited(state.visited, nbrs)
 
     # 4. merge: the ef best of (ef + W*R), stable, ties to the lowest index
-    all_d = torch.cat([state.cand_dists, nd], dim=1)
-    all_i = torch.cat([state.cand_ids, nbrs], dim=1)
-    all_e = torch.cat(
-        [expanded, torch.zeros(nbrs.shape, dtype=torch.bool, device=nbrs.device)],
-        dim=1,
-    )
-    cand_d, order = topk_smallest(all_d, ef)
-    cand_i = all_i.gather(1, order)
-    cand_e = all_e.gather(1, order)
+    with span("beam.merge"):
+        all_d = torch.cat([state.cand_dists, nd], dim=1)
+        all_i = torch.cat([state.cand_ids, nbrs], dim=1)
+        all_e = torch.cat(
+            [expanded, torch.zeros(nbrs.shape, dtype=torch.bool, device=nbrs.device)],
+            dim=1,
+        )
+        cand_d, order = topk_smallest(all_d, ef)
+        cand_i = all_i.gather(1, order)
+        cand_e = all_e.gather(1, order)
 
-    # frozen rows keep their state, bit for bit
-    frozen = done[:, None]
-    cand_i = torch.where(frozen, state.cand_ids, cand_i)
-    cand_d = torch.where(frozen, state.cand_dists, cand_d)
-    cand_e = torch.where(frozen, state.expanded, cand_e)
-    visited = torch.where(frozen, state.visited, visited)
-    n_comps = torch.where(done, state.n_comps, n_comps)
+    with span("beam.freeze"):
+        # frozen rows keep their state, bit for bit
+        frozen = done[:, None]
+        cand_i = torch.where(frozen, state.cand_ids, cand_i)
+        cand_d = torch.where(frozen, state.cand_dists, cand_d)
+        cand_e = torch.where(frozen, state.expanded, cand_e)
+        visited = torch.where(frozen, state.visited, visited)
+        n_comps = torch.where(done, state.n_comps, n_comps)
 
-    # term="stable": a row whose top-k has not strictly improved for
-    # stable_steps steps is done; next step its slots are INVALID
-    stale, restarts_used = state.stale, state.restarts_used
-    if term == "stable":
-        kk = min(k, ef)
-        improved = (cand_d[:, :kk] < state.cand_dists[:, :kk]).any(dim=1)
-        stale = torch.where(done, state.stale,
-                            torch.where(improved, torch.zeros_like(stale), state.stale + 1))
-        done = done | (stale >= stable_steps)
-    if restarts > 0:
-        (cand_i, cand_d, cand_e, visited, n_comps, done, stale,
-         restarts_used) = _restart_rows(
-            queries, base, metric, r_tile, scorer, scorer_state, restart_keys,
-            restarts, restart_gate, neighbors.shape[0], min(ef, 8), state.seed_best,
-            cand_i, cand_d, cand_e, visited, n_comps, done, stale, restarts_used)
+        # term="stable": a row whose top-k has not strictly improved for
+        # stable_steps steps is done; next step its slots are INVALID
+        stale, restarts_used = state.stale, state.restarts_used
+        if term == "stable":
+            kk = min(k, ef)
+            improved = (cand_d[:, :kk] < state.cand_dists[:, :kk]).any(dim=1)
+            stale = torch.where(done, state.stale,
+                                torch.where(improved, torch.zeros_like(stale),
+                                            state.stale + 1))
+            done = done | (stale >= stable_steps)
+        if restarts > 0:
+            (cand_i, cand_d, cand_e, visited, n_comps, done, stale,
+             restarts_used) = _restart_rows(
+                queries, base, metric, r_tile, scorer, scorer_state, restart_keys,
+                restarts, restart_gate, neighbors.shape[0], min(ef, 8), state.seed_best,
+                cand_i, cand_d, cand_e, visited, n_comps, done, stale, restarts_used)
     return _State(
         cand_ids=cand_i,
         cand_dists=cand_d,
@@ -410,15 +422,18 @@ def beam_search(
     state = _run(queries, base, neighbors, entry_ids, ef, metric, max_steps,
                  expand_width, r_tile, scorer, scorer_state, q_valid, k, term,
                  stable_steps, restarts, restart_gate, restart_keys, tombstones, deny)
-    return _finalize(state, queries, base, k, metric, r_tile, scorer,
-                     scorer_state, rerank)
+    with span("beam.finalize"):
+        return _finalize(state, queries, base, k, metric, r_tile, scorer,
+                         scorer_state, rerank)
 
 
 def _run(queries, base, neighbors, entry_ids, ef, metric, max_steps, expand_width,
          r_tile, scorer, scorer_state, q_valid, k, term, stable_steps, restarts,
          restart_gate, restart_keys, tombstones, deny) -> _State:
     """The beam loop shared by :func:`beam_search` and :func:`beam_traverse`:
-    checks, seeding and steps until every row is done or ``max_steps``."""
+    checks, seeding and steps until every row is done or ``max_steps``. The
+    host reads ``done.all()`` once after seeding and once at the end of each
+    step, inside its ``beam.step`` span, so a step's span covers its wait."""
     check_termination(term, restarts, restart_keys)
     if expand_width < 1 or entry_ids.shape[1] > ef:
         raise ValueError(f"need expand_width >= 1 and E <= ef, got "
@@ -426,12 +441,17 @@ def _run(queries, base, neighbors, entry_ids, ef, metric, max_steps, expand_widt
     if max_steps is None:
         max_steps = default_max_steps(ef, expand_width)
     entry_ids = mask_padded_queries(entry_ids.to(torch.int32), q_valid)
-    state = _init_state(queries, base, neighbors, entry_ids, ef, metric,
-                        r_tile, scorer, scorer_state, tombstones, deny)
-    while state.step < max_steps and not bool(state.done.all()):
-        state = _step(state, queries, base, neighbors, metric, expand_width,
-                      r_tile, scorer, scorer_state, k, term, stable_steps,
-                      restarts, restart_gate, restart_keys)
+    with span("beam.seed"):
+        state = _init_state(queries, base, neighbors, entry_ids, ef, metric,
+                            r_tile, scorer, scorer_state, tombstones, deny)
+        finished = state.step >= max_steps or bool(state.done.all())
+    while not finished:
+        with span("beam.step"):
+            state = _step(state, queries, base, neighbors, metric, expand_width,
+                          r_tile, scorer, scorer_state, k, term, stable_steps,
+                          restarts, restart_gate, restart_keys)
+            with span("beam.done"):
+                finished = state.step >= max_steps or bool(state.done.all())
     return state
 
 

@@ -13,15 +13,22 @@ insert, so ``GraphBuilder`` skips its global diversify stage.
 ``GraphBuilder(spec).build(base, seed)`` runs on ``base``'s device and emits
 a :class:`BuildReport` (rounds, update curve, realized degree distribution,
 dropped reverse edges, graph-recall proxy, walls, memory; on a GPU also the
-peak device memory of each stage).
+peak device memory of each stage). Under a torch profiler a build records
+the span ``build`` holding one span a stage: ``build.construct``,
+``build.proxy`` (the graph-recall proxy), ``build.diversify``,
+``build.compress`` and ``build.report`` (hubs, LID, the degree statistics,
+memory) (``repro_torch.tracing``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..tracing import span
 
 from .graph_index import (
     DEFAULT_N_HUBS,
@@ -380,24 +387,32 @@ def graph_recall_proxy(base, graph: KnnGraph, metric: str = "l2",
 
 
 class _StageClock:
-    """Wall seconds and (on a GPU) peak device memory of one build stage;
+    """The build's stages: each ``stage(name)`` is the profiler span
+    ``build.<name>``. A timed stage also records its wall seconds
+    (``walls``) and, on a GPU, its peak device memory (``peaks``), and
     synchronises the device at both ends so the wall covers the work."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.device = device
+        self.walls: dict[str, float] = {}
+        self.peaks: dict[str, int] = {}
 
-    def start(self) -> float:
-        if self.cuda:
-            torch.cuda.synchronize(self.device)
-            torch.cuda.reset_peak_memory_stats(self.device)
-        return time.perf_counter()
-
-    def stop(self, t0: float, name: str, peaks: dict) -> float:
-        if self.cuda:
-            torch.cuda.synchronize(self.device)
-            peaks[name] = int(torch.cuda.max_memory_allocated(self.device))
-        return time.perf_counter() - t0
+    @contextlib.contextmanager
+    def stage(self, name: str, timed: bool = True):
+        with span("build." + name):
+            if not timed:
+                yield
+                return
+            if self.cuda:
+                torch.cuda.synchronize(self.device)
+                torch.cuda.reset_peak_memory_stats(self.device)
+            t0 = time.perf_counter()
+            yield
+            if self.cuda:
+                torch.cuda.synchronize(self.device)
+                self.peaks[name] = int(torch.cuda.max_memory_allocated(self.device))
+            self.walls[name] = time.perf_counter() - t0
 
 
 # -- the builder --------------------------------------------------------------
@@ -421,81 +436,85 @@ class GraphBuilder:
     def build(self, base: torch.Tensor, seed: int = 0,
               verbose: bool = False) -> BuildResult:
         """Run the three stages on ``base``'s device (float32 (n, d))."""
-        from .lid import lid_mle
-
         spec = self.spec
         if spec.compress in ("pq", "opq") and base.shape[1] % spec.pq_m:
             raise ValueError(
                 f"compress={spec.compress!r} needs d % pq_m == 0 "
                 f"(d={base.shape[1]}, pq_m={spec.pq_m})"
             )
-        base = base.float().contiguous()
-        clock = _StageClock(base.device)
-        peaks: dict[str, int] = {}
+        with span("build"):
+            return self._stages(base.float().contiguous(), seed, verbose)
 
-        t0 = clock.start()
-        cres = self._construct(base, spec, seed, verbose)
-        wall_construct = clock.stop(t0, "construct", peaks)
+    def _stages(self, base: torch.Tensor, seed: int, verbose: bool) -> BuildResult:
+        from .lid import lid_mle
+
+        spec = self.spec
+        clock = _StageClock(base.device)
+
+        with clock.stage("construct"):
+            cres = self._construct(base, spec, seed, verbose)
 
         proxy = -1.0
         if spec.proxy_sample:
-            proxy_graph = (cres.proxy_graph if cres.proxy_graph is not None
-                           else cres.graph)
-            proxy = graph_recall_proxy(base, proxy_graph, metric=spec.metric,
-                                       sample=spec.proxy_sample)
+            with clock.stage("proxy", timed=False):
+                proxy_graph = (cres.proxy_graph if cres.proxy_graph is not None
+                               else cres.graph)
+                proxy = graph_recall_proxy(base, proxy_graph, metric=spec.metric,
+                                           sample=spec.proxy_sample)
 
-        t2 = clock.start()
-        if cres.stats.get("inline_diversify"):
-            # the construct diversified per insert; a second pass would
-            # prune the same edges again
-            graph, dstats = cres.graph, {"dropped_reverse_edges": 0}
-        else:
-            graph, dstats = self._diversify(base, cres.graph, spec)
-        wall_diversify = clock.stop(t2, "diversify", peaks)
+        with clock.stage("diversify"):
+            if cres.stats.get("inline_diversify"):
+                # the construct diversified per insert; a second pass would
+                # prune the same edges again
+                graph, dstats = cres.graph, {"dropped_reverse_edges": 0}
+            else:
+                graph, dstats = self._diversify(base, cres.graph, spec)
 
-        t3 = clock.start()
-        pq = self._compress(base, spec, seed)
-        wall_compress = clock.stop(t3, "compress", peaks)
+        with clock.stage("compress"):
+            pq = self._compress(base, spec, seed)
 
-        dropped = (dstats["dropped_reverse_edges"]
-                   + cres.stats.get("dropped_reverse_edges", 0))
-        mem = memory_bytes(cres.hierarchy if cres.hierarchy is not None
-                           else graph.neighbors)
-        if pq is not None:
-            mem += memory_bytes((pq.codebooks, pq.codes))
+        with clock.stage("report", timed=False):
+            dropped = (dstats["dropped_reverse_edges"]
+                       + cres.stats.get("dropped_reverse_edges", 0))
+            mem = memory_bytes(cres.hierarchy if cres.hierarchy is not None
+                               else graph.neighbors)
+            if pq is not None:
+                mem += memory_bytes((pq.codebooks, pq.codes))
 
-        # hubs off the FINAL adjacency: the walk the hubs seeder feeds runs
-        # on this graph
-        hubs = hub_vertices(graph.neighbors, spec.n_hubs)
+            # hubs off the FINAL adjacency: the walk the hubs seeder feeds runs
+            # on this graph
+            hubs = hub_vertices(graph.neighbors, spec.n_hubs)
 
-        lid = -1.0
-        if spec.lid_sample:
-            # always Euclidean: LID is a geometric property of the point set
-            lid = lid_mle(base, k=min(20, base.shape[0] - 2),
-                          sample=spec.lid_sample, metric="l2",
-                          seed=seed + 0x11D)
+            lid = -1.0
+            if spec.lid_sample:
+                # always Euclidean: LID is a geometric property of the point set
+                lid = lid_mle(base, k=min(20, base.shape[0] - 2),
+                              sample=spec.lid_sample, metric="l2",
+                              seed=seed + 0x11D)
 
-        report = BuildReport(
-            spec=spec, n=base.shape[0], d=base.shape[1],
-            rounds=cres.stats.get("rounds", 0),
-            update_curve=tuple(cres.stats.get("update_curve", ())),
-            converged=cres.stats.get("converged", True),
-            graph_recall_proxy=round(proxy, 4),
-            degree=degree_distribution(graph.neighbors),
-            dropped_reverse_edges=int(dropped),
-            wall_construct_s=round(wall_construct, 4),
-            wall_diversify_s=round(wall_diversify, 4),
-            wall_compress_s=round(wall_compress, 4),
-            wall_total_s=round(wall_construct + wall_diversify + wall_compress, 4),
-            memory_bytes=int(mem),
-            layers=cres.stats.get("layers", []),
-            in_degree=in_degree_distribution(graph.neighbors),
-            hub_ids=[int(h) for h in hubs],
-            lid=round(lid, 2),
-            inserts=int(cres.stats.get("inserts", 0)),
-            insert_rate=float(cres.stats.get("insert_rate", -1.0)),
-            peak_memory_bytes=peaks,
-        )
+            walls = clock.walls
+            report = BuildReport(
+                spec=spec, n=base.shape[0], d=base.shape[1],
+                rounds=cres.stats.get("rounds", 0),
+                update_curve=tuple(cres.stats.get("update_curve", ())),
+                converged=cres.stats.get("converged", True),
+                graph_recall_proxy=round(proxy, 4),
+                degree=degree_distribution(graph.neighbors),
+                dropped_reverse_edges=int(dropped),
+                wall_construct_s=round(walls["construct"], 4),
+                wall_diversify_s=round(walls["diversify"], 4),
+                wall_compress_s=round(walls["compress"], 4),
+                wall_total_s=round(walls["construct"] + walls["diversify"]
+                                   + walls["compress"], 4),
+                memory_bytes=int(mem),
+                layers=cres.stats.get("layers", []),
+                in_degree=in_degree_distribution(graph.neighbors),
+                hub_ids=[int(h) for h in hubs],
+                lid=round(lid, 2),
+                inserts=int(cres.stats.get("inserts", 0)),
+                insert_rate=float(cres.stats.get("insert_rate", -1.0)),
+                peak_memory_bytes=clock.peaks,
+            )
         return BuildResult(graph=graph, hierarchy=cres.hierarchy, pq=pq,
                            report=report, hubs=hubs)
 

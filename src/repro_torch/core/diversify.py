@@ -14,6 +14,8 @@ loop over the L candidate slots, vectorized across every vertex of the
 block. DPG's (L, L) cosine similarities are one ``torch.bmm`` a block (the
 reference computes them with ``jnp.einsum`` outside any kernel) and its
 greedy selection a loop of ``max_keep - 1`` steps over the block's rows.
+Under a torch profiler GD's prune and the reverse union record the spans
+``gd.prune`` and ``gd.union`` (``repro_torch.tracing``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..tracing import span
 from .graph_index import KnnGraph
 from .topk import INVALID, sort_by_distance
 
@@ -58,44 +61,45 @@ def add_reverse_edges_with_stats(neighbors: torch.Tensor, max_degree: int):
     Slot assignment is deterministic: incoming edges are ranked by source id
     (stable sort + cumcount), overflow beyond r reverse slots is dropped and
     counted. Returns (adjacency (n, max_degree) int32, ReverseUnionStats)."""
-    n, r = neighbors.shape
-    dev = neighbors.device
-    src = torch.arange(n, device=dev, dtype=torch.int32)[:, None].expand(n, r).reshape(-1)
-    tgt = neighbors.reshape(-1)
-    valid = tgt >= 0
-    tgt_s = torch.where(valid, tgt, torch.full_like(tgt, n))  # invalid -> scratch row
+    with span("gd.union"):
+        n, r = neighbors.shape
+        dev = neighbors.device
+        src = torch.arange(n, device=dev, dtype=torch.int32)[:, None].expand(n, r).reshape(-1)
+        tgt = neighbors.reshape(-1)
+        valid = tgt >= 0
+        tgt_s = torch.where(valid, tgt, torch.full_like(tgt, n))  # invalid -> scratch row
 
-    tgt_sorted, order = torch.sort(tgt_s, stable=True)
-    src_sorted = src[order]
-    # first occurrence position of each target = scatter-min of positions
-    pos = torch.arange(tgt_sorted.shape[0], device=dev, dtype=torch.int32)
-    first = torch.full((n + 1,), _INT32_MAX, dtype=torch.int32, device=dev)
-    first.scatter_reduce_(0, tgt_sorted.long(), pos, reduce="amin")
-    slot = pos - first[tgt_sorted.long()]
+        tgt_sorted, order = torch.sort(tgt_s, stable=True)
+        src_sorted = src[order]
+        # first occurrence position of each target = scatter-min of positions
+        pos = torch.arange(tgt_sorted.shape[0], device=dev, dtype=torch.int32)
+        first = torch.full((n + 1,), _INT32_MAX, dtype=torch.int32, device=dev)
+        first.scatter_reduce_(0, tgt_sorted.long(), pos, reduce="amin")
+        slot = pos - first[tgt_sorted.long()]
 
-    n_rev = r  # reserve up to r reverse slots per vertex before the cap
-    keep = (slot < n_rev) & (tgt_sorted < n)
-    rev = torch.full((n * n_rev,), INVALID, dtype=torch.int32, device=dev)
-    rev[(tgt_sorted.long() * n_rev + slot.long())[keep]] = src_sorted[keep]
-    rev = rev.view(n, n_rev)
+        n_rev = r  # reserve up to r reverse slots per vertex before the cap
+        keep = (slot < n_rev) & (tgt_sorted < n)
+        rev = torch.full((n * n_rev,), INVALID, dtype=torch.int32, device=dev)
+        rev[(tgt_sorted.long() * n_rev + slot.long())[keep]] = src_sorted[keep]
+        rev = rev.view(n, n_rev)
 
-    merged = torch.cat([neighbors, rev], dim=1)
-    # dedup by id per row (distance-free): sort ids, mask repeats, compact by
-    # moving INVALID to the end (stable, so the sorted order is kept)
-    ids_sorted, _ = torch.sort(merged, dim=1)
-    dup = torch.zeros_like(ids_sorted, dtype=torch.bool)
-    dup[:, 1:] = ids_sorted[:, 1:] == ids_sorted[:, :-1]
-    ids_sorted = ids_sorted.masked_fill(dup | (ids_sorted < 0), INVALID)
-    is_pad = (ids_sorted == INVALID).to(torch.int8)
-    _, order2 = torch.sort(is_pad, dim=1, stable=True)
-    compact = ids_sorted.gather(1, order2)
-    n_valid = int(valid.sum())
-    stats = ReverseUnionStats(
-        candidates=n_valid,
-        dropped_slot=n_valid - int(keep.sum()),
-        dropped_cap=int((compact[:, max_degree:] != INVALID).sum()),
-    )
-    return compact[:, :max_degree], stats
+        merged = torch.cat([neighbors, rev], dim=1)
+        # dedup by id per row (distance-free): sort ids, mask repeats, compact by
+        # moving INVALID to the end (stable, so the sorted order is kept)
+        ids_sorted, _ = torch.sort(merged, dim=1)
+        dup = torch.zeros_like(ids_sorted, dtype=torch.bool)
+        dup[:, 1:] = ids_sorted[:, 1:] == ids_sorted[:, :-1]
+        ids_sorted = ids_sorted.masked_fill(dup | (ids_sorted < 0), INVALID)
+        is_pad = (ids_sorted == INVALID).to(torch.int8)
+        _, order2 = torch.sort(is_pad, dim=1, stable=True)
+        compact = ids_sorted.gather(1, order2)
+        n_valid = int(valid.sum())
+        stats = ReverseUnionStats(
+            candidates=n_valid,
+            dropped_slot=n_valid - int(keep.sum()),
+            dropped_cap=int((compact[:, max_degree:] != INVALID).sum()),
+        )
+        return compact[:, :max_degree], stats
 
 
 def add_reverse_edges(neighbors: torch.Tensor, max_degree: int) -> torch.Tensor:
@@ -127,26 +131,27 @@ def gd_prune(base: torch.Tensor, graph: KnnGraph, max_keep: int | None = None,
     """HNSW-heuristic pruning of a flat graph; returns (n, L) ids, -1 padded,
     with at most ``max_keep`` (default L/2, per the paper) kept per vertex,
     compacted to the front in distance order."""
-    from ..kernels import ops
+    with span("gd.prune"):
+        from ..kernels import ops
 
-    n, L = graph.neighbors.shape
-    if max_keep is None:
-        max_keep = L // 2
-    dists, ids = sort_by_distance(graph.dists, graph.neighbors)
-    base = base.float().contiguous()
-    keep = torch.empty((n, L), dtype=torch.bool, device=ids.device)
-    for lo in range(0, n, chunk):
-        hi = min(lo + chunk, n)
-        tids = ids[lo:hi]
-        rows = base[tids.clamp(min=0).long()]                    # (B, L, d)
-        pair_d = ops.distance_matrix(rows, rows, metric=metric)  # (B, L, L)
-        bad = (tids < 0)[:, :, None] | (tids < 0)[:, None, :]
-        pair_d = pair_d.masked_fill(bad, float("inf"))
-        keep[lo:hi] = _occlusion_select(dists[lo:hi], pair_d, tids >= 0, max_keep)
-    kept_ids = torch.where(keep, ids, torch.full_like(ids, INVALID))
-    # compact kept entries to the front (they are distance-sorted already)
-    _, order = torch.sort((~keep).to(torch.int8), dim=1, stable=True)
-    return kept_ids.gather(1, order)
+        n, L = graph.neighbors.shape
+        if max_keep is None:
+            max_keep = L // 2
+        dists, ids = sort_by_distance(graph.dists, graph.neighbors)
+        base = base.float().contiguous()
+        keep = torch.empty((n, L), dtype=torch.bool, device=ids.device)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            tids = ids[lo:hi]
+            rows = base[tids.clamp(min=0).long()]                    # (B, L, d)
+            pair_d = ops.distance_matrix(rows, rows, metric=metric)  # (B, L, L)
+            bad = (tids < 0)[:, :, None] | (tids < 0)[:, None, :]
+            pair_d = pair_d.masked_fill(bad, float("inf"))
+            keep[lo:hi] = _occlusion_select(dists[lo:hi], pair_d, tids >= 0, max_keep)
+        kept_ids = torch.where(keep, ids, torch.full_like(ids, INVALID))
+        # compact kept entries to the front (they are distance-sorted already)
+        _, order = torch.sort((~keep).to(torch.int8), dim=1, stable=True)
+        return kept_ids.gather(1, order)
 
 
 def build_gd_graph(base: torch.Tensor, graph: KnnGraph, metric: str = "l2",

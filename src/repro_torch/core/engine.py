@@ -60,6 +60,7 @@ from .beam_search import (
 )
 from .filters import CompiledFilter, FilterSpec, compile_filter, remap_denied_seeds
 from .graph_index import HnswIndex, KnnGraph
+from ..tracing import span
 from .scorers import get_scorer
 from .topk import INF, INVALID, topk_smallest
 
@@ -726,36 +727,42 @@ class Searcher:
         :func:`filtered_brute_cutoff` scans the allowed ids exactly instead
         (``entries``, ``scorer`` and ``base_placement`` are then ignored).
         ``spec.base_placement`` "host" or "disk" traverses on the compressed
-        table and reranks from that tier."""
-        self._check_spec(spec)
-        queries = queries.float().contiguous()
-        cf, brute = self._filter_plan(spec)
-        if brute:
-            return self._filtered_brute(queries, cf, spec, q_valid=q_valid)
-        if spec.base_placement != "device":
-            return self._host_finish(self._host_start(
-                queries, spec, seed, entries=entries, entry_comps=entry_comps,
-                q_valid=q_valid, cf=cf))
-        if entries is None:
-            entries, entry_comps = self.seed(queries, spec, seed)
-        entries = self._remap_entries(entries, cf, seed)
-        if q_valid is not None and entry_comps is not None:
-            entry_comps = torch.where(q_valid, entry_comps,
-                                      torch.zeros_like(entry_comps))
-        res = beam_search(
-            queries, self.base, self.neighbors, entries,
-            ef=spec.ef, k=spec.k, metric=spec.metric,
-            max_steps=spec.max_steps, expand_width=spec.expand_width,
-            r_tile=spec.r_tile, scorer=spec.scorer,
-            scorer_state=self.scorer_state(queries, spec), rerank=spec.rerank,
-            q_valid=q_valid, term=spec.term, stable_steps=spec.stable_steps,
-            restarts=spec.restarts, restart_gate=spec.restart_gate,
-            restart_keys=self.restart_keys(queries.shape[0], spec, seed),
-            tombstones=self.tombstones, deny=None if cf is None else cf.deny,
-        )
-        if entry_comps is not None:
-            res = res._replace(n_comps=res.n_comps + entry_comps)
-        return res
+        table and reranks from that tier. Under a torch profiler the call is
+        the span ``search``, with ``search.entries`` and
+        ``search.scorer_state`` before the beam's own (``core.beam_search``)."""
+        with span("search"):
+            self._check_spec(spec)
+            queries = queries.float().contiguous()
+            cf, brute = self._filter_plan(spec)
+            if brute:
+                return self._filtered_brute(queries, cf, spec, q_valid=q_valid)
+            if spec.base_placement != "device":
+                return self._host_finish(self._host_start(
+                    queries, spec, seed, entries=entries, entry_comps=entry_comps,
+                    q_valid=q_valid, cf=cf))
+            with span("search.entries"):
+                if entries is None:
+                    entries, entry_comps = self.seed(queries, spec, seed)
+                entries = self._remap_entries(entries, cf, seed)
+                if q_valid is not None and entry_comps is not None:
+                    entry_comps = torch.where(q_valid, entry_comps,
+                                              torch.zeros_like(entry_comps))
+            with span("search.scorer_state"):
+                state = self.scorer_state(queries, spec)
+            res = beam_search(
+                queries, self.base, self.neighbors, entries,
+                ef=spec.ef, k=spec.k, metric=spec.metric,
+                max_steps=spec.max_steps, expand_width=spec.expand_width,
+                r_tile=spec.r_tile, scorer=spec.scorer,
+                scorer_state=state, rerank=spec.rerank,
+                q_valid=q_valid, term=spec.term, stable_steps=spec.stable_steps,
+                restarts=spec.restarts, restart_gate=spec.restart_gate,
+                restart_keys=self.restart_keys(queries.shape[0], spec, seed),
+                tombstones=self.tombstones, deny=None if cf is None else cf.deny,
+            )
+            if entry_comps is not None:
+                res = res._replace(n_comps=res.n_comps + entry_comps)
+            return res
 
     def search_stream(self, queries: torch.Tensor, spec: SearchSpec,
                       seed: int | None = None, *,

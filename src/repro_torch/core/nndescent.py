@@ -29,6 +29,11 @@ Differences from the reference, all forced by the device:
   284-wide merge rows would otherwise need ~2.3 GB of int64 indices each).
 
 The update counter gives the standard early-termination rule (delta * n * K).
+Under a torch profiler the build records ``nndescent.init`` and one
+``nndescent.round`` a round, holding ``nndescent.pool`` (steps 1-3),
+``nndescent.score`` (4), ``nndescent.push`` (4b), ``nndescent.merge`` (5)
+and, last, ``nndescent.done``: the round's one host read, of its update
+count (``repro_torch.tracing``).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..tracing import span
 from .graph_index import KnnGraph
 from .topk import INVALID, dedup_by_id
 
@@ -132,53 +138,57 @@ def _round(base, ids, dists, isnew, gen: torch.Generator,
            cfg: NNDescentConfig, metric: str):
     n, k = ids.shape
     dev = ids.device
-    pool = _round_pool(ids, isnew, gen, cfg)                        # (n, C)
+    with span("nndescent.pool"):
+        pool = _round_pool(ids, isnew, gen, cfg)                    # (n, C)
 
     # 4. score
-    cand_d = _score_chunked(base, pool, metric, cfg.chunk)
+    with span("nndescent.score"):
+        cand_d = _score_chunked(base, pool, metric, cfg.chunk)
 
     # 4b. symmetric push-back: scatter each scored edge's flat position
     # (v * C + j) into a random slot of c's incoming buffer, once (the
     # highest position wins a collision); id and distance are both read
     # through the surviving position
-    C = pool.shape[1]
-    rb = max(k, cfg.reverse)
-    push_pos = torch.full((n * rb,), -1, dtype=torch.int64, device=dev)
-    col = torch.arange(C, device=dev)
-    for lo in range(0, n, ROW_BLOCK):
-        hi = min(lo + ROW_BLOCK, n)
-        p = pool[lo:hi]
-        pvalid = p >= 0
-        pslots = torch.randint(0, rb, p.shape, generator=gen, device=dev)
-        tgt = p.long() * rb + pslots
-        pos = torch.arange(lo, hi, device=dev)[:, None] * C + col
-        push_pos.scatter_reduce_(0, tgt[pvalid], pos[pvalid], reduce="amax")
-    push_pos = push_pos.view(n, rb)
-    has = push_pos >= 0
-    safe_pos = push_pos.clamp(min=0)
-    push_i = torch.where(has, (safe_pos // C).to(torch.int32),
-                         torch.full_like(push_pos, INVALID, dtype=torch.int32))
-    push_d = torch.where(has, cand_d.reshape(-1)[safe_pos],
-                         torch.full_like(cand_d[:, :1], float("inf")))
-    del push_pos, has, safe_pos
+    with span("nndescent.push"):
+        C = pool.shape[1]
+        rb = max(k, cfg.reverse)
+        push_pos = torch.full((n * rb,), -1, dtype=torch.int64, device=dev)
+        col = torch.arange(C, device=dev)
+        for lo in range(0, n, ROW_BLOCK):
+            hi = min(lo + ROW_BLOCK, n)
+            p = pool[lo:hi]
+            pvalid = p >= 0
+            pslots = torch.randint(0, rb, p.shape, generator=gen, device=dev)
+            tgt = p.long() * rb + pslots
+            pos = torch.arange(lo, hi, device=dev)[:, None] * C + col
+            push_pos.scatter_reduce_(0, tgt[pvalid], pos[pvalid], reduce="amax")
+        push_pos = push_pos.view(n, rb)
+        has = push_pos >= 0
+        safe_pos = push_pos.clamp(min=0)
+        push_i = torch.where(has, (safe_pos // C).to(torch.int32),
+                             torch.full_like(push_pos, INVALID, dtype=torch.int32))
+        push_d = torch.where(has, cand_d.reshape(-1)[safe_pos],
+                             torch.full_like(cand_d[:, :1], float("inf")))
+        del push_pos, has, safe_pos
 
     # 5. merge, block by block
-    new_i = torch.empty_like(ids)
-    new_d = torch.empty_like(dists)
-    new_flag = torch.empty_like(isnew)
-    for lo in range(0, n, ROW_BLOCK):
-        hi = min(lo + ROW_BLOCK, n)
-        d, i = dedup_by_id(
-            torch.cat([dists[lo:hi], cand_d[lo:hi], push_d[lo:hi]], dim=1),
-            torch.cat([ids[lo:hi], pool[lo:hi], push_i[lo:hi]], dim=1),
-        )
-        i, d = i[:, :k], d[:, :k]
-        # an entry is "new" if its id was not in the previous list
-        was_in = (i[:, :, None] == ids[lo:hi, None, :]).any(-1)
-        new_flag[lo:hi] = ~was_in & (i != INVALID)
-        new_i[lo:hi] = i
-        new_d[lo:hi] = d
-    return new_i, new_d, new_flag, new_flag.sum()
+    with span("nndescent.merge"):
+        new_i = torch.empty_like(ids)
+        new_d = torch.empty_like(dists)
+        new_flag = torch.empty_like(isnew)
+        for lo in range(0, n, ROW_BLOCK):
+            hi = min(lo + ROW_BLOCK, n)
+            d, i = dedup_by_id(
+                torch.cat([dists[lo:hi], cand_d[lo:hi], push_d[lo:hi]], dim=1),
+                torch.cat([ids[lo:hi], pool[lo:hi], push_i[lo:hi]], dim=1),
+            )
+            i, d = i[:, :k], d[:, :k]
+            # an entry is "new" if its id was not in the previous list
+            was_in = (i[:, :, None] == ids[lo:hi, None, :]).any(-1)
+            new_flag[lo:hi] = ~was_in & (i != INVALID)
+            new_i[lo:hi] = i
+            new_d[lo:hi] = d
+        return new_i, new_d, new_flag, new_flag.sum()
 
 
 def build_knn_graph_with_stats(base: torch.Tensor,
@@ -190,18 +200,21 @@ def build_knn_graph_with_stats(base: torch.Tensor,
     n = base.shape[0]
     base = base.float().contiguous()
     gen = torch.Generator(device=base.device).manual_seed(seed)
-    ids = _random_init(gen, n, cfg.k)
-    dists = _score_chunked(base, ids, metric, cfg.chunk)
-    dists, ids = dedup_by_id(dists, ids)
-    isnew = torch.ones_like(ids, dtype=torch.bool)
+    with span("nndescent.init"):
+        ids = _random_init(gen, n, cfg.k)
+        dists = _score_chunked(base, ids, metric, cfg.chunk)
+        dists, ids = dedup_by_id(dists, ids)
+        isnew = torch.ones_like(ids, dtype=torch.bool)
 
     threshold = cfg.delta * n * cfg.k
     curve: list[int] = []
     converged = False
     for r in range(cfg.rounds):
-        ids, dists, isnew, n_up = _round(base, ids, dists, isnew, gen, cfg,
-                                         metric)
-        n_up = int(n_up)
+        with span("nndescent.round"):
+            ids, dists, isnew, n_up = _round(base, ids, dists, isnew, gen, cfg,
+                                             metric)
+            with span("nndescent.done"):
+                n_up = int(n_up)
         curve.append(n_up)
         if verbose:
             print(f"[nndescent] round {r}: {n_up} updates")
